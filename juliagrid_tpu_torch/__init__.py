@@ -1,0 +1,29 @@
+"""juliagrid_tpu_torch — the PyTorch/CUDA port of juliagrid_tpu.
+
+The same snake_case API as the JAX package, on PyTorch tensors in float64,
+for an NVIDIA H100. The Newton-Raphson AC power flow runs through a
+hand-written CUDA kernel (``kernels/csrc/nr_fill.cu``) for the injections,
+mismatch and Jacobian fill, and ``torch.linalg`` for the f64 solve. The
+numpy host layer (parsers, data model, post-processing) is a copy of the
+JAX package's, so the port imports no JAX.
+
+Analyses run on ``config.device`` (``"cuda"`` by default); pass
+``device="cpu"`` to run on the CPU, where each kernel's plain PyTorch
+version takes its place.
+"""
+
+from .config import config, default_config, set_config
+from .units import units
+
+# power-system data layer
+from .system.load import power_system
+from .system.model import ac_model
+
+# power flow
+from .powerflow.ac import mismatch, newton_raphson, set_initial_point, solve
+from .powerflow.driver import power_flow
+
+# postprocessing
+from .postprocessing import ac as ac_post
+
+__version__ = "0.1.0"

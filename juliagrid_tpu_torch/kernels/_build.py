@@ -1,0 +1,67 @@
+"""Build the port's CUDA sources into shared libraries loaded with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher that takes
+raw device pointers (``tensor.data_ptr()``) and a stream
+(``torch.cuda.current_stream().cuda_stream``), so the build needs neither
+PyTorch's headers nor ninja: one ``nvcc`` call of a few seconds per source.
+
+The library is built at first use into ``build/juliagrid_tpu_torch/`` at the
+root of the checkout. Its file name carries a hash of the source and the
+flags, so an edited source builds anew, and a file lock lets concurrent
+processes share one build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "juliagrid_tpu_torch"
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: on ``PATH``, else under ``$CUDA_HOME/bin``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found on PATH or under CUDA_HOME; the port's CUDA kernels "
+        "are built from source at first use and need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    key = (CSRC / f"{name}.cu").read_bytes() + "\0".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(key).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` unless already built, and load it."""
+    nvcc = nvcc_path()
+    so = library_path(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with code {res.returncode} building "
+                    f"{name}:\n{res.stdout}{res.stderr}")
+            os.replace(tmp, so)
+    return ctypes.CDLL(str(so))

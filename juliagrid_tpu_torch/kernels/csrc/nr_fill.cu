@@ -1,0 +1,161 @@
+// K1 nr_fill: Newton-Raphson injections, mismatch and masked Jacobian fill.
+//
+// Replaces the jnp device routines of juliagrid_tpu/powerflow/ac.py:
+// _injections (:92), _mismatch (:111) and _nr_jacobian (:125). There they
+// are a gather, trig, two segment sums and eight dense scatters over the
+// Y-bus entry list; here one launch does all of it for B >= 1 scenarios.
+//
+// Mapping: one warp per (scenario, bus row). The Y entries are sorted by
+// row (CSR, row_ptr), so a row is a contiguous range; its lanes stride over
+// it 32 entries at a time. Each lane computes theta = theta_i - theta_j,
+// t1 = Vi Vj (G cos + B sin) and t2 = Vi Vj (G sin - B cos) for its
+// entries, keeps a partial sum of P and Q, and writes the entries' four
+// off-diagonal partials of ac.py:137-148 already multiplied by the row and
+// column masks (m_ang[k] = k != slack, m_mag[k] = bus_type[k] == 1). A warp
+// shuffle sums P and Q; lane 0 writes P, Q, the masked mismatch
+// (ac.py:116-119) and the four diagonal partials (ac.py:150-156), with a
+// masked diagonal position set to 1 (ac.py:161). (row, col) pairs are
+// unique, so every Jacobian element has one writer and no atomics are
+// needed.
+//
+// Bound: with the Jacobian, the launcher zeroes B (2n)^2 doubles first
+// (cudaMemsetAsync), which is a write at full memory bandwidth and
+// dominates at the main path's sizes (3.2 GB for a 10k-bus grid); the fill
+// itself writes 4 nnz scattered doubles. Without the Jacobian the launch
+// reads about 24 bytes per entry and is bound by launch latency at these
+// sizes. Offsets into the Jacobian are 64-bit: B (2n)^2 passes 2^31 at
+// 10k buses with B > 5.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+nr_fill_kernel(const int* __restrict__ row_ptr,
+               const int* __restrict__ cols,
+               const double* __restrict__ yg,
+               const double* __restrict__ yb,
+               const int* __restrict__ diag,
+               const int* __restrict__ bus_type,
+               int slack,
+               const double* __restrict__ vm,
+               const double* __restrict__ va,
+               const double* __restrict__ p_sched,
+               const double* __restrict__ q_sched,
+               double* __restrict__ p,
+               double* __restrict__ q,
+               double* __restrict__ mp,
+               double* __restrict__ mq,
+               double* __restrict__ jac,
+               int n, int batch) {
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  // blockDim.x is a multiple of 32, so a warp leaves here as a whole and
+  // the full-mask shuffles below see all 32 lanes.
+  if (warp >= static_cast<int64_t>(n) * batch) return;
+  const int b = static_cast<int>(warp / n);
+  const int r = static_cast<int>(warp % n);
+
+  const int64_t base = static_cast<int64_t>(b) * n;
+  const double* vmb = vm + base;
+  const double* vab = va + base;
+  const double vi = vmb[r];
+  const double ti = vab[r];
+  const bool ang_r = r != slack;
+  const bool mag_r = bus_type[r] == 1;
+
+  const int64_t n2 = 2 * static_cast<int64_t>(n);
+  double* jp = nullptr;  // row r of scenario b: dP_r
+  double* jq = nullptr;  // row n + r of scenario b: dQ_r
+  if (jac != nullptr) {
+    double* jb = jac + static_cast<int64_t>(b) * n2 * n2;
+    jp = jb + r * n2;
+    jq = jb + (n + r) * n2;
+  }
+
+  double sp = 0.0;
+  double sq = 0.0;
+  const int end = row_ptr[r + 1];
+  for (int k = row_ptr[r] + lane; k < end; k += kWarp) {
+    const int c = cols[k];
+    const double vj = vmb[c];
+    double s, co;
+    sincos(ti - vab[c], &s, &co);
+    const double g = yg[k];
+    const double bk = yb[k];
+    const double gc_bs = g * co + bk * s;  // G cos + B sin
+    const double gs_bc = g * s - bk * co;  // G sin - B cos
+    const double vv = vi * vj;
+    sp += vv * gc_bs;
+    sq += vv * gs_bc;
+    if (jp != nullptr && c != r) {
+      const bool ang_c = c != slack;
+      const bool mag_c = bus_type[c] == 1;
+      if (ang_r && ang_c) jp[c] = vv * gs_bc;       // dP/dtheta_j
+      if (ang_r && mag_c) jp[n + c] = vi * gc_bs;   // dP/dV_j
+      if (mag_r && ang_c) jq[c] = -vv * gc_bs;      // dQ/dtheta_j
+      if (mag_r && mag_c) jq[n + c] = vi * gs_bc;   // dQ/dV_j
+    }
+  }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off /= 2) {
+    sp += __shfl_down_sync(0xffffffffu, sp, off);
+    sq += __shfl_down_sync(0xffffffffu, sq, off);
+  }
+  if (lane != 0) return;
+
+  const int64_t i = base + r;
+  p[i] = sp;
+  q[i] = sq;
+  mp[i] = ang_r ? sp - p_sched[i] : 0.0;
+  mq[i] = mag_r ? sq - q_sched[i] : 0.0;
+  if (jp != nullptr) {
+    const double gii = yg[diag[r]];
+    const double bii = yb[diag[r]];
+    const double v2 = vi * vi;
+    jp[r] = ang_r ? -sq - bii * v2 : 1.0;
+    jp[n + r] = (ang_r && mag_r) ? sp / vi + gii * vi : 0.0;
+    jq[r] = (mag_r && ang_r) ? sp - gii * v2 : 0.0;
+    jq[n + r] = mag_r ? sq / vi - bii * vi : 1.0;
+  }
+}
+
+}  // namespace
+
+// Launch K1 on `stream`. All arrays are device pointers: the entry list
+// (row_ptr[n + 1], cols/yg/yb[nnz]), diag/bus_type[n], and the row-major
+// [batch, n] state, schedules and outputs. `jac` is a [batch, 2n, 2n]
+// buffer, or null to skip the Jacobian. Returns a cudaError_t code.
+extern "C" int nr_fill_launch(const int* row_ptr, const int* cols,
+                              const double* yg, const double* yb,
+                              const int* diag, const int* bus_type, int slack,
+                              const double* vm, const double* va,
+                              const double* p_sched, const double* q_sched,
+                              double* p, double* q, double* mp, double* mq,
+                              double* jac, int n, int batch, void* stream) {
+  if (n <= 0 || batch <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (jac != nullptr) {
+    const size_t bytes = static_cast<size_t>(batch) * 4 *
+                         static_cast<size_t>(n) * n * sizeof(double);
+    const cudaError_t err = cudaMemsetAsync(jac, 0, bytes, s);
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t threads = static_cast<int64_t>(n) * batch * kWarp;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  nr_fill_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      row_ptr, cols, yg, yb, diag, bus_type, slack, vm, va, p_sched, q_sched,
+      p, q, mp, mq, jac, n, batch);
+  return cudaGetLastError();
+}
+
+extern "C" const char* nr_fill_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
