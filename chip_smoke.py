@@ -5,13 +5,18 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel K1 (``nr_fill``) from the sources in the
-checkout, holds it against its plain PyTorch version, and drives the
-Newton-Raphson main path — ``power_system`` -> ``newton_raphson`` ->
-``power_flow`` — on a 10,000-bus grid, checked against the independent
-scipy oracle; then a 1024-scenario case118 fleet. Every phase prints one
-line; any failure exits non-zero. The grid is ``synthetic_grid(100, 100)``:
-the ACTIVSg10k case ships as HDF5 and the card's machine has no h5py.
+It builds the port's CUDA kernels K1 (``nr_fill``) and K3 (``se_fill``)
+from the sources in the checkout and holds each against its plain PyTorch
+version. It drives the Newton-Raphson main path — ``power_system`` ->
+``newton_raphson`` -> ``power_flow`` — on a 10,000-bus grid, checked against
+the independent scipy oracle, and a 1024-scenario case118 fleet (phases
+1-4). Then the Gauss-Newton WLS state-estimation path — ``measurement`` +
+``add_*`` -> ``gauss_newton`` -> ``state_estimation`` — on a 1,369-bus grid
+against the scipy oracle and on case14/30 with every row type, and the
+Monte-Carlo SE fleets of bench configs 3 and 5b (phases 5-7). Every phase
+prints its lines; any failure exits non-zero. The grids are
+``synthetic_grid``s: ACTIVSg10k and case1354pegase ship as HDF5 and the
+card's machine has no h5py.
 
 The second-last lines are the card's ``nvidia-smi`` name and power limit
 and a JSON object with each kernel's launches on the main path, error
@@ -25,15 +30,24 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from juliagrid_tpu_torch import newton_raphson, power_flow, power_system
+from juliagrid_tpu_torch import (add_ammeter, add_pmu, add_varmeter,
+                                 add_voltmeter, add_wattmeter, gauss_newton,
+                                 measurement, newton_raphson, power_flow,
+                                 power_system, state_estimation,
+                                 update_voltmeter, update_wattmeter)
+from juliagrid_tpu_torch.estimation.acse import (_normal_equations,
+                                                 _solve_normal,
+                                                 compile_se_arrays)
 from juliagrid_tpu_torch.kernels import nr_fill as k1
-from juliagrid_tpu_torch.oracle import oracle_nr
-from juliagrid_tpu_torch.parallel import batched_nr_solve
+from juliagrid_tpu_torch.kernels import se_fill as k3
+from juliagrid_tpu_torch.oracle import oracle_nr, oracle_wls_se
+from juliagrid_tpu_torch.parallel import batched_nr_solve, batched_se_solve
 from juliagrid_tpu_torch.powerflow.ac import (_max_mismatch, _nr_solve,
                                               _nr_update, compile_ac_arrays)
 from juliagrid_tpu_torch.utils.synthetic import synthetic_grid
@@ -47,6 +61,12 @@ SMALL_STATE_TOL = 1e-9     # case14/30 against the oracle
 GRID_STATE_TOL = 1e-8      # 10k grid against the oracle
 TWIN_STATE_TOL = 1e-10     # a solve against the same solve on nr_fill_ref
 TOL = 1e-8                 # NR mismatch tolerance (power_flow default)
+SE_GRID = (37, 37)         # 1,369 buses: bench config 5b's pegase-sized shape
+SE_FLEET = 1024            # case118 SE scenarios (bench config 3, full width)
+SE_CHUNK, SE_CHUNKS = 32, 2  # config 5b: 64 scenarios in chunks of 32
+K3_REL_TOL = 1e-12         # |kernel - plain| <= tol * max(1, |plain|)
+SE_STATE_TOL = 1e-8        # 1,369-bus SE vs oracle; case14/30 SE vs PF
+SE_TOL = 1e-8              # GN max|dx| tolerance (state_estimation default)
 
 
 class SmokeFailure(RuntimeError):
@@ -171,11 +191,14 @@ def phase0():
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    k1._library()
+    # one nvcc per source, started together
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for build in [pool.submit(k._library) for k in (k1, k3)]:
+            build.result()
     build_s = time.perf_counter() - t0
     print(f"phase 0 device: {torch.cuda.get_device_name(0)} ({card}), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"K1 build+load {build_s!r} s")
+          f"K1 and K3 build+load {build_s!r} s")
     return card
 
 
@@ -305,19 +328,379 @@ def phase4():
           + ", ".join(f"{name} {rate!r}" for name, rate in rates))
 
 
+# --------------------------------------------------------------------------
+# State estimation (phases 5-7)
+# --------------------------------------------------------------------------
+
+def scada_pmu(system, pmu_every=10):
+    """bench.py's SE measurement set (``_scada_pmu``, bench.py:86-105) from
+    the port's own power flow: voltmeters, watt- and varmeters on every bus
+    and branch end, polar PMUs on every 10th bus, no noise."""
+    pf = newton_raphson(system, device="cuda")
+    power_flow(pf, power=True)
+    mon = measurement(system)
+    add_voltmeter(mon, analysis=pf, noise=False)
+    add_wattmeter(mon, analysis=pf, noise=False)
+    add_varmeter(mon, analysis=pf, noise=False)
+    for b in range(0, system.bus.number, pmu_every):
+        add_pmu(mon, bus=system.bus.label.label(b),
+                magnitude=float(pf.voltage.magnitude[b]),
+                angle=float(pf.voltage.angle[b]), polar=True, noise=False)
+    return mon, pf
+
+
+def solved_case(case):
+    system = power_system(str(DATA / f"{case}.m"))
+    pf = newton_raphson(system, device="cuda")
+    power_flow(pf, power=True, current=True)
+    return system, pf
+
+
+def every_row_type(system, pf):
+    """All 21 row types, correlated PMU pairs and two inactive rows."""
+    mon = measurement(system)
+    add_voltmeter(mon, analysis=pf)
+    add_ammeter(mon, analysis=pf)
+    add_ammeter(mon, analysis=pf, square=True)
+    add_wattmeter(mon, analysis=pf)
+    add_varmeter(mon, analysis=pf)
+    add_pmu(mon, analysis=pf, polar=True)
+    add_pmu(mon, analysis=pf, polar=True, square=True, status_bus=-1)
+    add_pmu(mon, analysis=pf)
+    add_pmu(mon, analysis=pf, correlated=True, status_from=-1)
+    update_voltmeter(mon, mon.voltmeter.label.label(3), status=0)
+    update_wattmeter(mon, mon.wattmeter.label.label(5), status=0)
+    return mon
+
+
+def se_sets(system, pf):
+    """tests/test_estimation.py's sets (:35-91): SCADA plus ammeters and
+    rectangular PMUs, plus polar bus PMUs, plus correlated PMUs."""
+    def scada():
+        mon = measurement(system)
+        add_voltmeter(mon, analysis=pf)
+        add_wattmeter(mon, analysis=pf)
+        add_varmeter(mon, analysis=pf)
+        return mon
+
+    amm = scada()
+    add_ammeter(amm, analysis=pf)
+    add_pmu(amm, analysis=pf)
+    pol = scada()
+    add_pmu(pol, analysis=pf, polar=True, status_from=-1, status_to=-1)
+    cor = scada()
+    add_pmu(cor, analysis=pf, correlated=True)
+    return {"scada": scada(), "ammeters+PMUs": amm, "polar PMUs": pol,
+            "correlated PMUs": cor}
+
+
+def se_scenarios(host, nscen, spread=0.5, seed=3):
+    """bench.py's ``_se_scenarios`` (bench.py:280-287): base means plus
+    spread * sigma * N(0, 1) per row, from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    sigma = 1.0 / np.sqrt(host.w)
+    return host.mean[None, :] + spread * sigma[None, :] * \
+        rng.standard_normal((nscen, len(host.mean)))
+
+
+def compare_k3(label, arr, net, vm, va, mean):
+    """Phase 5: K3 against se_fill_ref on the same inputs, one scenario at
+    a time so that the comparison needs no third copy of H."""
+    got = k3.se_fill(arr, net, vm, va, mean)
+    ref = k3.se_fill_ref(arr, net, vm, va, mean)
+    torch.cuda.synchronize()
+    worst_rel = worst_abs = 0.0
+    where = ""
+    pattern = True
+    for name in ("h", "r", "jac"):
+        for a, b in zip(getattr(got, name), getattr(ref, name)):
+            diff = (a - b).abs()
+            worst_abs = max(worst_abs, diff.max().item())
+            rel = diff / b.abs().clamp(min=1.0)
+            k = int(rel.argmax())
+            if rel.view(-1)[k].item() > worst_rel:
+                worst_rel = rel.view(-1)[k].item()
+                row = k // rel.shape[-1] if name == "jac" else k
+                where = (f"{name} of a type {int(arr.desc.idx[0, row])} "
+                         f"row: {a.view(-1)[k].item()!r} against "
+                         f"{b.view(-1)[k].item()!r}")
+            if name == "jac":
+                pattern &= torch.equal(a != 0, b != 0)
+    check(worst_rel <= K3_REL_TOL,
+          f"{label}: K3 disagrees with se_fill_ref, rel {worst_rel:.3e} "
+          f"at {where}")
+    check(pattern, f"{label}: K3 Jacobian pattern differs from se_fill_ref")
+    del got, ref
+    ms = cuda_ms(lambda: k3.se_fill(arr, net, vm, va, mean), reps=20)
+    plain_ms = cuda_ms(lambda: k3.se_fill_ref(arr, net, vm, va, mean), reps=5)
+    b, n = vm.shape
+    print(f"phase 5 {label} B={b} n={n} m={mean.shape[1]}: max abs diff "
+          f"{worst_abs!r}, max rel diff {worst_rel!r}, pattern equal; "
+          f"K3 {ms!r} ms, se_fill_ref {plain_ms!r} ms per call (jacobian)")
+    return worst_abs, ms, plain_ms
+
+
+def k3_inputs(system, mon, pf, batch, rng):
+    """The measurement set on the card, and ``batch`` random states around
+    the power-flow state with means perturbed around the set's."""
+    arr, types, _, host = compile_se_arrays(system, mon, return_host=True,
+                                            device="cuda")
+    net = compile_ac_arrays(system, "cuda")
+    n = system.bus.number
+    vm = pf.voltage.magnitude + 0.01 * rng.standard_normal((batch, n))
+    va = pf.voltage.angle + 0.02 * rng.standard_normal((batch, n))
+    mean = host.mean + 0.01 * rng.standard_normal((batch, len(host.mean)))
+    return arr, net, types, tuple(
+        torch.tensor(x, device="cuda") for x in (vm, va, mean))
+
+
+def phase5():
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    for case in ("case14test", "case30test"):
+        system, pf = solved_case(case)
+        arr, net, types, inputs = k3_inputs(system, every_row_type(system, pf),
+                                            pf, 8, rng)
+        check(set(types.tolist()) == set(range(1, 22)),
+              f"{case}: the set misses row types")
+        worst = max(worst, compare_k3(f"{case} all 21 row types", arr, net,
+                                      *inputs)[0])
+    system = power_system(str(DATA / "case118.m"))
+    mon, pf = scada_pmu(system)
+    arr, net, _, inputs = k3_inputs(system, mon, pf, SE_FLEET, rng)
+    worst = max(worst, compare_k3("case118 fleet", arr, net, *inputs)[0])
+    del arr, net, inputs
+    system = synthetic_grid(*SE_GRID)
+    mon, pf = scada_pmu(system)
+    arr, net, _, inputs = k3_inputs(system, mon, pf, SE_CHUNK, rng)
+    err, ms, plain_ms = compare_k3(f"{SE_GRID[0]}x{SE_GRID[1]} grid chunk",
+                                   arr, net, *inputs)
+    return max(worst, err), (ms, plain_ms)
+
+
+def se_timed_split(arr, net, vm, va):
+    """The loop of ``_se_solve`` built from its own pieces, with CUDA events
+    around K3, the gain (rhs, W½ scaling and matmul), the Cholesky with its
+    solve and residual, and the max|dx| readback."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    split = {"K3": 0.0, "gain": 0.0, "cholesky": 0.0, "readback": 0.0}
+    n = vm.shape[0]
+    vm, va, mean = vm[None], va[None], arr.mean[None]
+    it = 0
+    while True:
+        ev[0].record()
+        res = k3.se_fill(arr, net, vm, va, mean)
+        ev[1].record()
+        gain, rhs = _normal_equations(arr, res)
+        del res
+        ev[2].record()
+        dx, maxinc, _ = _solve_normal(arr, gain, rhs)
+        del gain
+        ev[3].record()
+        inc = float(maxinc)
+        ev[4].record()
+        done = inc < SE_TOL or it >= 40
+        if not done:
+            va = va + dx[:, :n]
+            vm = vm + dx[:, n:]
+            it += 1
+        torch.cuda.synchronize()
+        for key, a, b in (("K3", 0, 1), ("gain", 1, 2), ("cholesky", 2, 3),
+                          ("readback", 3, 4)):
+            split[key] += ev[a].elapsed_time(ev[b])
+        if done:
+            return it, split
+
+
+def check_se_state(label, analysis, vm, va, tol):
+    dvm = float(np.abs(analysis.voltage.magnitude - vm).max())
+    dang = analysis.voltage.angle - va
+    dva = float(np.abs((dang + np.pi) % (2 * np.pi) - np.pi).max())
+    check(analysis.method.converged, f"{label}: not converged")
+    check(dvm <= tol and dva <= tol,
+          f"{label}: |dvm| {dvm:.3e}, |dva| {dva:.3e} over {tol}")
+    return dvm, dva
+
+
+def phase6():
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    system = synthetic_grid(*SE_GRID)
+    t1 = time.perf_counter()
+    mon, _ = scada_pmu(system)
+    t2 = time.perf_counter()
+    se = gauss_newton(mon, device="cuda")
+    vm0, va0 = se._state()
+    t3 = time.perf_counter()
+    k3.se_fill.launches = 0
+    state_estimation(se, power=True)
+    torch.cuda.synchronize()
+    launches = k3.se_fill.launches
+    t4 = time.perf_counter()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == se.method.iteration + 1,
+          f"K3 launched {launches} times for {se.method.iteration} "
+          f"iterations")
+    check(not se.method.refine_escalated and se.method.refine_residual
+          <= 1e-6, f"SE grid: rel {se.method.refine_residual!r}")
+    oracle = oracle_wls_se(system, mon)
+    check(oracle.converged and se.method.iteration == oracle.iterations,
+          f"SE grid: {se.method.iteration} iterations, oracle "
+          f"{oracle.iterations}")
+    dvm, dva = check_se_state("SE grid", se, oracle.magnitude, oracle.angle,
+                              SE_STATE_TOL)
+    inj = se.power.injection.active
+    check(inj.shape == (system.bus.number,) and np.all(np.isfinite(inj)),
+          "SE grid: bad power results")
+    m = int(se.arrays.mean.shape[0])
+    print(f"phase 6 {SE_GRID[0]}x{SE_GRID[1]} SE main path: n="
+          f"{system.bus.number}, m={m}, converged in {se.method.iteration} "
+          f"iterations (oracle {oracle.iterations}), max |dvm| {dvm!r}, "
+          f"max |dva| {dva!r}, rel {se.method.refine_residual!r}, K3 "
+          f"launches {launches}; wall: power_system {t1 - t0!r} s, power "
+          f"flow + measurement set {t2 - t1!r} s, gauss_newton {t3 - t2!r} "
+          f"s, state_estimation(power=True) {t4 - t3!r} s; peak device "
+          f"memory {peak_gb!r} GB")
+
+    it, split = se_timed_split(se.arrays, se.net, vm0, va0)
+    check(it == se.method.iteration,
+          f"SE grid: the timed loop took {it} iterations")
+    print(f"phase 6 per-iteration split over {it + 1} increments (CUDA "
+          "events): " + ", ".join(f"{k} {v / (it + 1)!r} ms"
+                                  for k, v in split.items()))
+
+    for case in ("case14test", "case30test"):
+        system, pf = solved_case(case)
+        runs = [(name, "LU", mon) for name, mon in se_sets(system, pf).items()]
+        if case == "case14test":
+            runs += [("scada", kind, se_sets(system, pf)["scada"])
+                     for kind in ("QR", "PW")]
+        for name, kind, mon in runs:
+            se = gauss_newton(mon, kind, device="cuda")
+            state_estimation(se)
+            dvm, dva = check_se_state(f"{case} {name} {kind}", se,
+                                      pf.voltage.magnitude,
+                                      pf.voltage.angle, SE_STATE_TOL)
+            print(f"phase 6 {case} {name} ({kind}): {se.method.iteration} "
+                  f"iterations, vs power flow max |dvm| {dvm!r}, max |dva| "
+                  f"{dva!r}")
+    return launches
+
+
+def fleet_runs(label, arr, net, vm0, va0, means, chunk):
+    """Phase 7: warm-up, then K3, se_fill_ref, se_fill_ref, K3 over all
+    chunks; checks, and prints the split of one increment and the rates."""
+    def run(fill):
+        out = []
+        for k in range(0, means.shape[0], chunk):
+            vm, va, iters, conv = batched_se_solve(
+                arr, net, vm0, va0, means[k:k + chunk], fill=fill)
+            out.append((vm, va, iters, conv))
+        return [torch.cat(x) for x in zip(*out)]
+
+    torch.cuda.reset_peak_memory_stats()
+    # warm-up of both fills: cuBLAS/cuSOLVER set-up, the allocator's pools
+    run(k3.se_fill)
+    run(k3.se_fill_ref)
+    runs = []
+    for fill in (k3.se_fill, k3.se_fill_ref, k3.se_fill_ref, k3.se_fill):
+        seconds, out = wall_s(lambda: run(fill))
+        runs.append(("K3" if fill is k3.se_fill else "se_fill_ref", seconds,
+                     out))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ker, ref = runs[0][2], runs[1][2]
+    nscen = means.shape[0]
+    check(bool(ker[3].all()),
+          f"{label}: {int((~ker[3]).sum())} of {nscen} did not converge")
+    check(torch.equal(ker[2], ref[2]) and torch.equal(ker[3], ref[3]),
+          f"{label}: iteration counts differ from the se_fill_ref run")
+    dstate = max((ker[0] - ref[0]).abs().max().item(),
+                 (ker[1] - ref[1]).abs().max().item())
+    check(dstate <= TWIN_STATE_TOL, f"{label}: state differs by {dstate:.3e}")
+    total = int(ker[2].sum())
+    split = fleet_split(arr, net, vm0, va0, means[:chunk])
+    # lockstep increments per run: each chunk runs max(iterations) + 1
+    steps = sum(int(it.max()) + 1 for it in ker[2].split(chunk))
+    wall_ms = 1e3 * min(seconds for _, seconds, _ in runs[::3]) / steps
+    print(f"phase 7 {label} one lockstep increment of a chunk (CUDA "
+          "events): " + ", ".join(f"{k} {v!r} ms" for k, v in split.items())
+          + f"; K3 run wall per increment {wall_ms!r} ms over {steps} "
+          "increments")
+    print(f"phase 7 {label} x{nscen} (chunks of {chunk}): all converged, "
+          f"{total} GN iterations (max {int(ker[2].max())}), state vs "
+          f"se_fill_ref {dstate!r}; peak device memory {peak_gb!r} GB; "
+          "SE solves/s " + ", ".join(f"{name} {nscen / s!r}"
+                                      for name, s, _ in runs)
+          + "; GN iterations/s " + ", ".join(f"{name} {total / s!r}"
+                                             for name, s, _ in runs))
+
+
+def fleet_split(arr, net, vm, va, mean):
+    """CUDA-event times of the pieces of one batched increment (K3, the
+    gain, the Cholesky with its solve and residual), after one untimed
+    increment."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for _ in range(2):
+        ev[0].record()
+        res = k3.se_fill(arr, net, vm, va, mean)
+        ev[1].record()
+        gain, rhs = _normal_equations(arr, res)
+        del res
+        ev[2].record()
+        _solve_normal(arr, gain, rhs)
+        ev[3].record()
+        del gain, rhs
+        torch.cuda.synchronize()
+    return {key: ev[a].elapsed_time(ev[a + 1])
+            for a, key in enumerate(("K3", "gain", "cholesky"))}
+
+
+def fleet_inputs(system, nscen, chunk):
+    mon, _ = scada_pmu(system)
+    arr, _, _, host = compile_se_arrays(system, mon, return_host=True,
+                                        device="cuda")
+    net = compile_ac_arrays(system, "cuda")
+    n = system.bus.number
+    # bench.py starts every scenario from the case's stored voltages
+    vm0 = torch.tensor(system.bus.voltage.magnitude.array[:n],
+                       device="cuda").expand(chunk, -1).contiguous()
+    va0 = torch.tensor(system.bus.voltage.angle.array[:n],
+                       device="cuda").expand(chunk, -1).contiguous()
+    means = torch.tensor(se_scenarios(host, nscen), device="cuda")
+    return arr, net, vm0, va0, means
+
+
+def phase7():
+    system = power_system(str(DATA / "case118.m"))
+    fleet_runs("case118 SE fleet", *fleet_inputs(system, SE_FLEET, SE_FLEET),
+               chunk=SE_FLEET)
+    system = synthetic_grid(*SE_GRID)
+    fleet_runs(f"{SE_GRID[0]}x{SE_GRID[1]} SE fleet",
+               *fleet_inputs(system, SE_CHUNK * SE_CHUNKS, SE_CHUNK),
+               chunk=SE_CHUNK)
+
+
 def main():
     card = phase0()
     max_err, ms, plain_ms = phase1()
     phase2()
     launches = phase3()
     phase4()
+    k3_err, (k3_ms, k3_plain_ms) = phase5()
+    k3_launches = phase6()
+    phase7()
     print(card)
     print(json.dumps({"kernels": [{
         "name": "nr_fill", "route": "cuda",
         "source": "juliagrid_tpu_torch/kernels/csrc/nr_fill.cu",
         "replaces": "juliagrid_tpu/powerflow/ac.py:92",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "ms": ms, "plain_ms": plain_ms}, {
+        "name": "se_fill", "route": "cuda",
+        "source": "juliagrid_tpu_torch/kernels/csrc/se_fill.cu",
+        "replaces": "juliagrid_tpu/estimation/acse.py:463",
+        "launches": k3_launches, "max_abs_err": k3_err,
+        "ms": k3_ms, "plain_ms": k3_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,11 @@ The same snake_case API as the JAX package, on PyTorch tensors in float64,
 for an NVIDIA H100. The Newton-Raphson AC power flow runs through a
 hand-written CUDA kernel (``kernels/csrc/nr_fill.cu``) for the injections,
 mismatch and Jacobian fill, and ``torch.linalg`` for the f64 solve. The
-numpy host layer (parsers, data model, post-processing) is a copy of the
-JAX package's, so the port imports no JAX.
+Gauss-Newton WLS AC state estimation runs through a second one
+(``kernels/csrc/se_fill.cu``) for the measurement functions and Jacobian,
+then an f64 gain matmul and Cholesky. The numpy host layer (parsers, data
+model, measurements, post-processing) is a copy of the JAX package's, so
+the port imports no JAX.
 
 Analyses run on ``config.device`` (``"cuda"`` by default); pass
 ``device="cpu"`` to run on the CPU, where each kernel's plain PyTorch
@@ -19,9 +22,24 @@ from .units import units
 from .system.load import power_system
 from .system.model import ac_model
 
+# measurement layer
+from .measurement.load import ems, measurement
+from .measurement.devices import (add_ammeter, add_pmu, add_varmeter,
+                                  add_voltmeter, add_wattmeter,
+                                  update_ammeter, update_pmu,
+                                  update_varmeter, update_voltmeter,
+                                  update_wattmeter)
+from .measurement.configuration import (status, status_ammeter, status_pmu,
+                                        status_varmeter, status_voltmeter,
+                                        status_wattmeter)
+from .measurement.hdf5io import save_measurement
+
 # power flow
 from .powerflow.ac import mismatch, newton_raphson, set_initial_point, solve
 from .powerflow.driver import power_flow
+
+# state estimation
+from .estimation.acse import gauss_newton, increment, state_estimation
 
 # postprocessing
 from .postprocessing import ac as ac_post

@@ -25,6 +25,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "juliagrid_tpu_torch"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
+#: flags of one source on top of NVCC_FLAGS. K3 is built without fused
+#: multiply-add contraction so that it rounds as its plain version does
+#: (see csrc/se_fill.cu).
+SOURCE_FLAGS = {"se_fill": ("-fmad=false",)}
+
+
+def nvcc_flags(name: str) -> tuple:
+    """The nvcc flags ``csrc/<name>.cu`` is built with."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
 def nvcc_path() -> str:
@@ -43,7 +52,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    key = (CSRC / f"{name}.cu").read_bytes() + "\0".join(NVCC_FLAGS).encode()
+    key = (CSRC / f"{name}.cu").read_bytes() + "\0".join(
+        nvcc_flags(name)).encode()
     digest = hashlib.sha256(key).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -57,7 +67,8 @@ def load_library(name: str) -> ctypes.CDLL:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not so.exists():
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(

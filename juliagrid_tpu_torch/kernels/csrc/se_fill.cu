@@ -1,0 +1,369 @@
+// K3 se_fill: AC state-estimation measurement functions, residuals and the
+// dense masked measurement Jacobian.
+//
+// Replaces the jnp device routines of juliagrid_tpu/estimation/acse.py:
+// h_entries (:463), the dense scatter of build_h (:549) and the status and
+// slack-column entry masks of gn_increment (:639-642). There they are one
+// gather-evaluate-scatter per row group (voltmeter and PMU bus rows, 14
+// branch groups, P and Q injections over the Y-bus entries) and a
+// scatter-add into a zeroed H; here one launch does all 21 row types for
+// B >= 1 scenarios of one measurement set.
+//
+// Mapping: one warp per (scenario, measurement row), driven by a per-row
+// descriptor table (structure of arrays, built once on the host):
+// idx[0][row] the row's type code, idx[1][row] its bus or from-bus,
+// idx[2][row] its to-bus, and coef[0..4][row] the PiModel coefficients
+// a, b, c, d and the shift angle phi. Voltmeter, PMU and branch rows are
+// closed-form: lane 0 evaluates h and writes the row's 1-4 Jacobian
+// entries. An injection row (types 6, 9) walks its bus's CSR segment of
+// the Y-bus entry list 32 entries at a time: each lane accumulates its
+// part of P and Q and writes the off-diagonal pair (dP/dtheta_j, dP/dV_j,
+// or the Q pair) at cols[k] and n + cols[k]; a warp shuffle sums P and Q,
+// and lane 0 writes h and the diagonal pair. The entry list is unique per
+// (row, col) and a branch row's two buses differ (both checked on the
+// host), so every element of H has one writer: no atomics, and the result
+// does not depend on scheduling.
+//
+// Masks: every value is multiplied by the row's status (build_h's
+// H * status), and the slack column (the slack bus's angle) is left at
+// zero unless `slack` is -1, which build_h's unmasked H asks for.
+//
+// Rounding: the branch-row expressions are differences of large, nearly
+// equal terms (|I_ij| of a low-impedance branch: a Vi^2 + b Vj^2 - 2 Vi Vj
+// cd with a, b ~ 1/x^2), so a changed rounding shows up magnified. The
+// source associates every product as the plain version does (x**2 as
+// x * x, then left to right), and _build.py compiles it with -fmad=false,
+// so each product and sum rounds on its own as the plain version's
+// op-by-op kernels do; only the injection rows' summation order differs.
+//
+// Bound: with the Jacobian, the launcher zeroes B m 2n doubles first
+// (cudaMemsetAsync), a write at full memory bandwidth: 2.2 GB for case118
+// x1024, 10.9 GB for 32 scenarios of a 1,369-bus grid, about 0.7 and
+// 3.3 ms at 3.35 TB/s. The fill itself writes at most 2 + 2 deg(bus)
+// doubles per row. Without the Jacobian the launch reads the state and
+// the entry list once and is bound by launch latency. Offsets into H are
+// 64-bit.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kThreads = 256;
+
+struct Entries {
+  double h, dti, dtj, dvi, dvj;
+};
+
+// ops/equations.py eval_* for one branch row, by type code; the angles
+// already carry the phase shift.
+__device__ Entries eval_branch(int code, double a, double b, double c,
+                               double d, double vi, double vj, double ti,
+                               double tj) {
+  Entries e{};
+  double st, ct;
+  sincos(ti - tj, &st, &ct);
+  switch (code) {
+    case 7: {  // P_ij
+      const double bc = b * ct + c * st;
+      e.h = a * (vi * vi) - bc * vi * vj;
+      e.dti = (b * st - c * ct) * vi * vj;
+      e.dtj = -e.dti;
+      e.dvi = 2 * a * vi - bc * vj;
+      e.dvj = -bc * vi;
+      return e;
+    }
+    case 8: {  // P_ji
+      const double bc = b * ct - c * st;
+      e.h = a * (vj * vj) - bc * vi * vj;
+      e.dti = (b * st + c * ct) * vi * vj;
+      e.dtj = -e.dti;
+      e.dvi = -bc * vj;
+      e.dvj = 2 * a * vj - bc * vi;
+      return e;
+    }
+    case 10: {  // Q_ij
+      const double sc = b * st - c * ct;
+      e.h = -a * (vi * vi) - sc * vi * vj;
+      e.dti = -(b * ct + c * st) * vi * vj;
+      e.dtj = -e.dti;
+      e.dvi = -2 * a * vi - sc * vj;
+      e.dvj = -sc * vi;
+      return e;
+    }
+    case 11: {  // Q_ji
+      const double sc = b * st + c * ct;
+      e.h = -a * (vj * vj) + sc * vi * vj;
+      e.dti = (b * ct - c * st) * vi * vj;
+      e.dtj = -e.dti;
+      e.dvi = sc * vj;
+      e.dvj = -2 * a * vj + sc * vi;
+      return e;
+    }
+    case 2:    // |I_ij|
+    case 3: {  // |I_ji|
+      const double cd = code == 2 ? c * ct - d * st : c * ct + d * st;
+      const double mag2 = a * (vi * vi) + b * (vj * vj) - 2 * vi * vj * cd;
+      const double h = sqrt(mag2);
+      const double inv = 1.0 / h;
+      e.h = h;
+      e.dti = inv * (code == 2 ? c * st + d * ct : c * st - d * ct) * vi * vj;
+      e.dtj = -e.dti;
+      e.dvi = inv * (a * vi - cd * vj);
+      e.dvj = inv * (b * vj - cd * vi);
+      return e;
+    }
+    case 4:    // |I_ij|^2
+    case 5: {  // |I_ji|^2
+      const double cd = code == 4 ? c * ct - d * st : c * ct + d * st;
+      e.h = a * (vi * vi) + b * (vj * vj) - 2 * vi * vj * cd;
+      e.dti = 2 * (code == 4 ? c * st + d * ct : c * st - d * ct) * vi * vj;
+      e.dtj = -e.dti;
+      e.dvi = 2 * (a * vi - cd * vj);
+      e.dvj = 2 * (b * vj - cd * vi);
+      return e;
+    }
+    default:
+      break;
+  }
+  double sti, cti, stj, ctj;
+  sincos(ti, &sti, &cti);
+  sincos(tj, &stj, &ctj);
+  switch (code) {
+    case 14: {  // current angle psi_ij
+      const double re = (a * cti - b * sti) * vi - (c * ctj - d * stj) * vj;
+      const double im = (a * sti + b * cti) * vi - (c * stj + d * ctj) * vj;
+      const double inv2 = 1.0 / (re * re + im * im);
+      const double a_sq = a * a + b * b;
+      const double b_sq = c * c + d * d;
+      const double c_sq = a * c + b * d;
+      const double d_sq = b * c - a * d;
+      const double cd = c_sq * ct - d_sq * st;
+      const double sd = c_sq * st + d_sq * ct;
+      e.h = atan2(im, re);
+      e.dti = inv2 * (a_sq * (vi * vi) - cd * vi * vj);
+      e.dtj = inv2 * (b_sq * (vj * vj) - cd * vi * vj);
+      e.dvi = -inv2 * sd * vj;
+      e.dvj = inv2 * sd * vi;
+      return e;
+    }
+    case 15: {  // current angle psi_ji
+      const double re = (a * ctj - b * stj) * vj - (c * cti - d * sti) * vi;
+      const double im = (a * stj + b * ctj) * vj - (c * sti + d * cti) * vi;
+      const double inv2 = 1.0 / (re * re + im * im);
+      const double a_sq = c * c + d * d;
+      const double b_sq = a * a + b * b;
+      const double c_sq = a * c + b * d;
+      const double d_sq = b * c - a * d;
+      const double cd = c_sq * ct + d_sq * st;
+      const double sd = c_sq * st - d_sq * ct;
+      e.h = atan2(im, re);
+      e.dti = inv2 * (a_sq * (vi * vi) - cd * vi * vj);
+      e.dtj = inv2 * (b_sq * (vj * vj) - cd * vi * vj);
+      e.dvi = -inv2 * sd * vj;
+      e.dvj = inv2 * sd * vi;
+      return e;
+    }
+    case 18:  // Re I_ij
+      e.h = (a * cti - b * sti) * vi - (c * ctj - d * stj) * vj;
+      e.dti = -(a * sti + b * cti) * vi;
+      e.dtj = (c * stj + d * ctj) * vj;
+      e.dvi = a * cti - b * sti;
+      e.dvj = -c * ctj + d * stj;
+      return e;
+    case 19:  // Re I_ji
+      e.h = (a * ctj - b * stj) * vj - (c * cti - d * sti) * vi;
+      e.dti = (c * sti + d * cti) * vi;
+      e.dtj = -(a * stj + b * ctj) * vj;
+      e.dvi = -c * cti + d * sti;
+      e.dvj = a * ctj - b * stj;
+      return e;
+    case 20:  // Im I_ij
+      e.h = (a * sti + b * cti) * vi - (c * stj + d * ctj) * vj;
+      e.dti = (a * cti - b * sti) * vi;
+      e.dtj = (-c * ctj + d * stj) * vj;
+      e.dvi = a * sti + b * cti;
+      e.dvj = -c * stj - d * ctj;
+      return e;
+    case 21:  // Im I_ji
+      e.h = (a * stj + b * ctj) * vj - (c * sti + d * cti) * vi;
+      e.dti = (-c * cti + d * sti) * vi;
+      e.dtj = (a * ctj - b * stj) * vj;
+      e.dvi = -c * sti - d * cti;
+      e.dvj = a * stj + b * ctj;
+      return e;
+    default:
+      e.h = nan("");
+      return e;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+se_fill_kernel(const int* __restrict__ idx,
+               const double* __restrict__ coef,
+               const double* __restrict__ status,
+               int slack,
+               const int* __restrict__ row_ptr,
+               const int* __restrict__ cols,
+               const double* __restrict__ yg,
+               const double* __restrict__ yb,
+               const int* __restrict__ diag,
+               const double* __restrict__ vm,
+               const double* __restrict__ va,
+               const double* __restrict__ mean,
+               double* __restrict__ h,
+               double* __restrict__ r,
+               double* __restrict__ jac,
+               int n, int m, int batch) {
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  // blockDim.x is a multiple of 32, so a warp leaves here as a whole and
+  // the full-mask shuffles below see all 32 lanes.
+  if (warp >= static_cast<int64_t>(m) * batch) return;
+  const int b = static_cast<int>(warp / m);
+  const int row = static_cast<int>(warp % m);
+
+  const int code = idx[row];
+  const int f = idx[m + row];
+  const double st = status[row];
+  const double* vmb = vm + static_cast<int64_t>(b) * n;
+  const double* vab = va + static_cast<int64_t>(b) * n;
+  const int64_t out = static_cast<int64_t>(b) * m + row;
+  double* hrow = jac == nullptr
+                     ? nullptr
+                     : jac + out * 2 * static_cast<int64_t>(n);
+  auto put = [&](int col, double v) {
+    if (hrow != nullptr && col != slack) hrow[col] = v * st;
+  };
+
+  double hv;
+  if (code == 6 || code == 9) {  // P or Q injection at bus f
+    const double vi = vmb[f];
+    const double ti = vab[f];
+    double sp = 0.0;
+    double sq = 0.0;
+    const int end = row_ptr[f + 1];
+    for (int k = row_ptr[f] + lane; k < end; k += kWarp) {
+      const int c = cols[k];
+      double s, co;
+      sincos(ti - vab[c], &s, &co);
+      const double g = yg[k];
+      const double bk = yb[k];
+      const double gc_bs = g * co + bk * s;  // G cos + B sin
+      const double gs_bc = g * s - bk * co;  // G sin - B cos
+      const double vv = vi * vmb[c];
+      sp += vv * gc_bs;
+      sq += vv * gs_bc;
+      if (c != f) {
+        if (code == 6) {
+          put(c, vv * gs_bc);      // dP/dtheta_j
+          put(n + c, vi * gc_bs);  // dP/dV_j
+        } else {
+          put(c, -vv * gc_bs);     // dQ/dtheta_j
+          put(n + c, vi * gs_bc);  // dQ/dV_j
+        }
+      }
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2) {
+      sp += __shfl_down_sync(0xffffffffu, sp, off);
+      sq += __shfl_down_sync(0xffffffffu, sq, off);
+    }
+    if (lane != 0) return;
+    const double gii = yg[diag[f]];
+    const double bii = yb[diag[f]];
+    if (code == 6) {
+      hv = sp;
+      put(f, -sq - bii * (vi * vi));
+      put(n + f, sp / vi + gii * vi);
+    } else {
+      hv = sq;
+      put(f, sp - gii * (vi * vi));
+      put(n + f, sq / vi - bii * vi);
+    }
+  } else {
+    if (lane != 0) return;
+    if (code == 1) {  // bus voltage magnitude (voltmeter, polar PMU)
+      hv = vmb[f];
+      put(n + f, 1.0);
+    } else if (code == 13) {  // bus voltage angle (polar PMU)
+      hv = vab[f];
+      put(f, 1.0);
+    } else if (code == 16 || code == 17) {  // Re V, Im V (rectangular PMU)
+      double s, c;
+      sincos(vab[f], &s, &c);
+      const double v = vmb[f];
+      if (code == 16) {
+        hv = v * c;
+        put(f, -v * s);
+        put(n + f, c);
+      } else {
+        hv = v * s;
+        put(f, v * c);
+        put(n + f, s);
+      }
+    } else {  // branch rows: from-side rows shift theta_j by +phi, to-side
+              // phasor rows (15, 19, 21) theta_i by -phi (acse.py:497-503)
+      const int t = idx[2 * m + row];
+      const double phi = coef[4 * m + row];
+      double ti = vab[f];
+      double tj = vab[t];
+      if (code == 15 || code == 19 || code == 21) {
+        ti -= phi;
+      } else {
+        tj += phi;
+      }
+      const Entries e = eval_branch(code, coef[row], coef[m + row],
+                                    coef[2 * m + row], coef[3 * m + row],
+                                    vmb[f], vmb[t], ti, tj);
+      hv = e.h;
+      put(f, e.dti);
+      put(t, e.dtj);
+      put(n + f, e.dvi);
+      put(n + t, e.dvj);
+    }
+  }
+  const double hs = hv * st;
+  h[out] = hs;
+  r[out] = mean[out] - hs;
+}
+
+}  // namespace
+
+// Launch K3 on `stream`. All arrays are device pointers: the descriptor
+// table idx[3][m] (int) and coef[5][m], status[m], the Y-bus entry list
+// (row_ptr[n + 1], cols/yg/yb[nnz], diag[n]), the row-major [batch, n]
+// state, the [batch, m] means and outputs h and r, and `jac`, a
+// [batch, m, 2n] buffer or null to skip the Jacobian. `slack` is the
+// column to leave at zero, or -1. Returns a cudaError_t code.
+extern "C" int se_fill_launch(const int* idx, const double* coef,
+                              const double* status, int slack,
+                              const int* row_ptr, const int* cols,
+                              const double* yg, const double* yb,
+                              const int* diag, const double* vm,
+                              const double* va, const double* mean,
+                              double* h, double* r, double* jac, int n,
+                              int m, int batch, void* stream) {
+  if (n <= 0 || m <= 0 || batch <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (jac != nullptr) {
+    const size_t bytes = static_cast<size_t>(batch) * m * 2 *
+                         static_cast<size_t>(n) * sizeof(double);
+    const cudaError_t err = cudaMemsetAsync(jac, 0, bytes, s);
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t threads = static_cast<int64_t>(m) * batch * kWarp;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  se_fill_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      idx, coef, status, slack, row_ptr, cols, yg, yb, diag, vm, va, mean, h,
+      r, jac, n, m, batch);
+  return cudaGetLastError();
+}
+
+extern "C" const char* se_fill_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

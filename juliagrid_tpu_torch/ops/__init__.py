@@ -1,4 +1,4 @@
 """Compute substrate: dense f64 linear algebra."""
 
 from . import linalg
-from .linalg import KLU, LDLT, LL, LU, QR
+from .linalg import KLU, LDLT, LL, LU, PW, QR

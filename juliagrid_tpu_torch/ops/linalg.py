@@ -6,15 +6,17 @@ backend/utility.jl:470-587) with direct float64 solves through
 native f64, so there is no f32 factor and no refinement sweep.
 
 The ``kind`` tags (LU / KLU / QR / LL / LDLt) mirror the reference's
-factorization menu; KLU aliases LU and LDLt aliases LL (Cholesky). Every
-function takes a leading batch dimension as well: a fleet of scenario
-Jacobians factors in one batched call.
+factorization menu; KLU aliases LU and LDLt aliases LL (Cholesky).
+``factorize``/``solve`` take a leading batch dimension as well: a fleet of
+scenario Jacobians factors in one batched call. ``pw_lsq_solve`` is the
+Peters-Wilkinson least-squares solve of the state estimator's PW tag.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # Public factorization tags (API parity with the reference exports).
@@ -23,6 +25,7 @@ KLU = "KLU"
 QR = "QR"
 LL = "LL"
 LDLT = "LDLt"
+PW = "PW"  # Peters-Wilkinson tall LU + L-normal equations
 
 
 class DenseFactor(NamedTuple):
@@ -63,3 +66,26 @@ def solve(factor: DenseFactor, b: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(f"unknown factorization kind {factor.kind}")
     return x.squeeze(-1)
+
+
+def pw_lsq_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Peters-Wilkinson least squares: min ||A x - b|| via tall LU, in f64.
+
+    Factor P A = L U (rectangular partial-pivoted LU, m x k with m >= k):
+    L is unit lower trapezoidal with |L_ij| <= 1, so cond(LᵀL) stays O(1)
+    even when extreme measurement weights make cond(AᵀA) overflow the
+    normal equations — the reference's PW method
+    (acStateEstimation.jl:933-971). Solve (LᵀL) y = Lᵀ P b (Cholesky),
+    then U x = y. The factors are f64, so no refinement follows."""
+    m, k = a.shape
+    lu, pivots = torch.linalg.lu_factor(a)
+    # LAPACK pivots: row i was swapped with row pivots[i] - 1, in order
+    perm = np.arange(m)
+    for i, p in enumerate(pivots.cpu().numpy() - 1):
+        perm[i], perm[p] = perm[p], perm[i]
+    low = torch.tril(lu, -1) + torch.eye(m, k, dtype=a.dtype, device=a.device)
+    up = torch.triu(lu[:k, :])
+    chol = torch.linalg.cholesky(low.mT @ low)
+    rhs = low.mT @ b[torch.as_tensor(perm, device=a.device)]
+    y = torch.cholesky_solve(rhs[:, None], chol)
+    return torch.linalg.solve_triangular(up, y, upper=True)[:, 0]

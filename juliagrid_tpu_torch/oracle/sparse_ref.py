@@ -4,14 +4,17 @@ A pure numpy/scipy re-implementation of the reference's numerical stack
 *shape* (serial sparse CSC assembly + UMFPACK/KLU-class factorization; here
 scipy ``splu``). It is validated against the shipped MATPOWER goldens for
 IEEE 14/30 (exact iteration counts and voltages), which qualifies it to
-check the port's Newton-Raphson on grids where no shipped oracle exists.
+check the port's Newton-Raphson on grids where no shipped oracle exists;
+``oracle_wls_se`` checks the port's Gauss-Newton WLS state estimation the
+same way on SCADA and polar bus PMU sets.
 
 Independence: only the host data model and parsers are shared with the
 port. Y-bus assembly, mismatch evaluation, Jacobian construction and the
 linear algebra are all implemented here separately (complex-matrix
 formulation), so agreement with the tensor path is a genuine cross-check.
 
-Reference parity anchors: powerFlow/acPowerFlow.jl:645-911 (NR).
+Reference parity anchors: powerFlow/acPowerFlow.jl:645-911 (NR),
+stateEstimation/acStateEstimation.jl:261-931 (WLS SE).
 """
 
 from __future__ import annotations
@@ -128,3 +131,201 @@ def oracle_nr(system: PowerSystem, tolerance: float = 1e-8,
         magnitude=np.abs(v), angle=np.angle(v), iterations=it,
         converged=bool(del_p < tolerance and del_q < tolerance),
         max_mismatch_active=float(del_p), max_mismatch_reactive=float(del_q))
+
+
+def _branch_admittances(system: PowerSystem):
+    """Per-branch two-port admittance blocks (yff, yft, ytf, ytt) and
+    endpoint indices — independent assembly, same pi-model convention as
+    ``oracle_ybus``."""
+    m = system.branch.number
+    br = system.branch
+    f = br.layout.from_bus.array[:m]
+    t = br.layout.to_bus.array[:m]
+    on = br.layout.status.array[:m] == 1
+    prm = br.parameter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ys = np.where(on, 1.0 / (prm.resistance.array[:m]
+                                 + 1j * prm.reactance.array[:m]), 0.0)
+    ysh = prm.conductance.array[:m] + 1j * prm.susceptance.array[:m]
+    tau = prm.turns_ratio.array[:m]
+    a = np.exp(-1j * prm.shift_angle.array[:m]) / tau
+    ytt = np.where(on, ys + 0.5 * ysh, 0.0)
+    yff = ytt / tau**2
+    yft = np.where(on, -np.conj(a) * ys, 0.0)
+    ytf = np.where(on, -a * ys, 0.0)
+    return f, t, yff, yft, ytf, ytt
+
+
+def _collect_se_rows(system: PowerSystem, monitoring):
+    """Flatten the active measurement set into (kind, idx, z, w) row lists.
+
+    Covers the SCADA+PMU set used by the scale benchmarks: voltmeters,
+    watt/varmeters (injection + from/to flows), and polar bus PMUs (which
+    contribute an extra |V| row and a Va row). Ammeters, branch PMUs and
+    rectangular/correlated PMUs are outside this oracle's scope (the
+    port handles them; see estimation/acse.py) and raise."""
+    kinds, idxs, z, w, row_device = [], [], [], [], []
+
+    def push(kind, idx, mean, var, status, device=None):
+        if status != 1:
+            return
+        kinds.append(kind)
+        idxs.append(int(idx))
+        z.append(float(mean))
+        w.append(1.0 / float(var))
+        row_device.append(device)
+
+    volt = monitoring.voltmeter
+    for k in range(volt.number):
+        push("vm", volt.layout.index.array[k],
+             volt.magnitude.mean.array[k], volt.magnitude.variance.array[k],
+             volt.magnitude.status.array[k], ("voltmeter", k))
+    if monitoring.ammeter.number:
+        raise ValueError("ammeters are outside the oracle's scope")
+    watt = monitoring.wattmeter
+    for k in range(watt.number):
+        lay = watt.layout
+        kind = ("pinj" if lay.bus.array[k]
+                else "pf" if lay.from_.array[k] else "pt")
+        push(kind, lay.index.array[k], watt.active.mean.array[k],
+             watt.active.variance.array[k], watt.active.status.array[k],
+             ("wattmeter", k))
+    var_ = monitoring.varmeter
+    for k in range(var_.number):
+        lay = var_.layout
+        kind = ("qinj" if lay.bus.array[k]
+                else "qf" if lay.from_.array[k] else "qt")
+        push(kind, lay.index.array[k], var_.reactive.mean.array[k],
+             var_.reactive.variance.array[k], var_.reactive.status.array[k],
+             ("varmeter", k))
+    pmu = monitoring.pmu
+    for k in range(pmu.number):
+        lay = pmu.layout
+        if not (lay.bus.array[k] and lay.polar.array[k]):
+            raise ValueError("only polar bus PMUs are in the oracle's scope")
+        push("vm", lay.index.array[k], pmu.magnitude.mean.array[k],
+             pmu.magnitude.variance.array[k], pmu.magnitude.status.array[k],
+             ("pmu", k))
+        push("va", lay.index.array[k], pmu.angle.mean.array[k],
+             pmu.angle.variance.array[k], pmu.angle.status.array[k],
+             ("pmu", k))
+    return (np.array(kinds), np.array(idxs, dtype=np.int64),
+            np.array(z), np.array(w), row_device)
+
+
+def oracle_wls_se(system: PowerSystem, monitoring, tolerance: float = 1e-8,
+                  iteration: int = 40) -> SimpleNamespace:
+    """Sparse Gauss-Newton WLS state estimation: per-iteration sparse H
+    fill, normal-equation gain G = HᵀWH in CSC, splu refactorization —
+    the reference solve shape (acStateEstimation.jl:261-931 with the
+    KLU/CHOLMOD substrate of backend/utility.jl:470-562).
+
+    Iteration semantics mirror the port's ``_se_solve`` (and the
+    reference's stateEstimation!): compute increment, loop while max|dx| >= tol
+    applying-then-recomputing, counting applications."""
+    n = system.bus.number
+    ybus = oracle_ybus(system).tocsr()
+    f, t, yff, yft, ytf, ytt = _branch_admittances(system)
+    kinds, idxs, z, w, row_device = _collect_se_rows(system, monitoring)
+    m = len(z)
+    slack = system.bus.layout.slack
+
+    vm = system.bus.voltage.magnitude.array[:n].copy()
+    va = system.bus.voltage.angle.array[:n].copy()
+
+    sel = {k: np.flatnonzero(kinds == k) for k in
+           ("vm", "va", "pinj", "qinj", "pf", "qf", "pt", "qt")}
+
+    def build(vm, va):
+        """Vectorized sparse H fill + h(x) (no Python per-row loops —
+        the baseline must be a fair serial-CPU implementation)."""
+        v = vm * np.exp(1j * va)
+        h = np.zeros(m)
+        blocks_r, blocks_c, blocks_v = [], [], []
+
+        def add(r, c, d):
+            blocks_r.append(np.asarray(r, dtype=np.int64))
+            blocks_c.append(np.asarray(c, dtype=np.int64))
+            blocks_v.append(np.asarray(d, dtype=np.float64))
+
+        if len(sel["vm"]):
+            bus = idxs[sel["vm"]]
+            h[sel["vm"]] = vm[bus]
+            add(sel["vm"], n + bus, np.ones(len(bus)))
+        if len(sel["va"]):
+            bus = idxs[sel["va"]]
+            h[sel["va"]] = va[bus]
+            add(sel["va"], bus, np.ones(len(bus)))
+
+        if len(sel["pinj"]) or len(sel["qinj"]):
+            ibus = ybus @ v
+            s = v * np.conj(ibus)
+            diag_v = sp.diags(v)
+            ds_dva = (1j * diag_v @ np.conj(
+                sp.diags(ibus) - ybus @ diag_v)).tocsr()
+            ds_dvm = (diag_v @ np.conj(ybus @ sp.diags(v / np.abs(v)))
+                      + np.conj(sp.diags(ibus)) @ sp.diags(
+                          v / np.abs(v))).tocsr()
+            for key, part in (("pinj", np.real), ("qinj", np.imag)):
+                rows_k = sel[key]
+                if not len(rows_k):
+                    continue
+                bus = idxs[rows_k]
+                h[rows_k] = part(s[bus])
+                for mat, off in ((ds_dva, 0), (ds_dvm, n)):
+                    sub = mat[bus, :].tocoo()
+                    add(rows_k[sub.row], off + sub.col, part(sub.data))
+
+        for keys, from_side in ((("pf", "qf"), True), (("pt", "qt"), False)):
+            rows_k = np.concatenate([sel[k] for k in keys])
+            if not len(rows_k):
+                continue
+            br = idxs[rows_k]
+            i = (f if from_side else t)[br]
+            j = (t if from_side else f)[br]
+            ya = (yff if from_side else ytt)[br]
+            yb = (yft if from_side else ytf)[br]
+            sij = v[i] * np.conj(ya * v[i] + yb * v[j])
+            cross = np.conj(yb) * v[i] * np.conj(v[j])
+            d_ti = 1j * (sij - np.conj(ya) * vm[i] ** 2)
+            d_tj = -1j * cross
+            d_vi = sij / vm[i] + np.conj(ya) * vm[i]
+            d_vj = cross / vm[j]
+            real = np.isin(rows_k, sel[keys[0]])
+            h[rows_k] = np.where(real, sij.real, sij.imag)
+            for c, dv in ((i, d_ti), (j, d_tj),
+                          (n + i, d_vi), (n + j, d_vj)):
+                add(rows_k, c, np.where(real, dv.real, dv.imag))
+
+        H = sp.coo_matrix(
+            (np.concatenate(blocks_v),
+             (np.concatenate(blocks_r), np.concatenate(blocks_c))),
+            shape=(m, 2 * n)).tocsr()
+        return H, h
+
+    def increment(vm, va):
+        H, h = build(vm, va)
+        # mask the slack angle column, pin dx[slack] = 0 via identity
+        keep = np.ones(2 * n)
+        keep[slack] = 0.0
+        H = (H @ sp.diags(keep)).tocsc()
+        r = z - h
+        wh = sp.diags(w) @ H
+        gain = (H.T @ wh + sp.diags(1.0 - keep)).tocsc()
+        dx = splu(gain).solve(H.T @ (w * r))
+        return dx, np.max(np.abs(dx))
+
+    dx, maxinc = increment(vm, va)
+    it = 0
+    while maxinc >= tolerance and it < iteration:
+        va = va + dx[:n]
+        vm = vm + dx[n:]
+        it += 1
+        dx, maxinc = increment(vm, va)
+
+    H, h = build(vm, va)
+    return SimpleNamespace(
+        magnitude=vm, angle=va, iterations=it,
+        converged=bool(maxinc < tolerance), max_increment=float(maxinc),
+        jacobian=H, residual=z - h, weights=w, slack=slack,
+        row_device=row_device)

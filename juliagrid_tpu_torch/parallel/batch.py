@@ -1,16 +1,21 @@
-"""Scenario batching: Newton-Raphson over a fleet of scenarios on one card.
+"""Scenario batching: Newton-Raphson and WLS state estimation over a fleet
+of scenarios on one card.
 
 The reference runs scenario studies by re-running scripts. Here the scenario
-axis is a leading tensor dimension: K1 runs with scenarios on its launch
-grid (one warp per scenario and bus), and the Jacobians factor in one
-batched f64 ``torch.linalg.lu_factor``/``lu_solve``.
+axis is a leading tensor dimension: K1 and K3 run with scenarios on their
+launch grids (one warp per scenario and bus, or scenario and measurement
+row), the NR Jacobians factor in one batched f64
+``torch.linalg.lu_factor``/``lu_solve``, and the SE gains form in one
+batched matmul and factor in one batched f64 Cholesky.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..estimation.acse import SeArrays, _normal_increment
 from ..kernels.nr_fill import nr_fill
+from ..kernels.se_fill import se_fill
 from ..powerflow.ac import AcArrays, _max_mismatch, _nr_update
 
 
@@ -42,3 +47,35 @@ def batched_nr_solve(arr: AcArrays, vm0, va0, p_sched, q_sched,
         active &= ~((dpq[:, 0] < tol) & (dpq[:, 1] < tol))
         it += 1
     return vm, va, iters, ~active
+
+
+def batched_se_solve(arr: SeArrays, net: AcArrays, vm0, va0, means,
+                     tol: float = 1e-8, max_iter: int = 40, fill=se_fill):
+    """Batched Gauss-Newton WLS over scenario measurement means.
+
+    ``means`` is ``[B, m]`` and ``vm0, va0`` are ``[B, n]``; the measurement
+    pattern, weights and network are shared. All scenarios iterate in
+    lockstep (one K3 launch, one batched gain and Cholesky, and one
+    readback per iteration) until every scenario's max|dx| is below ``tol``
+    or the cap is hit; only scenarios still active advance, each with its
+    own count. Returns (vm, va, iterations, converged), where a scenario
+    whose normal equations were not solved to a relative residual of 1e-6
+    (``rel``, the escalation gate of ``state_estimation``) counts as not
+    converged. ``fill`` exists so a check can run the same loop on
+    ``se_fill_ref``; the main path never passes it.
+    """
+    n = vm0.shape[1]
+    vm, va = vm0, va0
+    dx, maxinc, relmax = _normal_increment(arr, net, vm, va, means, fill)
+    active = maxinc >= tol
+    iters = torch.zeros(vm.shape[0], dtype=torch.int32, device=vm.device)
+    it = 0
+    while it < max_iter and bool(active.any()):
+        va = torch.where(active[:, None], va + dx[:, :n], va)
+        vm = torch.where(active[:, None], vm + dx[:, n:], vm)
+        iters += active.to(iters.dtype)
+        dx, maxinc, rel = _normal_increment(arr, net, vm, va, means, fill)
+        relmax = torch.where(active, torch.maximum(relmax, rel), relmax)
+        active &= maxinc >= tol
+        it += 1
+    return vm, va, iters, ~active & (relmax <= 1e-6)

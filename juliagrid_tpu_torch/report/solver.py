@@ -180,7 +180,7 @@ def print_middle_se(system, analysis, verbose: int = 0, file=None):
     if verbose not in (2, 3):
         return
     n = system.bus.number
-    rows_n = int(np.asarray(analysis.arrays.mean).shape[0])
+    rows_n = int(analysis.arrays.mean.shape[0])
     ent = int(np.count_nonzero(
         np.asarray(analysis.method.jacobian))) if (
         analysis.method.jacobian is not None) else "n/a"

@@ -1,7 +1,9 @@
 """The port's copied numpy host layer against the JAX package's original:
-identical Y-bus entry lists, device tables and start states; and the port
-imports no JAX and never runs on the CPU in place of a missing card."""
+identical Y-bus entry lists, device tables and start states, identical
+measurement tables and state-estimation row IR; and the port imports no JAX
+and never runs on the CPU in place of a missing card."""
 
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -12,8 +14,12 @@ import torch
 
 import juliagrid_tpu as jg
 import juliagrid_tpu_torch as jgt
+from juliagrid_tpu.estimation import acse as jax_acse
+from juliagrid_tpu.measurement import configuration as jax_conf
 from juliagrid_tpu.powerflow import ac as jax_ac
 from juliagrid_tpu.utils.synthetic import synthetic_grid as jax_synthetic
+from juliagrid_tpu_torch.estimation import acse as torch_acse
+from juliagrid_tpu_torch.measurement import configuration as torch_conf
 from juliagrid_tpu_torch.powerflow import ac as torch_ac
 from juliagrid_tpu_torch.utils.synthetic import synthetic_grid as torch_synthetic
 
@@ -59,18 +65,100 @@ def test_host_copy_builds_identical_tables(data_path, case):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port loads neither JAX nor the JAX
-    package (the card's machine has no JAX)."""
+    """Importing every module of the port — the state-estimation slice and
+    K3 among them — loads neither JAX nor the JAX package (the card's
+    machine has no JAX)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import juliagrid_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('estimation.acse', 'kernels.se_fill', 'ops.equations',"
+        " 'measurement.devices', 'measurement.hdf5io', 'parallel.batch'):\n"
+        "    assert 'juliagrid_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'juliagrid_tpu')]\n"
+        "('jax', 'jaxlib', 'juliagrid_tpu', 'h5py')]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def _every_device_kind(pkg, conf, system, pf):
+    """Bulk and manual adds of every device kind, with value edits and
+    seeded random status changes (``conf`` is the package's
+    measurement.configuration module), through ``pkg``'s public API."""
+    mon = pkg.measurement(system)
+    pkg.add_voltmeter(mon, analysis=pf)
+    pkg.add_ammeter(mon, analysis=pf, square=True, status_to=-1)
+    pkg.add_wattmeter(mon, analysis=pf)
+    pkg.add_varmeter(mon, analysis=pf, status_bus=0)
+    pkg.add_pmu(mon, analysis=pf, polar=True, status_from=-1)
+    pkg.add_pmu(mon, analysis=pf, correlated=True, status_bus=-1)
+    label = system.bus.label.label(2)
+    pkg.add_voltmeter(mon, "V manual", bus=label, magnitude=1.02,
+                      variance=1e-4)
+    pkg.add_wattmeter(mon, "P manual",
+                      from_branch=system.branch.label.label(1), active=0.5)
+    pkg.add_pmu(mon, "PMU manual", bus=label, magnitude=1.0, angle=-0.1,
+                polar=True)
+    pkg.update_wattmeter(mon, "P manual", active=0.4, variance=1e-3)
+    pkg.update_pmu(mon, "PMU manual", correlated=True, polar=False)
+    conf.seed(4)
+    pkg.status_voltmeter(mon, outservice=2)
+    pkg.status_pmu(mon, outservice_bus=1)
+    return mon
+
+
+def _same_tables(j, t, where="monitoring"):
+    """Field-by-field equality of two measurement dataclass trees."""
+    if dataclasses.is_dataclass(j):
+        for f in dataclasses.fields(j):
+            if f.name != "system":
+                _same_tables(getattr(j, f.name), getattr(t, f.name),
+                             f"{where}.{f.name}")
+    elif hasattr(j, "array"):                      # Vec
+        assert j.array.dtype == t.array.dtype, where
+        assert np.array_equal(j.array, t.array), where
+    elif hasattr(j, "_keys"):                      # LabelRegistry
+        assert j._keys == t._keys and j.counter == t.counter, where
+    else:
+        assert j == t, where
+
+
+@pytest.mark.parametrize("case", ["case14test.m", "case30test.m"])
+def test_measurement_copy_builds_identical_tables(data_path, case):
+    """The port's measurement/ copy and the JAX package's original build
+    the same device tables and the same compile_se_arrays host mirror from
+    the same solved power flow (the JAX package's, so that both read
+    identical values)."""
+    path = str(data_path / case)
+    pf = jg.newton_raphson(jg.power_system(path))
+    jg.power_flow(pf, power=True, current=True)
+    mons = []
+    for pkg, conf in ((jg, jax_conf), (jgt, torch_conf)):
+        system = pkg.power_system(path)
+        mons.append((system, _every_device_kind(pkg, conf, system, pf)))
+    (js, jmon), (ts, tmon) = mons
+    _same_tables(jmon, tmon)
+
+    _, jtypes, jdev, jhost = jax_acse.compile_se_arrays(js, jmon,
+                                                        return_host=True)
+    _, ttypes, tdev, thost = torch_acse.compile_se_arrays(
+        ts, tmon, return_host=True, device="cpu")
+    assert np.array_equal(jtypes, ttypes) and jdev == tdev
+    for name in jhost._fields:
+        jf, tf = getattr(jhost, name), getattr(thost, name)
+        if name == "branch":
+            for jg_, tg_ in zip(jf, tf):
+                for j, t in zip(jg_, tg_):
+                    assert j.dtype == t.dtype and np.array_equal(j, t), name
+        else:
+            assert np.asarray(jf).dtype == np.asarray(tf).dtype, name
+            assert np.array_equal(jf, tf), name
+    for j, t in zip(jax_acse.compile_se_arrays(js, jmon, values_only=True),
+                    torch_acse.compile_se_arrays(ts, tmon,
+                                                 values_only=True)):
+        assert np.array_equal(j, t)
 
 
 def test_cuda_request_raises_without_card(data_path):
