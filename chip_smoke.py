@@ -5,17 +5,22 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels K1 (``nr_fill``) and K3 (``se_fill``)
-from the sources in the checkout and holds each against its plain PyTorch
-version. It drives the Newton-Raphson main path — ``power_system`` ->
-``newton_raphson`` -> ``power_flow`` — on a 10,000-bus grid, checked against
-the independent scipy oracle, and a 1024-scenario case118 fleet (phases
-1-4). Then the Gauss-Newton WLS state-estimation path — ``measurement`` +
-``add_*`` -> ``gauss_newton`` -> ``state_estimation`` — on a 1,369-bus grid
-against the scipy oracle and on case14/30 with every row type, and the
-Monte-Carlo SE fleets of bench configs 3 and 5b (phases 5-7). Every phase
-prints its lines; any failure exits non-zero. The grids are
-``synthetic_grid``s: ACTIVSg10k and case1354pegase ship as HDF5 and the
+It builds the port's CUDA kernels K1 (``nr_fill``), K3 (``se_fill``) and
+K4 (``gs_sweep``) from the sources in the checkout and holds each against
+its plain PyTorch version. It drives the Newton-Raphson main path —
+``power_system`` -> ``newton_raphson`` -> ``power_flow`` — on a 10,000-bus
+grid, checked against the independent scipy oracle, and a 1024-scenario
+case118 fleet (phases 1-4). Then the Gauss-Newton WLS state-estimation path
+— ``measurement`` + ``add_*`` -> ``gauss_newton`` -> ``state_estimation`` —
+on a 1,369-bus grid against the scipy oracle and on case14/30 with every row
+type, and the Monte-Carlo SE fleets of bench configs 3 and 5b (phases 5-7).
+Then the rest of power flow: K4 against its plain version (phase 8), the
+Gauss-Seidel path — ``gauss_seidel`` -> ``power_flow`` — on case14/30/118
+against the JAX package's iteration counts and the port's Newton-Raphson
+(phase 9), and the DC path, the DC fleets, the fast decoupled path and the
+reactive limits against the scipy oracles and the port's CPU run (phase 10).
+Every phase prints its lines; any failure exits non-zero. The large grids
+are ``synthetic_grid``s: ACTIVSg10k and case1354pegase ship as HDF5 and the
 card's machine has no h5py.
 
 The second-last lines are the card's ``nvidia-smi`` name and power limit
@@ -37,19 +42,31 @@ import numpy as np
 import torch
 
 from juliagrid_tpu_torch import (add_ammeter, add_pmu, add_varmeter,
-                                 add_voltmeter, add_wattmeter, gauss_newton,
-                                 measurement, newton_raphson, power_flow,
-                                 power_system, state_estimation,
-                                 update_voltmeter, update_wattmeter)
+                                 add_voltmeter, add_wattmeter, adjust_angle,
+                                 dc_power_flow, fast_newton_raphson_bx,
+                                 fast_newton_raphson_xb, gauss_newton,
+                                 gauss_seidel, measurement, newton_raphson,
+                                 power_flow, power_system, reactive_limit,
+                                 state_estimation, update_voltmeter,
+                                 update_wattmeter)
 from juliagrid_tpu_torch.estimation.acse import (_normal_equations,
                                                  _solve_normal,
                                                  compile_se_arrays)
+from juliagrid_tpu_torch.kernels import gs_sweep as k4
 from juliagrid_tpu_torch.kernels import nr_fill as k1
 from juliagrid_tpu_torch.kernels import se_fill as k3
-from juliagrid_tpu_torch.oracle import oracle_nr, oracle_wls_se
-from juliagrid_tpu_torch.parallel import batched_nr_solve, batched_se_solve
+from juliagrid_tpu_torch.ops import linalg
+from juliagrid_tpu_torch.oracle import (oracle_dc, oracle_fdpf, oracle_nr,
+                                        oracle_wls_se)
+from juliagrid_tpu_torch.parallel import (batched_dc_solve, batched_nr_solve,
+                                          batched_se_solve)
 from juliagrid_tpu_torch.powerflow.ac import (_max_mismatch, _nr_solve,
                                               _nr_update, compile_ac_arrays)
+from juliagrid_tpu_torch.powerflow.dc import _dc_solve
+from juliagrid_tpu_torch.powerflow.fast_decoupled import _fnr_matrices
+from juliagrid_tpu_torch.powerflow.gauss_seidel import (_gs_solve, _to_rect,
+                                                        compile_gs_arrays)
+from juliagrid_tpu_torch.report.log import suppress
 from juliagrid_tpu_torch.utils.synthetic import synthetic_grid
 
 DATA = Path(__file__).resolve().parent / "tests" / "data"
@@ -67,6 +84,15 @@ SE_CHUNK, SE_CHUNKS = 32, 2  # config 5b: 64 scenarios in chunks of 32
 K3_REL_TOL = 1e-12         # |kernel - plain| <= tol * max(1, |plain|)
 SE_STATE_TOL = 1e-8        # 1,369-bus SE vs oracle; case14/30 SE vs PF
 SE_TOL = 1e-8              # GN max|dx| tolerance (state_estimation default)
+#: Gauss-Seidel iterations to 1e-8 of the JAX package on each case (pinned
+#: by tests/test_torch_powerflow_methods.py)
+GS_ITERATIONS = {"case14test": 281, "case30test": 761, "case118": 2111}
+GS_CAP = 5000              # power_flow(iteration=) of the Gauss-Seidel path
+K4_REL_TOL = 1e-12         # |kernel - plain| <= tol * max(1, |plain|)
+GS_NR_TOL = 1e-7           # Gauss-Seidel state against Newton-Raphson's
+DC_SMALL_TOL = 1e-10       # case14/30 DC, and fleet scenarios vs single
+FLEET_DC = 1024            # DC scenarios (bench config 2's shape)
+FDPF_CAP = 30              # power_flow(iteration=) of the fast decoupled path
 
 
 class SmokeFailure(RuntimeError):
@@ -192,13 +218,13 @@ def phase0():
     card = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for build in [pool.submit(k._library) for k in (k1, k3)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for build in [pool.submit(k._library) for k in (k1, k3, k4)]:
             build.result()
     build_s = time.perf_counter() - t0
     print(f"phase 0 device: {torch.cuda.get_device_name(0)} ({card}), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"K1 and K3 build+load {build_s!r} s")
+          f"K1, K3 and K4 build+load {build_s!r} s")
     return card
 
 
@@ -680,6 +706,312 @@ def phase7():
                chunk=SE_CHUNK)
 
 
+# --------------------------------------------------------------------------
+# Gauss-Seidel, DC and fast decoupled power flow (phases 8-10)
+# --------------------------------------------------------------------------
+
+def wrapped_max(a, b):
+    """max |a - b| of two angle vectors, modulo 2 pi."""
+    d = np.asarray(a) - np.asarray(b)
+    return float(np.abs((d + np.pi) % (2 * np.pi) - np.pi).max())
+
+
+def case_system(case):
+    if case == "10k grid":
+        return synthetic_grid(*GRID)
+    return power_system(str(DATA / f"{case}.m"))
+
+
+def compare_k4(label, arr, rng, plain_reps):
+    """Phase 8: K4 against gs_sweep_ref from a random state around the flat
+    start. ``plain_reps`` 0 times the compared run of the plain version
+    alone (about 10^5 small launches at 10k buses)."""
+    n = arr.bus_type.numel()
+    vm = 1.0 + 0.05 * rng.standard_normal(n)
+    va = 0.1 * rng.standard_normal(n)
+    vre, vim = (torch.tensor(x, device="cuda")
+                for x in (vm * np.cos(va), vm * np.sin(va)))
+    got = k4.gs_sweep(arr, vre, vim)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    ref = k4.gs_sweep_ref(arr, vre, vim)
+    ev[1].record()
+    torch.cuda.synchronize()
+    worst_rel = worst_abs = 0.0
+    for name in ("vre", "vim", "mismatch"):
+        a, b = getattr(got, name), getattr(ref, name)
+        diff = (a - b).abs()
+        worst_abs = max(worst_abs, diff.max().item())
+        worst_rel = max(worst_rel,
+                        (diff / b.abs().clamp(min=1.0)).max().item())
+    check(worst_rel <= K4_REL_TOL,
+          f"{label}: K4 disagrees with gs_sweep_ref, rel {worst_rel:.3e}")
+    ms = cuda_ms(lambda: k4.gs_sweep(arr, vre, vim), reps=20)
+    plain_ms = (cuda_ms(lambda: k4.gs_sweep_ref(arr, vre, vim),
+                        reps=plain_reps) if plain_reps
+                else ev[0].elapsed_time(ev[1]))
+    print(f"phase 8 {label} n={n} row width {arr.nb.shape[1]}: one sweep + "
+          f"mismatch, max abs diff {worst_abs!r}, max rel diff "
+          f"{worst_rel!r} (mismatch K4 {got.mismatch.tolist()!r}); K4 "
+          f"{ms!r} ms, gs_sweep_ref {plain_ms!r} ms per call")
+    return worst_abs, ms, plain_ms
+
+
+def phase8():
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    times = None
+    for case in ("case14test", "case30test", "case118", "10k grid"):
+        arr = compile_gs_arrays(case_system(case), "cuda")
+        err, ms, plain_ms = compare_k4(case, arr, rng,
+                                       0 if case == "10k grid" else 3)
+        worst = max(worst, err)
+        if case == "case118":
+            times = (ms, plain_ms)
+    return worst, times
+
+
+def gs_timed_run(arr, vm, va):
+    """The loop of ``_gs_solve`` with CUDA events around every K4 launch;
+    returns the iterations, K4's device ms in all and the loop's wall s."""
+    marks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vre, vim = _to_rect(vm, va)
+    sweep, it = False, 0
+    while True:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = k4.gs_sweep(arr, vre, vim, sweep=sweep)
+        ev[1].record()
+        marks.append(ev)
+        del_p, del_q = res.mismatch.tolist()
+        if (del_p < TOL and del_q < TOL) or it >= GS_CAP:
+            break
+        vre, vim, sweep = res.vre, res.vim, True
+        it += 1
+    wall = time.perf_counter() - t0
+    return it, sum(a.elapsed_time(b) for a, b in marks), wall
+
+
+def phase9():
+    total = 0
+    for case in ("case14test", "case30test", "case118"):
+        nr = newton_raphson(case_system(case), device="cuda")
+        power_flow(nr)
+        analysis = gauss_seidel(case_system(case), device="cuda")
+        vm0, va0 = analysis._state()
+        k4.gs_sweep.launches = 0
+        seconds, _ = wall_s(lambda: power_flow(analysis, iteration=GS_CAP,
+                                               power=True))
+        launches = k4.gs_sweep.launches
+        total += launches
+        it = analysis.method.iteration
+        check(analysis.method.converged and it == GS_ITERATIONS[case],
+              f"{case} GS: {it} iterations, JAX {GS_ITERATIONS[case]}")
+        check(launches == it + 1,
+              f"{case} GS: K4 launched {launches} times for {it} iterations")
+        dvm = float(np.abs(analysis.voltage.magnitude
+                           - nr.voltage.magnitude).max())
+        dva = wrapped_max(analysis.voltage.angle, nr.voltage.angle)
+        check(dvm <= GS_NR_TOL and dva <= GS_NR_TOL,
+              f"{case} GS vs NR: |dvm| {dvm:.3e}, |dva| {dva:.3e}")
+        inj = analysis.power.injection.active
+        check(inj.shape == (analysis.system.bus.number,)
+              and np.all(np.isfinite(inj)), f"{case} GS: bad power results")
+        line = (f"phase 9 {case} Gauss-Seidel main path: converged in {it} "
+                f"iterations (JAX {GS_ITERATIONS[case]}), vs NR max |dvm| "
+                f"{dvm!r}, max |dva| {dva!r}, K4 launches {launches}; "
+                f"power_flow(power=True) wall {seconds!r} s, "
+                f"{it / seconds!r} sweeps/s")
+        if case != "case118":
+            twin = _gs_solve(analysis.arrays, vm0, va0, TOL, GS_CAP,
+                             sweep=k4.gs_sweep_ref)
+            dtwin = max(float(np.abs(twin[0].cpu().numpy()
+                                     - analysis.voltage.magnitude).max()),
+                        wrapped_max(twin[1].cpu().numpy(),
+                                    analysis.voltage.angle))
+            check(twin[2] == it and dtwin <= TWIN_STATE_TOL,
+                  f"{case} GS: the gs_sweep_ref loop took {twin[2]} "
+                  f"iterations, state {dtwin:.3e} away")
+            line += (f"; gs_sweep_ref loop {twin[2]} iterations, state "
+                     f"{dtwin!r} away")
+        else:
+            runs, k4_ms, wall = gs_timed_run(analysis.arrays, vm0, va0)
+            check(runs == it, f"{case} GS: the timed loop took {runs}")
+            line += (f"; timed loop {wall!r} s: {1e3 * wall / (it + 1)!r} ms "
+                     f"per iteration, K4 {k4_ms / (it + 1)!r} ms per launch "
+                     f"({k4_ms / (1e3 * wall)!r} of the loop's wall)")
+        print(line)
+    return total
+
+
+def dc_fleet(label, system):
+    """One factorization and one solve call for FLEET_DC scenarios of
+    p_sched (1 + 0.05 N(0, 1)) from default_rng(1), bench.py:230-233."""
+    arr = dc_power_flow(system, device="cuda").arrays
+    rng = np.random.default_rng(1)
+    p_b = arr.p_sched[None] * torch.tensor(
+        1.0 + 0.05 * rng.standard_normal((FLEET_DC, 1)), device="cuda")
+    theta = batched_dc_solve(arr, p_b)
+    check(theta.shape == p_b.shape and bool(theta.isfinite().all()),
+          f"{label} DC fleet: bad angles")
+    worst = 0.0
+    for s in range(0, FLEET_DC, FLEET_DC // 8):
+        single = _dc_solve(arr._replace(p_sched=p_b[s]), "LU")
+        worst = max(worst, (theta[s] - single).abs().max().item())
+    check(worst <= DC_SMALL_TOL,
+          f"{label} DC fleet: scenarios differ from single solves by "
+          f"{worst:.3e}")
+    ms = cuda_ms(lambda: batched_dc_solve(arr, p_b), reps=5)
+    single_ms = cuda_ms(lambda: _dc_solve(arr, "LU"), reps=5)
+    print(f"phase 10 {label} DC fleet x{FLEET_DC}: 8 scenarios vs single "
+          f"solves max |d theta| {worst!r}; {ms!r} ms per fleet (factor + "
+          f"one solve of {FLEET_DC} columns, CUDA events), "
+          f"{FLEET_DC / ms * 1e3!r} solves/s; single _dc_solve {single_ms!r}"
+          " ms")
+
+
+def fdpf_timed_split(arr, vm, va):
+    """The loop of ``_fnr_solve`` built from its own pieces, with CUDA
+    events around the two K1 launches, the two ``lu_solve`` half-steps and
+    the mismatch readback (its scaling and amax kernels, the copy and the
+    host's round trip)."""
+    n = vm.shape[0]
+    not_slack = torch.arange(n, device=vm.device) != arr.slack
+    is_pq = arr.bus_type == 1
+    split = {"K1": 0.0, "lu_solve": 0.0, "readback": 0.0}
+
+    def k1_fill(vm, va):
+        return k1.nr_fill(arr, vm[None], va[None], arr.p_sched[None],
+                          arr.q_sched[None])
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    ev[0].record()
+    res = k1_fill(vm, va)
+    ev[1].record()
+    torch.cuda.synchronize()
+    split["K1"] += ev[0].elapsed_time(ev[1])
+    it = 0
+    while True:
+        ev[2].record()
+        mp, mq = res.mp[0] / vm, res.mq[0] / vm
+        del_p, del_q = torch.stack([mp.abs().amax(), mq.abs().amax()]).tolist()
+        ev[3].record()
+        done = (del_p < TOL and del_q < TOL) or it >= FDPF_CAP
+        if not done:
+            va = va + torch.where(not_slack, linalg.solve(arr.bp, mp), 0.0)
+            ev[4].record()
+            mq = k1_fill(vm, va).mq[0] / vm
+            ev[5].record()
+            vm = vm + torch.where(is_pq, linalg.solve(arr.bq, mq), 0.0)
+            ev[6].record()
+            res = k1_fill(vm, va)
+            ev[7].record()
+            it += 1
+        torch.cuda.synchronize()
+        split["readback"] += ev[2].elapsed_time(ev[3])
+        if done:
+            return it, split
+        split["lu_solve"] += (ev[3].elapsed_time(ev[4])
+                              + ev[5].elapsed_time(ev[6]))
+        split["K1"] += ev[4].elapsed_time(ev[5]) + ev[6].elapsed_time(ev[7])
+
+
+def fdpf_run(case, bx):
+    label = f"{case} FDPF {'BX' if bx else 'XB'}"
+    build = fast_newton_raphson_bx if bx else fast_newton_raphson_xb
+    system = case_system(case)
+    t_asm, (bp, bq) = wall_s(lambda: _fnr_matrices(system, bx, "cuda"))
+    t_lu, _ = wall_s(lambda: (linalg.factorize(bp), linalg.factorize(bq)))
+    del bp, bq
+    t_system, fresh = wall_s(lambda: case_system(case))
+    t_build, analysis = wall_s(lambda: build(fresh, device="cuda"))
+    vm0, va0 = analysis._state()
+    k1.nr_fill.launches = 0
+    t_solve, _ = wall_s(lambda: power_flow(analysis, iteration=FDPF_CAP))
+    launches = k1.nr_fill.launches
+    it = analysis.method.iteration
+    oracle = oracle_fdpf(case_system(case), bx=bx, iteration=FDPF_CAP)
+    check(launches == 2 * it + 1,
+          f"{label}: K1 launched {launches} times for {it} iterations")
+    check(analysis.method.converged and oracle.converged
+          and it == oracle.iterations,
+          f"{label}: {it} iterations, oracle {oracle.iterations}")
+    dvm = float(np.abs(analysis.voltage.magnitude - oracle.magnitude).max())
+    dva = wrapped_max(analysis.voltage.angle, oracle.angle)
+    check(dvm <= GRID_STATE_TOL and dva <= GRID_STATE_TOL,
+          f"{label}: |dvm| {dvm:.3e}, |dva| {dva:.3e}")
+    runs, split = fdpf_timed_split(analysis.arrays, vm0, va0)
+    check(runs == it, f"{label}: the timed loop took {runs} iterations")
+    print(f"phase 10 {label}: n={system.bus.number}, {it} iterations (oracle "
+          f"{oracle.iterations}), max |dvm| {dvm!r}, max |dva| {dva!r}, K1 "
+          f"launches {launches}; wall: power_system {t_system!r} s, "
+          f"construction {t_build!r} s (B'/B'' assembly {t_asm!r} s, two "
+          f"f64 LU {t_lu!r} s), power_flow {t_solve!r} s; per iteration (CUDA events): K1 "
+          f"{split['K1'] / (it + 1)!r} ms for two launches, two lu_solve "
+          f"{split['lu_solve'] / it!r} ms, readback "
+          f"{split['readback'] / (it + 1)!r} ms")
+
+
+def limits_run(device):
+    """tests/test_limits.py's sequence on case118 with FDPF BX."""
+    system = case_system("case118")
+    analysis = fast_newton_raphson_bx(system, device=device)
+    power_flow(analysis, iteration=300)
+    first = analysis.method.iteration
+    with suppress():
+        flags = reactive_limit(analysis)
+    analysis = fast_newton_raphson_bx(system, device=device)
+    power_flow(analysis, iteration=300)
+    analysis.method.iteration += first
+    adjust_angle(analysis, system.bus.label.label(0))
+    return flags, analysis
+
+
+def phase10():
+    for case, tol in (("case14test", DC_SMALL_TOL),
+                      ("case30test", DC_SMALL_TOL),
+                      ("10k grid", GRID_STATE_TOL)):
+        t_system, system = wall_s(lambda: case_system(case))
+        t_build, analysis = wall_s(lambda: dc_power_flow(system,
+                                                         device="cuda"))
+        t_solve, _ = wall_s(lambda: power_flow(analysis, power=True))
+        dva = wrapped_max(analysis.voltage.angle,
+                          oracle_dc(case_system(case)).angle)
+        check(dva <= tol, f"{case} DC: |d theta| {dva:.3e} over {tol}")
+        flow = analysis.power.from_.active
+        check(flow.shape == (analysis.system.branch.number,)
+              and np.all(np.isfinite(flow)), f"{case} DC: bad power results")
+        print(f"phase 10 {case} DC main path: vs oracle_dc max |d theta| "
+              f"{dva!r}, max |theta| "
+              f"{float(np.abs(analysis.voltage.angle).max())!r}; wall: "
+              f"power_system {t_system!r} s, dc_power_flow {t_build!r} s, "
+              f"power_flow(power=True) "
+              f"{t_solve!r} s")
+    dc_fleet("case118", case_system("case118"))
+    dc_fleet("10k grid", case_system("10k grid"))
+    for case in ("10k grid", "case118"):
+        for bx in (True, False):
+            fdpf_run(case, bx)
+
+    flags, card = limits_run("cuda")
+    cpu_flags, cpu = limits_run("cpu")
+    dstate = max(float(np.abs(card.voltage.magnitude
+                              - cpu.voltage.magnitude).max()),
+                 float(np.abs(card.voltage.angle - cpu.voltage.angle).max()))
+    check(np.array_equal(flags, cpu_flags) and np.any(flags != 0)
+          and card.method.iteration == cpu.method.iteration
+          and card.method.converged and dstate <= TWIN_STATE_TOL,
+          f"case118 reactive limits: card and CPU runs differ (flags "
+          f"{flags.tolist()} / {cpu_flags.tolist()}, iterations "
+          f"{card.method.iteration} / {cpu.method.iteration}, state "
+          f"{dstate:.3e})")
+    print(f"phase 10 case118 FDPF BX reactive limits: "
+          f"{int(np.sum(flags != 0))} generators at a limit, {card.method.iteration} iterations in "
+          f"all, card vs CPU state {dstate!r}")
+
+
 def main():
     card = phase0()
     max_err, ms, plain_ms = phase1()
@@ -689,6 +1021,9 @@ def main():
     k3_err, (k3_ms, k3_plain_ms) = phase5()
     k3_launches = phase6()
     phase7()
+    k4_err, (k4_ms, k4_plain_ms) = phase8()
+    k4_launches = phase9()
+    phase10()
     print(card)
     print(json.dumps({"kernels": [{
         "name": "nr_fill", "route": "cuda",
@@ -700,7 +1035,12 @@ def main():
         "source": "juliagrid_tpu_torch/kernels/csrc/se_fill.cu",
         "replaces": "juliagrid_tpu/estimation/acse.py:463",
         "launches": k3_launches, "max_abs_err": k3_err,
-        "ms": k3_ms, "plain_ms": k3_plain_ms}]}))
+        "ms": k3_ms, "plain_ms": k3_plain_ms}, {
+        "name": "gs_sweep", "route": "cuda",
+        "source": "juliagrid_tpu_torch/kernels/csrc/gs_sweep.cu",
+        "replaces": "juliagrid_tpu/powerflow/gauss_seidel.py:97",
+        "launches": k4_launches, "max_abs_err": k4_err,
+        "ms": k4_ms, "plain_ms": k4_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

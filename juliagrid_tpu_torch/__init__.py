@@ -3,10 +3,13 @@
 The same snake_case API as the JAX package, on PyTorch tensors in float64,
 for an NVIDIA H100. The Newton-Raphson AC power flow runs through a
 hand-written CUDA kernel (``kernels/csrc/nr_fill.cu``) for the injections,
-mismatch and Jacobian fill, and ``torch.linalg`` for the f64 solve. The
-Gauss-Newton WLS AC state estimation runs through a second one
-(``kernels/csrc/se_fill.cu``) for the measurement functions and Jacobian,
-then an f64 gain matmul and Cholesky. The numpy host layer (parsers, data
+mismatch and Jacobian fill, and ``torch.linalg`` for the f64 solve; the
+fast decoupled power flow through the same kernel and two f64 LU factors
+made once; the Gauss-Seidel power flow through a third
+(``kernels/csrc/gs_sweep.cu``), which runs a whole sweep in one launch; the
+DC power flow through one f64 solve. The Gauss-Newton WLS AC state
+estimation runs through a fourth (``kernels/csrc/se_fill.cu``) for the
+measurement functions and Jacobian, then an f64 gain matmul and Cholesky. The numpy host layer (parsers, data
 model, measurements, post-processing) is a copy of the JAX package's, so
 the port imports no JAX.
 
@@ -20,7 +23,7 @@ from .units import units
 
 # power-system data layer
 from .system.load import power_system
-from .system.model import ac_model
+from .system.model import ac_model, dc_model
 
 # measurement layer
 from .measurement.load import ems, measurement
@@ -36,12 +39,18 @@ from .measurement.hdf5io import save_measurement
 
 # power flow
 from .powerflow.ac import mismatch, newton_raphson, set_initial_point, solve
+from .powerflow.fast_decoupled import (fast_newton_raphson_bx,
+                                       fast_newton_raphson_xb)
+from .powerflow.gauss_seidel import gauss_seidel
+from .powerflow.dc import dc_power_flow
 from .powerflow.driver import power_flow
+from .powerflow.limits import adjust_angle, reactive_limit
 
 # state estimation
 from .estimation.acse import gauss_newton, increment, state_estimation
 
 # postprocessing
 from .postprocessing import ac as ac_post
+from .postprocessing import dc as dc_post
 
 __version__ = "0.1.0"

@@ -35,6 +35,28 @@ class DenseFactor(NamedTuple):
     data: tuple    # factor tensors
 
 
+def dense_from_coo(rows, cols, vals, n: int, device) -> torch.Tensor:
+    """The dense f64 ``[n, n]`` matrix of numpy COO entries, assembled on
+    ``device``: entries at one position add up, as in ``np.add.at`` (on a
+    CUDA device in another order, so such sums may differ in the last
+    bit)."""
+    a = torch.zeros((n, n), dtype=torch.float64, device=device)
+    flat = np.asarray(rows, dtype=np.int64) * n + np.asarray(cols)
+    a.view(-1).index_add_(
+        0, torch.as_tensor(flat, device=device),
+        torch.as_tensor(np.asarray(vals, dtype=np.float64), device=device))
+    return a
+
+
+def mask_identity(a: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """``diag(m) a diag(m) + diag(1 - m)`` for the 0/1 mask ``m`` of
+    ``active``, in place: inactive rows and columns become identity."""
+    m = active.to(a.dtype)
+    a.mul_(m[:, None]).mul_(m[None, :])
+    a.diagonal().add_(1.0 - m)
+    return a
+
+
 def factorize(a: torch.Tensor, kind: str = LU) -> DenseFactor:
     """Factorize ``a`` (``[..., n, n]``) in f64.
 
@@ -53,19 +75,22 @@ def factorize(a: torch.Tensor, kind: str = LU) -> DenseFactor:
 
 def solve(factor: DenseFactor, b: torch.Tensor) -> torch.Tensor:
     """Solve ``A x = b`` for a right-hand side ``b`` of shape ``[..., n]``."""
-    rhs = b.unsqueeze(-1)
+    return solve_columns(factor, b.unsqueeze(-1)).squeeze(-1)
+
+
+def solve_columns(factor: DenseFactor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``A X = B`` for the columns of ``b`` (``[..., n, k]``) in one
+    call — k right-hand sides against one factorization."""
     if factor.kind == LU:
         lu, piv = factor.data
-        x = torch.linalg.lu_solve(lu, piv, rhs)
-    elif factor.kind == QR:
+        return torch.linalg.lu_solve(lu, piv, b)
+    if factor.kind == QR:
         q, r = factor.data
-        x = torch.linalg.solve_triangular(r, q.mT @ rhs, upper=True)
-    elif factor.kind == LL:
+        return torch.linalg.solve_triangular(r, q.mT @ b, upper=True)
+    if factor.kind == LL:
         (c,) = factor.data
-        x = torch.cholesky_solve(rhs, c)
-    else:
-        raise ValueError(f"unknown factorization kind {factor.kind}")
-    return x.squeeze(-1)
+        return torch.cholesky_solve(b, c)
+    raise ValueError(f"unknown factorization kind {factor.kind}")
 
 
 def pw_lsq_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

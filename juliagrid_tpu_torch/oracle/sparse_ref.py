@@ -4,7 +4,8 @@ A pure numpy/scipy re-implementation of the reference's numerical stack
 *shape* (serial sparse CSC assembly + UMFPACK/KLU-class factorization; here
 scipy ``splu``). It is validated against the shipped MATPOWER goldens for
 IEEE 14/30 (exact iteration counts and voltages), which qualifies it to
-check the port's Newton-Raphson on grids where no shipped oracle exists;
+check the port's Newton-Raphson, fast decoupled (``oracle_fdpf``) and DC
+(``oracle_dc``) power flows on grids where no shipped oracle exists;
 ``oracle_wls_se`` checks the port's Gauss-Newton WLS state estimation the
 same way on SCADA and polar bus PMU sets.
 
@@ -14,6 +15,7 @@ linear algebra are all implemented here separately (complex-matrix
 formulation), so agreement with the tensor path is a genuine cross-check.
 
 Reference parity anchors: powerFlow/acPowerFlow.jl:645-911 (NR),
+:913-983 (fast decoupled), dcPowerFlow.jl:89-134 (DC),
 stateEstimation/acStateEstimation.jl:261-931 (WLS SE).
 """
 
@@ -129,6 +131,107 @@ def oracle_nr(system: PowerSystem, tolerance: float = 1e-8,
 
     return SimpleNamespace(
         magnitude=np.abs(v), angle=np.angle(v), iterations=it,
+        converged=bool(del_p < tolerance and del_q < tolerance),
+        max_mismatch_active=float(del_p), max_mismatch_reactive=float(del_q))
+
+
+def _fdpf_matrices(system: PowerSystem, bx: bool):
+    """Sparse B'/B'' per the reference BX/XB coefficient rules
+    (acPowerFlow.jl:416-483), assembled independently in COO->CSC."""
+    n = system.bus.number
+    m = system.branch.number
+    br = system.branch
+    prm = br.parameter
+    f = br.layout.from_bus.array[:m]
+    t = br.layout.to_bus.array[:m]
+    on = br.layout.status.array[:m] == 1
+
+    r = prm.resistance.array[:m]
+    x = prm.reactance.array[:m]
+    bsi = 0.5 * prm.susceptance.array[:m]
+    tau_inv = 1.0 / prm.turns_ratio.array[:m]
+    phi = prm.shift_angle.array[:m]
+    sin_p, cos_p = np.sin(phi), np.cos(phi)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        y = np.where(on, 1.0 / (r + 1j * x), 0.0)
+        inv_x = np.where(on, -1.0 / x, 0.0)
+    if bx:
+        bmk = inv_x
+        p_a, p_b = y.real, y.imag
+    else:
+        bmk = y.imag
+        p_a = np.zeros(m)
+        p_b = inv_x
+
+    denom = cos_p**2 + sin_p**2
+    pij = np.where(on, (-p_a * sin_p - p_b * cos_p) / denom, 0.0)
+    pji = np.where(on, (p_a * sin_p - p_b * cos_p) / denom, 0.0)
+    pii = np.where(on, p_b / denom, 0.0)
+    pjj = np.where(on, p_b, 0.0)
+
+    q_a = np.where(on, -bmk * tau_inv, 0.0)
+    q_b = np.where(on, (bmk + bsi) * tau_inv**2, 0.0)
+    q_c = np.where(on, bmk + bsi, 0.0)
+
+    rows = np.concatenate([f, t, f, t])
+    cols = np.concatenate([t, f, f, t])
+    bp = sp.coo_matrix((np.concatenate([pij, pji, pii, pjj]),
+                        (rows, cols)), shape=(n, n)).tocsc()
+    bq = sp.coo_matrix((np.concatenate([q_a, q_a, q_b, q_c]),
+                        (rows, cols)), shape=(n, n)).tocsc()
+    bq = bq + sp.diags(system.bus.shunt.susceptance.array[:n])
+    return bp, bq
+
+
+def _mask_identity(a: sp.csc_matrix, active: np.ndarray) -> sp.csc_matrix:
+    """Inactive rows/cols -> identity (the slack/non-PQ masking trick)."""
+    d = sp.diags(active.astype(np.float64))
+    return (d @ a @ d + sp.diags(1.0 - active.astype(np.float64))).tocsc()
+
+
+def oracle_fdpf(system: PowerSystem, bx: bool = True,
+                tolerance: float = 1e-8, iteration: int = 30
+                ) -> SimpleNamespace:
+    """Fast-decoupled power flow with constant sparse B'/B'' factors
+    (the reference's half-iteration scheme, acPowerFlow.jl:913-983)."""
+    n = system.bus.number
+    ybus = oracle_ybus(system).tocsr()
+    p_sched, q_sched = _scheduled(system)
+    vm, va = _start_voltages(system)
+    types = system.bus.layout.type.array[:n]
+    slack = system.bus.layout.slack
+    m_p = np.arange(n) != slack
+    m_q = types == 1
+
+    bp, bq = _fdpf_matrices(system, bx)
+    f_p = splu(_mask_identity(bp, m_p))
+    f_q = splu(_mask_identity(bq, m_q))
+
+    def injections(vm, va):
+        v = vm * np.exp(1j * va)
+        s = v * np.conj(ybus @ v)
+        return s.real, s.imag
+
+    def mism(vm, va):
+        p, q = injections(vm, va)
+        mp = np.where(m_p, (p - p_sched) / vm, 0.0)
+        mq = np.where(m_q, (q - q_sched) / vm, 0.0)
+        return mp, mq, np.max(np.abs(mp)), np.max(np.abs(mq))
+
+    mp, mq, del_p, del_q = mism(vm, va)
+    it = 0
+    while not (del_p < tolerance and del_q < tolerance) and it < iteration:
+        dva = f_p.solve(mp)
+        va = va + np.where(m_p, dva, 0.0)
+        p, q = injections(vm, va)
+        mq = np.where(m_q, (q - q_sched) / vm, 0.0)
+        dvm = f_q.solve(mq)
+        vm = vm + np.where(m_q, dvm, 0.0)
+        it += 1
+        mp, mq, del_p, del_q = mism(vm, va)
+
+    return SimpleNamespace(
+        magnitude=vm, angle=va, iterations=it,
         converged=bool(del_p < tolerance and del_q < tolerance),
         max_mismatch_active=float(del_p), max_mismatch_reactive=float(del_q))
 
@@ -329,3 +432,40 @@ def oracle_wls_se(system: PowerSystem, monitoring, tolerance: float = 1e-8,
         converged=bool(maxinc < tolerance), max_increment=float(maxinc),
         jacobian=H, residual=z - h, weights=w, slack=slack,
         row_device=row_device)
+
+
+def oracle_dc(system: PowerSystem) -> SimpleNamespace:
+    """DC power flow: B theta = P with slack row/col masked to identity
+    (reference dcPowerFlow.jl:89-134)."""
+    from ..system.model import model
+    model(system, "dc")
+    n = system.bus.number
+    bus = system.bus
+    # independent B assembly
+    m = system.branch.number
+    br = system.branch
+    f = br.layout.from_bus.array[:m]
+    t = br.layout.to_bus.array[:m]
+    on = br.layout.status.array[:m] == 1
+    with np.errstate(divide="ignore"):
+        adm = np.where(on, 1.0 / (br.parameter.turns_ratio.array[:m]
+                                  * br.parameter.reactance.array[:m]), 0.0)
+    rows = np.concatenate([f, t, f, t])
+    cols = np.concatenate([t, f, f, t])
+    vals = np.concatenate([-adm, -adm, adm, adm])
+    b = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsc()
+
+    phi = br.parameter.shift_angle.array[:m]
+    shift = phi * adm
+    shift_power = np.zeros(n)
+    np.subtract.at(shift_power, f, shift)
+    np.add.at(shift_power, t, shift)
+
+    slack = bus.layout.slack
+    rhs = (bus.supply.active.array[:n] - bus.demand.active.array[:n]
+           - bus.shunt.conductance.array[:n] - shift_power)
+    active = np.arange(n) != slack
+    rhs = np.where(active, rhs, 0.0)
+    theta = splu(_mask_identity(b, active)).solve(rhs)
+    theta = theta + bus.voltage.angle.array[:n][slack] - theta[slack]
+    return SimpleNamespace(angle=theta)

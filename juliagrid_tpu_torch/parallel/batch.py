@@ -1,12 +1,13 @@
-"""Scenario batching: Newton-Raphson and WLS state estimation over a fleet
-of scenarios on one card.
+"""Scenario batching: Newton-Raphson, DC power flow and WLS state
+estimation over a fleet of scenarios on one card.
 
 The reference runs scenario studies by re-running scripts. Here the scenario
 axis is a leading tensor dimension: K1 and K3 run with scenarios on their
 launch grids (one warp per scenario and bus, or scenario and measurement
 row), the NR Jacobians factor in one batched f64
-``torch.linalg.lu_factor``/``lu_solve``, and the SE gains form in one
-batched matmul and factor in one batched f64 Cholesky.
+``torch.linalg.lu_factor``/``lu_solve``, the SE gains form in one
+batched matmul and factor in one batched f64 Cholesky, and the DC fleet
+shares one factorization of B and solves every scenario in one call.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ import torch
 
 from ..estimation.acse import SeArrays, _normal_increment
 from ..kernels.nr_fill import nr_fill
+from ..ops import linalg
 from ..kernels.se_fill import se_fill
 from ..powerflow.ac import AcArrays, _max_mismatch, _nr_update
+from ..powerflow.dc import DcArrays, _masked_b
 
 
 def batched_nr_solve(arr: AcArrays, vm0, va0, p_sched, q_sched,
@@ -79,3 +82,19 @@ def batched_se_solve(arr: SeArrays, net: AcArrays, vm0, va0, means,
         active &= maxinc >= tol
         it += 1
     return vm, va, iters, ~active & (relmax <= 1e-6)
+
+
+def batched_dc_solve(arr: DcArrays, p_sched, method: str = "LU"):
+    """Batched DC power flow over injection scenarios.
+
+    ``p_sched`` is ``[B, n]`` scheduled injections. The shared slack-masked
+    B factors once (``method``, as ``powerflow.dc._dc_solve`` takes it) and
+    every scenario is solved in one call, with the scenarios as the columns
+    of the right-hand side — the amortization the constant DC matrix exists
+    for (the reference re-factorizes per run, dcPowerFlow.jl:165-193).
+    Returns ``[B, n]`` bus angles."""
+    b, m = _masked_b(arr)
+    fac = linalg.factorize(b, method)
+    rhs = (p_sched - arr.shift[None, :] - arr.gshunt[None, :]) * m[None, :]
+    theta = linalg.solve_columns(fac, rhs.mT)
+    return theta.mT + arr.slack_angle

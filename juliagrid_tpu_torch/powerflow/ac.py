@@ -16,8 +16,10 @@ Iteration-count semantics match the reference driver exactly
 (acPowerFlow.jl:1389-1433): compute mismatch, stop if max|dP|,max|dQ| < tol,
 stop if the iteration limit is reached, otherwise solve and increment.
 
-Only Newton-Raphson is ported; the fast decoupled, Gauss-Seidel and BBD
-methods of the JAX package wait for their ROADMAP items.
+The analysis object and its stepwise ``mismatch``/``solve`` also serve the
+fast decoupled (``fast_decoupled.py``) and Gauss-Seidel
+(``gauss_seidel.py``) methods; the BBD methods of the JAX package wait for
+ROADMAP item 11.
 """
 
 from __future__ import annotations
@@ -39,13 +41,14 @@ from ..utils.profiling import Timings
 
 #: methods of the JAX package that the port does not run yet
 _NOT_PORTED = {
-    "fast_newton_raphson_bx": "ROADMAP item 5 (fast decoupled)",
-    "fast_newton_raphson_xb": "ROADMAP item 5 (fast decoupled)",
-    "gauss_seidel": "ROADMAP item 6 (Gauss-Seidel)",
     "newton_raphson_bbd": "ROADMAP item 11 (BBD scale path)",
     "fast_newton_raphson_bbd_bx": "ROADMAP item 11 (BBD scale path)",
     "fast_newton_raphson_bbd_xb": "ROADMAP item 11 (BBD scale path)",
 }
+
+
+#: method names of the fast decoupled analyses (``fast_decoupled.py``)
+FAST_DECOUPLED = ("fast_newton_raphson_bx", "fast_newton_raphson_xb")
 
 
 class AcArrays(NamedTuple):
@@ -219,7 +222,7 @@ class AcPowerFlow:
     system: PowerSystem
     voltage: Polar
     method: MethodState
-    arrays: AcArrays
+    arrays: NamedTuple     # AcArrays, FnrArrays or GsArrays, by method
     device: torch.device
     power: Optional[object] = None
     current: Optional[object] = None
@@ -261,7 +264,16 @@ class AcPowerFlow:
                 or sig.get("type") != rev.type
                 or sig.get("injection") != rev.injection
                 or sig.get("slack") != rev.slack):
-            self.arrays = compile_ac_arrays(self.system, self.device)
+            if self.method.name in FAST_DECOUPLED:
+                from .fast_decoupled import compile_fnr_arrays
+                self.arrays = compile_fnr_arrays(
+                    self.system, self.method.name.endswith("bx"),
+                    self.device)
+            elif self.method.name == "gauss_seidel":
+                from .gauss_seidel import compile_gs_arrays
+                self.arrays = compile_gs_arrays(self.system, self.device)
+            else:
+                self.arrays = compile_ac_arrays(self.system, self.device)
             sig["ac_model"] = rev.ac_model
             sig["ac_pattern"] = rev.ac_pattern
             sig["type"] = rev.type
@@ -350,6 +362,12 @@ def newton_raphson(system: PowerSystem, factorization: str = linalg.LU,
 def mismatch(analysis: AcPowerFlow):
     """Reference mismatch!: returns (max|dP|, max|dQ|)."""
     analysis._refresh_arrays()
+    if analysis.method.name in FAST_DECOUPLED:
+        from .fast_decoupled import fnr_mismatch
+        return fnr_mismatch(analysis)
+    if analysis.method.name == "gauss_seidel":
+        from .gauss_seidel import gs_mismatch
+        return gs_mismatch(analysis)
     vm, va = analysis._state()
     _, _, del_p, del_q = _mismatch(analysis.arrays, vm, va)
     del_p, del_q = torch.stack([del_p, del_q]).tolist()
@@ -359,8 +377,14 @@ def mismatch(analysis: AcPowerFlow):
 
 
 def solve(analysis: AcPowerFlow):
-    """Reference solve!: one Newton-Raphson iteration."""
+    """Reference solve!: one iteration of the analysis's method."""
     analysis._refresh_arrays()
+    if analysis.method.name in FAST_DECOUPLED:
+        from .fast_decoupled import fnr_solve_step
+        return fnr_solve_step(analysis)
+    if analysis.method.name == "gauss_seidel":
+        from .gauss_seidel import gs_solve_step
+        return gs_solve_step(analysis)
     vm, va = analysis._state()
     vm, va = _nr_step(analysis.arrays, vm, va, analysis.method.factorization)
     analysis.voltage.magnitude = vm.cpu().numpy()

@@ -1,9 +1,13 @@
-"""Power-flow driver (reference powerFlow!, acPowerFlow.jl:1389-1433).
+"""Power-flow driver (reference powerFlow!, acPowerFlow.jl:1389-1433 and
+dcPowerFlow.jl:159-178).
 
-Newton-Raphson only. The mismatch/solve loop runs on the device with one
-scalar-pair readback per iteration (``ac._nr_solve``); iteration semantics
-match the reference exactly: the count equals the number of linear solves
-performed, and convergence is judged on the freshly recomputed mismatches.
+Dispatches on the analysis: a DC analysis is one masked solve
+(``dc.dc_solve``); an AC analysis runs its method's loop on the device with
+one scalar-pair readback per iteration (``ac._nr_solve``,
+``fast_decoupled._fnr_solve``, ``gauss_seidel._gs_solve``). Iteration
+semantics match the reference exactly: the count equals the number of
+iterations performed, and convergence is judged on the freshly recomputed
+mismatches.
 """
 
 from __future__ import annotations
@@ -14,18 +18,25 @@ from ..config import config
 from ..report.solver import (print_exit, print_increments_pf,
                              print_middle_pf, print_solver_pf, print_top)
 from ..utils.profiling import default_timings
-from .ac import AcPowerFlow, _nr_solve
+from .ac import FAST_DECOUPLED, AcPowerFlow, _nr_solve
+from .dc import DcPowerFlow, dc_solve
 
 
 def power_flow(analysis, iteration: int = 20, tolerance: float = 1e-8,
                power: bool = False, current: bool = False,
                verbose: int | None = None):
-    """Solve a Newton-Raphson analysis to convergence."""
+    """Solve a power-flow analysis to convergence."""
+    if isinstance(analysis, DcPowerFlow):
+        dc_solve(analysis, verbose=verbose)
+        if power:
+            from ..postprocessing.dc import power as dc_power
+            dc_power(analysis)
+        return analysis
     if not isinstance(analysis, AcPowerFlow):
         raise NotImplementedError(
-            f"power_flow runs Newton-Raphson analyses only; "
-            f"{type(analysis).__name__} is not ported yet (ROADMAP items "
-            "5 and 12)")
+            "power_flow runs Newton-Raphson, fast decoupled, Gauss-Seidel "
+            f"and DC analyses; {type(analysis).__name__} is not ported yet "
+            "(ROADMAP item 12: optimal power flow)")
 
     verbose = config.verbose if verbose is None else verbose
     method = analysis.method
@@ -55,7 +66,7 @@ def power_flow(analysis, iteration: int = 20, tolerance: float = 1e-8,
             _solve_step(analysis)
             dmag = np.abs(np.asarray(analysis.voltage.magnitude) - vm_prev)
             dang = np.abs(np.asarray(analysis.voltage.angle) - va_prev)
-        if dmag is not None:
+        if dmag is not None and method.name != "gauss_seidel":
             print_increments_pf((float(dmag.min()), float(dmag.max())),
                                 (float(dang.min()), float(dang.max())),
                                 verbose)
@@ -65,9 +76,21 @@ def power_flow(analysis, iteration: int = 20, tolerance: float = 1e-8,
     else:
         vm, va = analysis._state()
         with method.timings.span("solve"), default_timings.span("pf.solve"):
-            vm, va, it, del_p, del_q, converged = _nr_solve(
-                analysis.arrays, vm, va, tolerance, iteration,
-                method.factorization)
+            if method.name == "newton_raphson":
+                vm, va, it, del_p, del_q, converged = _nr_solve(
+                    analysis.arrays, vm, va, tolerance, iteration,
+                    method.factorization)
+            elif method.name in FAST_DECOUPLED:
+                from .fast_decoupled import _fnr_solve
+                vm, va, it, del_p, del_q, converged = _fnr_solve(
+                    analysis.arrays, vm, va, tolerance, iteration,
+                    method.factorization)
+            elif method.name == "gauss_seidel":
+                from .gauss_seidel import _gs_solve
+                vm, va, it, del_p, del_q, converged = _gs_solve(
+                    analysis.arrays, vm, va, tolerance, iteration)
+            else:
+                raise ValueError(f"unknown method {method.name}")
             analysis.voltage.magnitude = vm.cpu().numpy()
             analysis.voltage.angle = va.cpu().numpy()
         method.iteration = it

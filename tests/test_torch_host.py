@@ -16,11 +16,21 @@ import juliagrid_tpu as jg
 import juliagrid_tpu_torch as jgt
 from juliagrid_tpu.estimation import acse as jax_acse
 from juliagrid_tpu.measurement import configuration as jax_conf
+from juliagrid_tpu.oracle import sparse_ref as jax_oracle
+from juliagrid_tpu.postprocessing import dc as jax_dc_post
 from juliagrid_tpu.powerflow import ac as jax_ac
+from juliagrid_tpu.powerflow import dc as jax_dc
+from juliagrid_tpu.powerflow import fast_decoupled as jax_fd
+from juliagrid_tpu.powerflow import gauss_seidel as jax_gs
 from juliagrid_tpu.utils.synthetic import synthetic_grid as jax_synthetic
 from juliagrid_tpu_torch.estimation import acse as torch_acse
 from juliagrid_tpu_torch.measurement import configuration as torch_conf
+from juliagrid_tpu_torch.oracle import sparse_ref as torch_oracle
+from juliagrid_tpu_torch.postprocessing import dc as torch_dc_post
 from juliagrid_tpu_torch.powerflow import ac as torch_ac
+from juliagrid_tpu_torch.powerflow import dc as torch_dc
+from juliagrid_tpu_torch.powerflow import fast_decoupled as torch_fd
+from juliagrid_tpu_torch.powerflow import gauss_seidel as torch_gs
 from juliagrid_tpu_torch.utils.synthetic import synthetic_grid as torch_synthetic
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -64,17 +74,76 @@ def test_host_copy_builds_identical_tables(data_path, case):
     assert js.bus.layout.slack == ts.bus.layout.slack
 
 
+@pytest.mark.parametrize("case", ["case14test.m", "case30test.m",
+                                  "case118.m", "synthetic_12x12"])
+def test_dc_fnr_gs_tables_match_jax(data_path, case):
+    """The port's DC, fast decoupled and Gauss-Seidel device tables equal
+    the JAX package's field by field. B' and B'' are scattered on the device
+    instead of built densely on the host; on the CPU the parallel branches
+    add up in the same order, so they come out bit for bit."""
+    js, ts = _pair(data_path, case)
+    jdc = jax_dc.compile_dc_arrays(js)
+    tdc = torch_dc.compile_dc_arrays(ts, "cpu")
+    for name in ("b_dense", "p_sched", "shift", "gshunt"):
+        assert np.array_equal(np.asarray(getattr(jdc, name)),
+                              getattr(tdc, name).numpy()), name
+    assert int(jdc.slack) == tdc.slack
+    assert float(jdc.slack_angle) == tdc.slack_angle
+
+    for bx in (True, False):
+        for j, t in zip(jax_fd._fnr_matrices(js, bx),
+                        torch_fd._fnr_matrices(ts, bx, "cpu")):
+            assert np.array_equal(t.numpy(), j)
+
+    jgs = jax_gs.compile_gs_arrays(js)
+    tgs = torch_gs.compile_gs_arrays(ts, "cpu")
+    for name in jgs._fields:
+        j, t = getattr(jgs, name), getattr(tgs, name)
+        if name == "slack":
+            assert int(j) == t
+        else:
+            assert np.array_equal(np.asarray(j), t.numpy()), name
+            assert np.asarray(j).dtype == t.numpy().dtype, name
+
+
+@pytest.mark.parametrize("case", ["case14test.m", "case30test.m"])
+def test_fdpf_dc_oracles_and_dc_post_match_jax(data_path, case):
+    """The port's copies of oracle_dc, oracle_fdpf and the DC
+    post-processing give the same numbers as the originals."""
+    js, ts = _pair(data_path, case)
+    assert np.array_equal(jax_oracle.oracle_dc(js).angle,
+                          torch_oracle.oracle_dc(ts).angle)
+    for bx in (True, False):
+        j = jax_oracle.oracle_fdpf(js, bx=bx)
+        t = torch_oracle.oracle_fdpf(ts, bx=bx)
+        assert j.iterations == t.iterations and t.converged
+        assert np.array_equal(j.magnitude, t.magnitude)
+        assert np.array_equal(j.angle, t.angle)
+
+    jpf = jg.dc_power_flow(js)
+    jg.power_flow(jpf)
+    tpf = torch_dc.dc_power_flow(ts, device="cpu")
+    tpf.voltage.angle = np.asarray(jpf.voltage.angle).copy()
+    jout, tout = jax_dc_post.power(jpf), torch_dc_post.power(tpf)
+    for part in ("injection", "supply", "from_", "to", "generator"):
+        assert np.array_equal(getattr(jout, part).active,
+                              getattr(tout, part).active), part
+
+
 def test_port_imports_no_jax():
-    """Importing every module of the port — the state-estimation slice and
-    K3 among them — loads neither JAX nor the JAX package (the card's
-    machine has no JAX)."""
+    """Importing every module of the port — the power-flow methods, the
+    state-estimation slice and the kernels among them — loads neither JAX
+    nor the JAX package (the card's machine has no JAX)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import juliagrid_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('estimation.acse', 'kernels.se_fill', 'ops.equations',"
-        " 'measurement.devices', 'measurement.hdf5io', 'parallel.batch'):\n"
+        " 'measurement.devices', 'measurement.hdf5io', 'parallel.batch',"
+        " 'powerflow.dc', 'powerflow.fast_decoupled',"
+        " 'powerflow.gauss_seidel', 'powerflow.limits', 'postprocessing.dc',"
+        " 'kernels.gs_sweep', 'oracle.sparse_ref'):\n"
         "    assert 'juliagrid_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'juliagrid_tpu', 'h5py')]\n"
