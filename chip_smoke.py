@@ -19,13 +19,24 @@ Gauss-Seidel path — ``gauss_seidel`` -> ``power_flow`` — on case14/30/118
 against the JAX package's iteration counts and the port's Newton-Raphson
 (phase 9), and the DC path, the DC fleets, the fast decoupled path and the
 reactive limits against the scipy oracles and the port's CPU run (phase 10).
-Every phase prints its lines; any failure exits non-zero. The large grids
-are ``synthetic_grid``s: ACTIVSg10k and case1354pegase ship as HDF5 and the
+Then the linear estimators (phase 11): DC state estimation on the 10k grid
+against ``oracle_dc``, with one planted wattmeter error found by
+``chi_test`` and the dense ``residual_test`` on the card and gone after
+re-estimation; DC with QR on case118; a nonzero slack angle with PMU angle
+rows; PMU state estimation from ``pmu_placement_apply`` (case118, case300)
+and with full coverage on the 1,369-bus grid against the power flow and the
+port's CPU run. Then bad data (phase 12): bench config 4's case118 set,
+where ``lnr_removal``, the stepwise ``residual_test`` + ``state_estimation``
+loop and a scipy loop on ``oracle_wls_se`` remove the same two devices; and
+the 1,369-bus set with three planted errors, where the dense and Takahashi
+``residual_test`` agree and ``lnr_removal`` removes the three. Every phase
+prints its lines and times; any failure exits non-zero. The large grids are
+``synthetic_grid``s: ACTIVSg10k and case1354pegase ship as HDF5 and the
 card's machine has no h5py.
 
 The second-last lines are the card's ``nvidia-smi`` name and power limit
-and a JSON object with each kernel's launches on the main path, error
-against its plain version and times; the last line is
+and a JSON object with each kernel's launches on the main paths, error
+against its plain version, times and least possible time; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -43,15 +54,29 @@ import torch
 
 from juliagrid_tpu_torch import (add_ammeter, add_pmu, add_varmeter,
                                  add_voltmeter, add_wattmeter, adjust_angle,
-                                 dc_power_flow, fast_newton_raphson_bx,
+                                 chi_test, dc_power_flow,
+                                 dc_state_estimation, fast_newton_raphson_bx,
                                  fast_newton_raphson_xb, gauss_newton,
-                                 gauss_seidel, measurement, newton_raphson,
-                                 power_flow, power_system, reactive_limit,
+                                 gauss_seidel, lnr_removal, measurement,
+                                 newton_raphson, pmu_placement_apply,
+                                 pmu_state_estimation, power_flow,
+                                 power_system, reactive_limit, residual_test,
                                  state_estimation, update_voltmeter,
                                  update_wattmeter)
+from juliagrid_tpu_torch.convert import (dcse_arrays_from_numpy,
+                                         pmuse_arrays_from_numpy)
 from juliagrid_tpu_torch.estimation.acse import (_normal_equations,
-                                                 _solve_normal,
-                                                 compile_se_arrays)
+                                                 _se_solve, _solve_normal,
+                                                 build_h, compile_se_arrays)
+from juliagrid_tpu_torch.estimation.baddata import (_deactivate, _host_csr,
+                                                    _lnr_detect,
+                                                    _projection_diag)
+from juliagrid_tpu_torch.estimation.dcse import (_dcse_host,
+                                                 _dcse_normal_equations,
+                                                 _dcse_weighted)
+from juliagrid_tpu_torch.estimation.pmuse import (_pmuse_host,
+                                                  _pmuse_normal_equations)
+from juliagrid_tpu_torch.estimation.takahashi import projection_diag_sparse
 from juliagrid_tpu_torch.kernels import gs_sweep as k4
 from juliagrid_tpu_torch.kernels import nr_fill as k1
 from juliagrid_tpu_torch.kernels import se_fill as k3
@@ -93,6 +118,26 @@ GS_NR_TOL = 1e-7           # Gauss-Seidel state against Newton-Raphson's
 DC_SMALL_TOL = 1e-10       # case14/30 DC, and fleet scenarios vs single
 FLEET_DC = 1024            # DC scenarios (bench config 2's shape)
 FDPF_CAP = 30              # power_flow(iteration=) of the fast decoupled path
+LINEAR_TOL = 1e-8          # DC SE vs oracle_dc, PMU SE vs NR
+CARD_CPU_TOL = 1e-10       # a linear estimate on the card vs the CPU run
+LNR_STATE_TOL = 1e-9       # lnr_removal vs the stepwise loop
+RN_SPARSE_TOL = 1e-6       # residual_test: dense vs Takahashi max rn
+THRESHOLD = 3.0            # normalized-residual threshold (bench config 4)
+#: bench config 4's planted wattmeter errors (bench.py:415-416)
+CONFIG4_PLANTED = ((3, 5.0), (40, -4.0))
+#: published peaks of the card (NVIDIA data sheet, H100 SXM, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F64_FLOP_PER_S = 67e12
+#: f64 operations of each kernel, estimated from its source (a sine or
+#: cosine as one): K1 per Y entry and scenario (angle difference, sine,
+#: cosine, ViVj, the two G/B combinations, the two row sums, four
+#: partials); K3 per row and scenario (an injection row: about five Y
+#: entries of K1's work); K4 per padded Y entry (one complex multiply-add)
+#: and per bus (two complex divides, the PV projection). The bytes bound
+#: every kernel by two to three orders of magnitude more.
+K1_OPS_PER_ENTRY = 22
+K3_OPS_PER_ROW = 120
+K4_OPS_PER_ENTRY, K4_OPS_PER_BUS = 8, 40
 
 
 class SmokeFailure(RuntimeError):
@@ -127,6 +172,30 @@ def wall_s(fn):
     return time.perf_counter() - t0, out
 
 
+def event_ms(fn):
+    """Device ms of one run of ``fn`` from CUDA events, and its result."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]), out
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes, flops):
+    """The least time the card could take (ms) and what sets it: the bytes
+    moved once over the HBM rate, or the f64 operations over the f64
+    peak."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / F64_FLOP_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
 def random_inputs(arr, n, batch, rng):
     dev = arr.cols.device
     vm = torch.tensor(1.0 + 0.05 * rng.standard_normal((batch, n)), device=dev)
@@ -152,15 +221,19 @@ def compare_k1(label, arr, inputs):
           f"{label}: K1 disagrees with nr_fill_ref, rel {worst_rel:.3e}")
     check(torch.equal(got.jac != 0, ref.jac != 0),
           f"{label}: K1 Jacobian pattern differs from nr_fill_ref")
+    b, n = inputs[0].shape
+    least = bound(tensor_bytes(arr.row_ptr, arr.cols, arr.yg, arr.yb,
+                               arr.diag, arr.bus_type, *inputs, *got),
+                  b * arr.cols.numel() * K1_OPS_PER_ENTRY)
     del got, ref
     ms = cuda_ms(lambda: k1.nr_fill(arr, *inputs, jacobian=True), reps=20)
     plain_ms = cuda_ms(lambda: k1.nr_fill_ref(arr, *inputs, jacobian=True),
                        reps=5)
-    b, n = inputs[0].shape
     print(f"phase 1 {label} B={b} n={n}: max abs diff {worst_abs!r}, "
           f"max rel diff {worst_rel!r}, pattern equal; "
-          f"K1 {ms!r} ms, nr_fill_ref {plain_ms!r} ms per call (jacobian)")
-    return worst_abs, ms, plain_ms
+          f"K1 {ms!r} ms, nr_fill_ref {plain_ms!r} ms per call (jacobian); "
+          f"bound {least[0]!r} ms by {least[1]}")
+    return worst_abs, ms, plain_ms, least
 
 
 def check_against_oracle(label, analysis, oracle, tol):
@@ -232,14 +305,14 @@ def phase1():
     rng = np.random.default_rng(SEED)
     grid = synthetic_grid(*GRID)
     arr = compile_ac_arrays(grid, "cuda")
-    err_grid, ms, plain_ms = compare_k1(
+    err_grid, ms, plain_ms, least = compare_k1(
         "10k grid", arr, random_inputs(arr, grid.bus.number, 1, rng))
     case118 = power_system(str(DATA / "case118.m"))
     arr118 = compile_ac_arrays(case118, "cuda")
-    err_118, _, _ = compare_k1(
+    err_118 = compare_k1(
         "case118 fleet", arr118,
-        random_inputs(arr118, case118.bus.number, FLEET, rng))
-    return max(err_grid, err_118), ms, plain_ms
+        random_inputs(arr118, case118.bus.number, FLEET, rng))[0]
+    return max(err_grid, err_118), ms, plain_ms, least
 
 
 def phase2():
@@ -456,14 +529,19 @@ def compare_k3(label, arr, net, vm, va, mean):
           f"{label}: K3 disagrees with se_fill_ref, rel {worst_rel:.3e} "
           f"at {where}")
     check(pattern, f"{label}: K3 Jacobian pattern differs from se_fill_ref")
+    b, n = vm.shape
+    least = bound(tensor_bytes(arr.desc.idx, arr.desc.coef, arr.status,
+                               net.row_ptr, net.cols, net.yg, net.yb,
+                               net.diag, vm, va, mean, *got),
+                  b * mean.shape[1] * K3_OPS_PER_ROW)
     del got, ref
     ms = cuda_ms(lambda: k3.se_fill(arr, net, vm, va, mean), reps=20)
     plain_ms = cuda_ms(lambda: k3.se_fill_ref(arr, net, vm, va, mean), reps=5)
-    b, n = vm.shape
     print(f"phase 5 {label} B={b} n={n} m={mean.shape[1]}: max abs diff "
           f"{worst_abs!r}, max rel diff {worst_rel!r}, pattern equal; "
-          f"K3 {ms!r} ms, se_fill_ref {plain_ms!r} ms per call (jacobian)")
-    return worst_abs, ms, plain_ms
+          f"K3 {ms!r} ms, se_fill_ref {plain_ms!r} ms per call (jacobian); "
+          f"bound {least[0]!r} ms by {least[1]}")
+    return worst_abs, ms, plain_ms, least
 
 
 def k3_inputs(system, mon, pf, batch, rng):
@@ -499,9 +577,9 @@ def phase5():
     system = synthetic_grid(*SE_GRID)
     mon, pf = scada_pmu(system)
     arr, net, _, inputs = k3_inputs(system, mon, pf, SE_CHUNK, rng)
-    err, ms, plain_ms = compare_k3(f"{SE_GRID[0]}x{SE_GRID[1]} grid chunk",
-                                   arr, net, *inputs)
-    return max(worst, err), (ms, plain_ms)
+    err, ms, plain_ms, least = compare_k3(
+        f"{SE_GRID[0]}x{SE_GRID[1]} grid chunk", arr, net, *inputs)
+    return max(worst, err), (ms, plain_ms, least)
 
 
 def se_timed_split(arr, net, vm, va):
@@ -746,6 +824,10 @@ def compare_k4(label, arr, rng, plain_reps):
                         (diff / b.abs().clamp(min=1.0)).max().item())
     check(worst_rel <= K4_REL_TOL,
           f"{label}: K4 disagrees with gs_sweep_ref, rel {worst_rel:.3e}")
+    least = bound(tensor_bytes(arr.nb, arr.yre, arr.yim, arr.dre, arr.dim,
+                               arr.bus_type, arr.p_sched, arr.q_sched,
+                               arr.vg, arr.pq, arr.pv, vre, vim, *got),
+                  arr.nb.numel() * K4_OPS_PER_ENTRY + n * K4_OPS_PER_BUS)
     ms = cuda_ms(lambda: k4.gs_sweep(arr, vre, vim), reps=20)
     plain_ms = (cuda_ms(lambda: k4.gs_sweep_ref(arr, vre, vim),
                         reps=plain_reps) if plain_reps
@@ -753,8 +835,10 @@ def compare_k4(label, arr, rng, plain_reps):
     print(f"phase 8 {label} n={n} row width {arr.nb.shape[1]}: one sweep + "
           f"mismatch, max abs diff {worst_abs!r}, max rel diff "
           f"{worst_rel!r} (mismatch K4 {got.mismatch.tolist()!r}); K4 "
-          f"{ms!r} ms, gs_sweep_ref {plain_ms!r} ms per call")
-    return worst_abs, ms, plain_ms
+          f"{ms!r} ms, gs_sweep_ref {plain_ms!r} ms per call; bound "
+          f"{least[0]!r} ms by {least[1]} (the dependent chain sets K4's "
+          "time)")
+    return worst_abs, ms, plain_ms, least
 
 
 def phase8():
@@ -763,11 +847,11 @@ def phase8():
     times = None
     for case in ("case14test", "case30test", "case118", "10k grid"):
         arr = compile_gs_arrays(case_system(case), "cuda")
-        err, ms, plain_ms = compare_k4(case, arr, rng,
-                                       0 if case == "10k grid" else 3)
+        err, ms, plain_ms, least = compare_k4(
+            case, arr, rng, 0 if case == "10k grid" else 3)
         worst = max(worst, err)
         if case == "case118":
-            times = (ms, plain_ms)
+            times = (ms, plain_ms, least)
     return worst, times
 
 
@@ -1012,35 +1096,374 @@ def phase10():
           f"all, card vs CPU state {dstate!r}")
 
 
+# --------------------------------------------------------------------------
+# Linear estimators and bad data (phases 11-12)
+# --------------------------------------------------------------------------
+
+def dc_wattmeters(system):
+    """Zero-noise wattmeters at every bus and branch end from the port's DC
+    power flow on the card."""
+    pf = dc_power_flow(system, device="cuda")
+    power_flow(pf, power=True)
+    mon = measurement(system)
+    add_wattmeter(mon, analysis=pf, noise=False)
+    return mon, pf
+
+
+def linear_split(host_fn, from_numpy, fields, normal_equations, system,
+                 mon):
+    """The construction and LU solve of a linear estimator from its own
+    pieces: host seconds of the COO rows, and CUDA-event ms of the H
+    scatter, the gain (W scaling and GEMM) and the LU factor + solve.
+    ``fields`` names the host rows' fields ``from_numpy`` takes besides
+    H."""
+    t_host, host = wall_s(lambda: host_fn(system, mon))
+    scatter, h = event_ms(lambda: linalg.dense_from_coo(
+        host.rows, host.cols, host.vals, host.shape, "cuda"))
+    arr = from_numpy(h_dense=h, device="cuda",
+                     **{name: getattr(host, name) for name in fields})
+    gain_ms, (gain, rhs) = event_ms(lambda: normal_equations(arr))
+    solve_ms, _ = event_ms(
+        lambda: linalg.solve(linalg.factorize(gain, linalg.LU), rhs))
+    return (f"host rows {t_host!r} s, H scatter {scatter!r} ms, gain "
+            f"{gain_ms!r} ms, LU factor+solve {solve_ms!r} ms (CUDA "
+            f"events), m={host.shape[0]}, state {host.shape[1]}")
+
+
+def dc_gain(arr):
+    return _dcse_normal_equations(*_dcse_weighted(arr), arr.slack)
+
+
+def projection_times(label, h, w, mask_cols):
+    """The dense projection on the card (CUDA events) against the host
+    Takahashi path (wall, with the CSR copy), and their largest
+    difference relative to 1/w."""
+    dense_ms, c = event_ms(lambda: _projection_diag(h, w, mask_cols))
+    t_csr, hs = wall_s(lambda: _host_csr(h))
+    w_host = w.cpu().numpy()
+    t_taka, c_sparse = wall_s(lambda: projection_diag_sparse(
+        hs, w_host, mask_cols=mask_cols))
+    diff = float(np.max(np.abs(c.cpu().numpy() - c_sparse) * w_host))
+    print(f"phase 11/12 {label} projection diag(H G^-1 H^T), m={h.shape[0]}"
+          f", state {h.shape[1]}: dense on the card {dense_ms!r} ms (CUDA "
+          f"events), host Takahashi {t_taka!r} s + CSR copy {t_csr!r} s; "
+          f"max |c_dense - c_takahashi| w {diff!r}")
+
+
+def check_linear(label, se, vm, va, tol):
+    dva = wrapped_max(se.voltage.angle, va)
+    dvm = (float(np.abs(se.voltage.magnitude - vm).max())
+           if vm is not None else 0.0)
+    check(se.method.converged and dva <= tol and dvm <= tol,
+          f"{label}: |dvm| {dvm:.3e}, |dva| {dva:.3e} over {tol}")
+    return max(dvm, dva)
+
+
+def card_vs_cpu(label, build, mon, kind, vm, va):
+    """One linear estimate on the card and on the CPU: both against the
+    reference state, and against each other."""
+    t_build, se = wall_s(lambda: build(mon, kind, device="cuda"))
+    t_solve, _ = wall_s(lambda: state_estimation(se))
+    cpu = build(mon, kind, device="cpu")
+    state_estimation(cpu)
+    err = check_linear(label, se, vm, va, LINEAR_TOL)
+    dcpu = check_linear(f"{label} card vs CPU", se, getattr(
+        cpu.voltage, "magnitude", None), cpu.voltage.angle, CARD_CPU_TOL)
+    print(f"phase 11 {label} ({kind}): vs reference {err!r}, card vs CPU "
+          f"{dcpu!r}; wall: construction {t_build!r} s, state_estimation "
+          f"{t_solve!r} s")
+
+
+def phase11():
+    # 10k-bus DC SE: every wattmeter, zero noise, LU
+    system = synthetic_grid(*GRID)
+    mon, _ = dc_wattmeters(system)
+    oracle = oracle_dc(synthetic_grid(*GRID))
+    torch.cuda.reset_peak_memory_stats()
+    t_build, se = wall_s(lambda: dc_state_estimation(mon, device="cuda"))
+    t_solve, _ = wall_s(lambda: state_estimation(se, power=True))
+    err = check_linear("10k DC SE", se, None, oracle.angle, LINEAR_TOL)
+    print(f"phase 11 10k grid DC SE main path: m={se.arrays.mean.shape[0]}, "
+          f"vs oracle_dc {err!r}; wall: dc_state_estimation {t_build!r} s, "
+          f"state_estimation(power=True) {t_solve!r} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9!r} GB")
+    print("phase 11 10k grid DC SE split: "
+          + linear_split(_dcse_host, dcse_arrays_from_numpy,
+                         ("mean", "w", "slack", "slack_angle"), dc_gain,
+                         system, mon))
+
+    # one planted gross error: chi, the dense residual test, re-estimation
+    k = system.bus.number + system.branch.number // 2
+    label = mon.wattmeter.label.label(k)
+    update_wattmeter(mon, label, active=10.0)
+    state_estimation(se)
+    chi = chi_test(se)
+    check(chi.detect, f"10k DC SE: chi test misses the planted error {chi}")
+    t_rt, bad = wall_s(lambda: residual_test(se, THRESHOLD, sparse=False))
+    check(bad.detect and bad.label == label,
+          f"10k DC SE: residual_test named {bad.label}, planted {label}")
+    state_estimation(se)
+    after = chi_test(se)
+    check(not after.detect, f"10k DC SE: chi test after removal {after}")
+    err = check_linear("10k DC SE re-estimated", se, None, oracle.angle,
+                       LINEAR_TOL)
+    print(f"phase 11 10k grid DC bad data: chi objective {chi.objective!r} "
+          f"over {chi.treshold!r}, residual_test(sparse=False) named the "
+          f"planted wattmeter (rn {bad.max_normalized_residual!r}, "
+          f"{t_rt!r} s), after re-estimation chi {after.objective!r}, vs "
+          f"oracle_dc {err!r}")
+    projection_times("10k DC", se.arrays.h_dense, se.arrays.w,
+                     [se.arrays.slack])
+    del se
+
+    # DC QR on case118; the nonzero slack angle with PMU angle rows
+    mon, _ = dc_wattmeters(case_system("case118"))
+    se = dc_state_estimation(mon, "QR", device="cuda")
+    state_estimation(se)
+    err = check_linear("case118 DC SE QR", se, None,
+                       oracle_dc(case_system("case118")).angle, DC_SMALL_TOL)
+    print(f"phase 11 case118 DC SE (QR): vs oracle_dc {err!r}")
+    system = case_system("case14test")
+    system.bus.voltage.angle[system.bus.layout.slack] = 0.2
+    mon, pf = dc_wattmeters(system)
+    for b in range(0, system.bus.number, 3):
+        add_pmu(mon, bus=system.bus.label.label(b), magnitude=1.0,
+                angle=float(pf.voltage.angle[b]), noise=False)
+    se = dc_state_estimation(mon, device="cuda")
+    state_estimation(se)
+    err = check_linear("slack-angle DC SE", se, None, pf.voltage.angle,
+                       DC_SMALL_TOL)
+    chi = chi_test(se)
+    bad = residual_test(se)
+    check(not chi.detect and not bad.detect
+          and bad.max_normalized_residual < 1e-6,
+          f"slack-angle DC SE: chi {chi}, residual test {bad}")
+    print(f"phase 11 case14 DC SE, slack angle 0.2 rad + PMU angle rows: "
+          f"vs power flow {err!r}, chi objective {chi.objective!r}, max rn "
+          f"{bad.max_normalized_residual!r}")
+
+    # PMU SE: placed PMUs (case118, case300), full coverage (1,369 buses)
+    for case in ("case118", "case300"):
+        system, pf = solved_case(case)
+        mon = measurement(system)
+        t_place, placement = wall_s(
+            lambda: pmu_placement_apply(mon, pf, noise=False))
+        print(f"phase 11 {case} pmu_placement_apply: {len(placement.bus)} "
+              f"buses, {mon.pmu.number} PMUs, {t_place!r} s")
+        for kind in ("LU", "QR"):
+            card_vs_cpu(f"{case} placed PMUs", pmu_state_estimation, mon,
+                        kind, pf.voltage.magnitude, pf.voltage.angle)
+    system = synthetic_grid(*SE_GRID)
+    pf = newton_raphson(system, device="cuda")
+    power_flow(pf, power=True, current=True)
+    # every bus and branch end; then every bus with correlated PMUs (a
+    # correlated PMU on a branch carrying ~1e-4 p.u. of current has a near
+    # singular 2x2 covariance, weights ~1e15, and the normal equations
+    # lose the 1e-8: ROADMAP queue 3)
+    for corr, kinds in ((False, ("LU", "QR")), (True, ("LU",))):
+        mon = measurement(system)
+        side = {"status_from": -1, "status_to": -1} if corr else {}
+        add_pmu(mon, analysis=pf, correlated=corr, noise=False, **side)
+        for kind in kinds:
+            card_vs_cpu(f"{SE_GRID[0]}x{SE_GRID[1]} "
+                        + ("correlated PMUs at every bus" if corr
+                           else "PMUs at every bus and branch end"),
+                        pmu_state_estimation, mon, kind,
+                        pf.voltage.magnitude, pf.voltage.angle)
+    print(f"phase 11 {SE_GRID[0]}x{SE_GRID[1]} PMU SE split (correlated): "
+          + linear_split(_pmuse_host, pmuse_arrays_from_numpy,
+                         ("mean", "w", "pair_r1", "pair_r2", "pair_off"),
+                         _pmuse_normal_equations, system, mon))
+
+
+def planted(mon, errors):
+    for idx, value in errors:
+        update_wattmeter(mon, mon.wattmeter.label.label(idx), active=value)
+    return [mon.wattmeter.label.label(idx) for idx, _ in errors]
+
+
+def stepwise_lnr(se):
+    """The reference usage: residual_test + state_estimation until nothing
+    is detected."""
+    state_estimation(se)
+    removed = []
+    for _ in range(10):
+        bad = residual_test(se, THRESHOLD)
+        if not bad.detect:
+            return removed
+        removed.append(bad.label)
+        state_estimation(se)
+    return removed
+
+
+def scipy_lnr(system, mon):
+    """bench.py's CPU loop (bench.py:446-467): oracle WLS, the residual
+    covariance from a sparse LU, the worst row out, repeat."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import splu
+    removed = []
+    while len(removed) < 10:
+        res = oracle_wls_se(system, mon)
+        keep = np.ones(res.jacobian.shape[1])
+        keep[res.slack] = 0.0
+        hm = (res.jacobian.tocsc() @ sp.diags(keep)).tocsc()
+        gain = (hm.T @ sp.diags(res.weights) @ hm
+                + sp.diags(1.0 - keep)).tocsc()
+        ginv_ht = splu(gain).solve(hm.T.toarray())
+        c = 1.0 / res.weights - np.einsum("ji,ji->i", ginv_ht,
+                                          hm.toarray().T)
+        rn = np.abs(res.residual) / np.sqrt(np.maximum(c, 1e-14))
+        k = int(np.argmax(rn))
+        if rn[k] <= THRESHOLD:
+            break
+        removed.append(_deactivate(mon, *res.row_device[k]))
+    return removed
+
+
+def lnr_rounds(se):
+    """The loop of ``lnr_removal`` built from its own pieces, with CUDA
+    events around each round's solve and detection; returns the removed
+    devices' labels and the per-round ms."""
+    arr, net = se.arrays, se.net
+    groups = {}
+    row_group = torch.tensor([groups.setdefault(kd, len(groups))
+                              for kd in se.method.row_device], device="cuda")
+    vm, va = se._state()
+    status, removed, rounds = arr.status, [], []
+    while True:
+        live = arr._replace(status=status)
+        solve_ms, (vm, va) = event_ms(lambda: _se_solve(
+            live, net, vm, va, SE_TOL, 40, linalg.LU)[:2])
+        detect_ms, (row, rn) = event_ms(lambda: _lnr_detect(live, net, vm,
+                                                            va))
+        rounds.append((solve_ms, detect_ms))
+        if not rn > THRESHOLD:
+            return removed, rounds
+        status = status * (row_group != row_group[row])
+        kind, dev = se.method.row_device[row]
+        removed.append(getattr(se.monitoring, kind).label.label(dev))
+
+
+def phase12():
+    launches = 0
+    # bench config 4's shape: case118, scada_pmu, wattmeters 3 and 40
+    def config4():
+        system = case_system("case118")
+        mon, _ = scada_pmu(system)
+        return system, mon, planted(mon, CONFIG4_PLANTED)
+
+    _, mon, want = config4()
+    se = gauss_newton(mon, device="cuda")
+    k3.se_fill.launches = 0
+    t_lnr, labels = wall_s(lambda: lnr_removal(se, THRESHOLD, 10))
+    launches += k3.se_fill.launches
+    check(k3.se_fill.launches > 0, "config 4: lnr_removal launched no K3")
+    _, mon_a, _ = config4()
+    se_a = gauss_newton(mon_a, device="cuda")
+    k3.se_fill.launches = 0
+    t_step, stepwise = wall_s(lambda: stepwise_lnr(se_a))
+    launches += k3.se_fill.launches
+    system_c, mon_c, _ = config4()
+    t_scipy, by_scipy = wall_s(lambda: scipy_lnr(system_c, mon_c))
+    dstate = max(float(np.abs(se.voltage.magnitude
+                              - se_a.voltage.magnitude).max()),
+                 wrapped_max(se.voltage.angle, se_a.voltage.angle))
+    check(labels == stepwise == by_scipy and sorted(labels) == sorted(want)
+          and se.method.converged and dstate <= LNR_STATE_TOL,
+          f"config 4: lnr_removal {labels}, stepwise {stepwise}, scipy "
+          f"{by_scipy}, planted {want}, converged {se.method.converged}, "
+          f"state {dstate:.3e}")
+    _, mon_t, _ = config4()
+    timed, rounds = lnr_rounds(gauss_newton(mon_t, device="cuda"))
+    check(timed == labels, f"config 4: the timed loop removed {timed}")
+    print(f"phase 12 config 4 (case118, wattmeters 3 and 40 planted): "
+          f"lnr_removal, the stepwise loop and the scipy loop removed "
+          f"{labels}; state vs stepwise {dstate!r}; wall: lnr_removal "
+          f"{t_lnr!r} s, stepwise {t_step!r} s, scipy {t_scipy!r} s; per "
+          "round (CUDA events, solve / detect ms): "
+          + ", ".join(f"{s!r} / {d!r}" for s, d in rounds))
+
+    # the 1,369-bus set of phase 6 with three planted wattmeter errors
+    system = synthetic_grid(*SE_GRID)
+    n = system.bus.number
+    errors = ((n // 6, 3.0), (n // 2, -3.0), (5 * n // 6, 4.0))
+    mon, _ = scada_pmu(system)
+    want = planted(mon, errors)
+    se = gauss_newton(mon, device="cuda")
+    k3.se_fill.launches = 0
+    state_estimation(se)
+    chi = chi_test(se)
+    t_dense, dense = wall_s(lambda: residual_test(se, THRESHOLD,
+                                                  sparse=False))
+    check(chi.detect, f"{SE_GRID} SE: chi test {chi}")
+    check(dense.detect and dense.label in want,
+          f"{SE_GRID} SE: residual_test (dense) named {dense.label}")
+    # put the named wattmeter back in service: the Takahashi path sees the
+    # same state and the same rows
+    mon.wattmeter.active.status[se.method.row_device[dense.index][1]] = 1
+    mon.changed_values()
+    t_sparse, sparse = wall_s(lambda: residual_test(se, THRESHOLD,
+                                                    sparse=True))
+    launches += k3.se_fill.launches
+    check(dense.label == sparse.label
+          and abs(dense.max_normalized_residual
+                  - sparse.max_normalized_residual) <= RN_SPARSE_TOL,
+          f"{SE_GRID} SE: residual_test dense {dense}, sparse {sparse}")
+    h, _ = build_h(se.arrays, se.net, *se._state())
+    projection_times(f"{SE_GRID[0]}x{SE_GRID[1]} AC", h, se.arrays.w,
+                     [se.arrays.slack])
+    del h
+    mon, _ = scada_pmu(synthetic_grid(*SE_GRID))
+    planted(mon, errors)
+    se = gauss_newton(mon, device="cuda")
+    k3.se_fill.launches = 0
+    t_lnr, labels = wall_s(lambda: lnr_removal(se, THRESHOLD, 10))
+    launches += k3.se_fill.launches
+    check(sorted(labels) == sorted(want) and se.method.converged,
+          f"{SE_GRID} SE: lnr_removal removed {labels}, planted {want}")
+    print(f"phase 12 {SE_GRID[0]}x{SE_GRID[1]} SE, three planted "
+          f"wattmeters: chi objective {chi.objective!r} over "
+          f"{chi.treshold!r}; residual_test dense ({t_dense!r} s) and "
+          f"Takahashi ({t_sparse!r} s) named {dense.label}, max rn "
+          f"{dense.max_normalized_residual!r} / "
+          f"{sparse.max_normalized_residual!r}; lnr_removal removed "
+          f"{labels} in {t_lnr!r} s; K3 launches {launches}")
+    return launches
+
+
+def kernel_entry(name, replaces, launches, err, times):
+    ms, plain_ms, (bound_ms, bound_by) = times
+    return {"name": name, "route": "cuda",
+            "source": f"juliagrid_tpu_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def main():
     card = phase0()
-    max_err, ms, plain_ms = phase1()
+    k1_err, *k1_times = phase1()
     phase2()
-    launches = phase3()
+    k1_launches = phase3()
     phase4()
-    k3_err, (k3_ms, k3_plain_ms) = phase5()
+    k3_err, k3_times = phase5()
     k3_launches = phase6()
     phase7()
-    k4_err, (k4_ms, k4_plain_ms) = phase8()
+    k4_err, k4_times = phase8()
     k4_launches = phase9()
     phase10()
+    phase11()
+    k3_launches += phase12()
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "nr_fill", "route": "cuda",
-        "source": "juliagrid_tpu_torch/kernels/csrc/nr_fill.cu",
-        "replaces": "juliagrid_tpu/powerflow/ac.py:92",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}, {
-        "name": "se_fill", "route": "cuda",
-        "source": "juliagrid_tpu_torch/kernels/csrc/se_fill.cu",
-        "replaces": "juliagrid_tpu/estimation/acse.py:463",
-        "launches": k3_launches, "max_abs_err": k3_err,
-        "ms": k3_ms, "plain_ms": k3_plain_ms}, {
-        "name": "gs_sweep", "route": "cuda",
-        "source": "juliagrid_tpu_torch/kernels/csrc/gs_sweep.cu",
-        "replaces": "juliagrid_tpu/powerflow/gauss_seidel.py:97",
-        "launches": k4_launches, "max_abs_err": k4_err,
-        "ms": k4_ms, "plain_ms": k4_plain_ms}]}))
+    # no single PyTorch call computes K1's, K3's or K4's function:
+    # library_ms is null
+    print(json.dumps({"kernels": [
+        kernel_entry("nr_fill", "juliagrid_tpu/powerflow/ac.py:92",
+                     k1_launches, k1_err, k1_times),
+        kernel_entry("se_fill", "juliagrid_tpu/estimation/acse.py:463",
+                     k3_launches, k3_err, k3_times),
+        kernel_entry("gs_sweep", "juliagrid_tpu/powerflow/gauss_seidel.py:97",
+                     k4_launches, k4_err, k4_times)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,9 +9,12 @@ made once; the Gauss-Seidel power flow through a third
 (``kernels/csrc/gs_sweep.cu``), which runs a whole sweep in one launch; the
 DC power flow through one f64 solve. The Gauss-Newton WLS AC state
 estimation runs through a fourth (``kernels/csrc/se_fill.cu``) for the
-measurement functions and Jacobian, then an f64 gain matmul and Cholesky. The numpy host layer (parsers, data
-model, measurements, post-processing) is a copy of the JAX package's, so
-the port imports no JAX.
+measurement functions and Jacobian, then an f64 gain matmul and Cholesky;
+the linear DC and PMU estimators through one f64 gain matmul and solve;
+bad-data processing through the same kernel and a dense f64 projection (or
+the host Takahashi path at scale). The numpy host layer (parsers, data
+model, measurements, post-processing, observability and PMU placement) is a
+copy of the JAX package's, so the port imports no JAX.
 
 Analyses run on ``config.device`` (``"cuda"`` by default); pass
 ``device="cpu"`` to run on the CPU, where each kernel's plain PyTorch
@@ -48,6 +51,13 @@ from .powerflow.limits import adjust_angle, reactive_limit
 
 # state estimation
 from .estimation.acse import gauss_newton, increment, state_estimation
+from .estimation.dcse import dc_state_estimation
+from .estimation.pmuse import pmu_state_estimation
+from .estimation.baddata import chi_test, lnr_removal, residual_test
+from .estimation.observability import (island_topological,
+                                       island_topological_flow,
+                                       pmu_placement, pmu_placement_apply,
+                                       restoration_gram)
 
 # postprocessing
 from .postprocessing import ac as ac_post

@@ -11,8 +11,11 @@ and ``GsArrays`` (to which they add the PQ and PV bus lists of K4's two
 passes). ``se_arrays_from_numpy`` does the same for the
 measurement-row IR: it takes an ``SeArrays`` host mirror (the port's, or
 the JAX package's from ``compile_se_arrays(..., return_host=True)``) and
-adds K3's descriptor table. Feeding both packages the same arrays lets a
-test compare their kernels without going through either host layer.
+adds K3's descriptor table. ``dcse_arrays_from_numpy`` and
+``pmuse_arrays_from_numpy`` take the fields of the JAX package's
+``DcSeArrays`` and ``PmuSeArrays`` (dense H included) for the linear
+estimators. Feeding both packages the same arrays lets a test compare their
+kernels and solves without going through either host layer.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 
 from .config import resolve_device
 from .estimation.acse import BranchGroup, SeArrays
+from .estimation.dcse import DcSeArrays
+from .estimation.pmuse import PmuSeArrays
 from .kernels.se_fill import SeFillTable, se_fill_table
 from .ops import linalg
 from .powerflow.ac import AcArrays, check_entry_list
@@ -111,6 +116,41 @@ def gs_arrays_from_numpy(*, nb, yre, yim, dre, dim, bus_type, slack,
         q_sched=f64(q_sched), vg=f64(vg),
         pq=i32(np.flatnonzero(bus_type == 1)),
         pv=i32(np.flatnonzero(bus_type == 2)))
+
+
+def _f64(a, dev) -> torch.Tensor:
+    """An f64 tensor on ``dev``: a tensor moved there, or a numpy array
+    copied there."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev, torch.float64)
+    return torch.tensor(np.asarray(a, dtype=np.float64), device=dev)
+
+
+def dcse_arrays_from_numpy(*, h_dense, mean, w, slack, slack_angle,
+                           device=None) -> DcSeArrays:
+    """``DcSeArrays`` on ``device`` (default ``config.device``) from the
+    numpy fields of a ``DcSeArrays`` (``h_dense`` may already be a tensor
+    on that device)."""
+    dev = resolve_device(device)
+    return DcSeArrays(
+        h_dense=_f64(h_dense, dev), mean=_f64(mean, dev), w=_f64(w, dev),
+        slack=int(slack), slack_angle=float(slack_angle))
+
+
+def pmuse_arrays_from_numpy(*, h_dense, mean, w, pair_r1, pair_r2, pair_off,
+                            device=None) -> PmuSeArrays:
+    """``PmuSeArrays`` on ``device`` (default ``config.device``) from the
+    numpy fields of a ``PmuSeArrays`` (``h_dense`` may already be a tensor
+    on that device); the pair indices become int64."""
+    dev = resolve_device(device)
+
+    def i64(a):
+        return torch.tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+    return PmuSeArrays(
+        h_dense=_f64(h_dense, dev), mean=_f64(mean, dev), w=_f64(w, dev),
+        pair_r1=i64(pair_r1), pair_r2=i64(pair_r2),
+        pair_off=_f64(pair_off, dev))
 
 
 def se_arrays_from_numpy(host, device=None) -> SeArrays:

@@ -1,5 +1,11 @@
-"""State estimation subpackage: Gauss-Newton WLS AC state estimation (the
-PMU, DC and LAV estimators, bad data and observability are not ported
+"""State estimation subpackage: Gauss-Newton WLS AC, DC and PMU state
+estimation, bad data and observability (the LAV estimators are not ported
 yet)."""
 
 from .acse import gauss_newton, increment, solve, state_estimation
+from .dcse import dc_state_estimation
+from .pmuse import pmu_state_estimation
+from .baddata import chi_test, lnr_removal, residual_test
+from .observability import (island_topological, island_topological_flow,
+                            pmu_placement, pmu_placement_apply,
+                            restoration_gram)

@@ -807,12 +807,21 @@ def solve(analysis: AcStateEstimation):
 def state_estimation(analysis, iteration: int = 40, tolerance: float = 1e-8,
                      power: bool = False, current: bool = False,
                      damping: bool = False, verbose: int | None = None):
-    """Reference stateEstimation! for Gauss-Newton analyses."""
+    """Reference stateEstimation!, dispatched on the analysis type:
+    Gauss-Newton, DC and PMU analyses."""
+    from .dcse import DcStateEstimation, dc_se_solve
+    from .pmuse import PmuStateEstimation, pmu_se_solve
+    if isinstance(analysis, DcStateEstimation):
+        return dc_se_solve(analysis, power=power)
+    if isinstance(analysis, PmuStateEstimation):
+        return pmu_se_solve(analysis, power=power, current=current)
+    if analysis.method.name == "lav":
+        raise NotImplementedError(
+            "LAV state estimation is not ported yet (ROADMAP item 12)")
     if not isinstance(analysis, AcStateEstimation):
         raise NotImplementedError(
-            f"state_estimation runs Gauss-Newton analyses only; "
-            f"{type(analysis).__name__} is not ported yet (ROADMAP items "
-            "8 and 12)")
+            f"state_estimation runs Gauss-Newton, DC and PMU analyses; "
+            f"{type(analysis).__name__} is not ported")
     method = analysis.method
     with method.timings.span("refresh"), default_timings.span("se.refresh"):
         analysis._refresh_arrays()

@@ -35,12 +35,13 @@ class DenseFactor(NamedTuple):
     data: tuple    # factor tensors
 
 
-def dense_from_coo(rows, cols, vals, n: int, device) -> torch.Tensor:
-    """The dense f64 ``[n, n]`` matrix of numpy COO entries, assembled on
-    ``device``: entries at one position add up, as in ``np.add.at`` (on a
-    CUDA device in another order, so such sums may differ in the last
-    bit)."""
-    a = torch.zeros((n, n), dtype=torch.float64, device=device)
+def dense_from_coo(rows, cols, vals, shape, device) -> torch.Tensor:
+    """The dense f64 matrix of numpy COO entries, assembled on ``device``;
+    ``shape`` is ``n`` for ``[n, n]`` or a pair ``(m, n)``. Entries at one
+    position add up, as in ``np.add.at`` (on a CUDA device in another
+    order, so such sums may differ in the last bit)."""
+    m, n = shape if isinstance(shape, tuple) else (shape, shape)
+    a = torch.zeros((m, n), dtype=torch.float64, device=device)
     flat = np.asarray(rows, dtype=np.int64) * n + np.asarray(cols)
     a.view(-1).index_add_(
         0, torch.as_tensor(flat, device=device),

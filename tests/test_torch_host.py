@@ -132,8 +132,9 @@ def test_fdpf_dc_oracles_and_dc_post_match_jax(data_path, case):
 
 def test_port_imports_no_jax():
     """Importing every module of the port — the power-flow methods, the
-    state-estimation slice and the kernels among them — loads neither JAX
-    nor the JAX package (the card's machine has no JAX)."""
+    state estimators, bad data, observability and the kernels among them —
+    loads neither JAX nor the JAX package (the card's machine has no
+    JAX)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import juliagrid_tpu_torch as pkg\n"
@@ -143,7 +144,9 @@ def test_port_imports_no_jax():
         " 'measurement.devices', 'measurement.hdf5io', 'parallel.batch',"
         " 'powerflow.dc', 'powerflow.fast_decoupled',"
         " 'powerflow.gauss_seidel', 'powerflow.limits', 'postprocessing.dc',"
-        " 'kernels.gs_sweep', 'oracle.sparse_ref'):\n"
+        " 'kernels.gs_sweep', 'oracle.sparse_ref', 'estimation.dcse',"
+        " 'estimation.pmuse', 'estimation.baddata', 'estimation.takahashi',"
+        " 'estimation.observability'):\n"
         "    assert 'juliagrid_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'juliagrid_tpu', 'h5py')]\n"
