@@ -5,8 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels K1 (``nr_fill``), K3 (``se_fill``) and
-K4 (``gs_sweep``) from the sources in the checkout and holds each against
+It builds the port's CUDA kernels K1 (``nr_fill``), K3 (``se_fill``), K4
+(``gs_sweep``) and K5 (``schur_gather``) from the sources in the checkout and holds each against
 its plain PyTorch version. It drives the Newton-Raphson main path —
 ``power_system`` -> ``newton_raphson`` -> ``power_flow`` — on a 10,000-bus
 grid, checked against the independent scipy oracle, and a 1024-scenario
@@ -29,8 +29,18 @@ port's CPU run. Then bad data (phase 12): bench config 4's case118 set,
 where ``lnr_removal``, the stepwise ``residual_test`` + ``state_estimation``
 loop and a scipy loop on ``oracle_wls_se`` remove the same two devices; and
 the 1,369-bus set with three planted errors, where the dense and Takahashi
-``residual_test`` agree and ``lnr_removal`` removes the three. Every phase
-prints its lines and times; any failure exits non-zero. The large grids are
+``residual_test`` agree and ``lnr_removal`` removes the three. Then the
+bordered-block-diagonal scale path: K1's routed mode and K5
+(``schur_gather``) against their plain versions, K5 also against one
+``index_put_``, at the 10k and 25k layouts (phase 13); ``newton_raphson_bbd``
+-> ``power_flow_bbd`` on the 10k grid against phase 3's dense solve and on
+the 24,964-bus ``synthetic_grid(158, 158)`` against ``oracle_nr``, and
+``fast_newton_raphson_bbd`` BX/XB on both against ``oracle_fdpf`` (phase
+14); K3's routed mode against its plain version, ``gauss_newton_bbd`` ->
+``se_bbd_solve`` on the 1,369-bus set against the dense estimate (and in
+chunks of blocks against one pass), and the 10k and 25k zero-noise sets
+reproducing the phase-14 states (phase 15). Every phase prints its lines
+and times; any failure exits non-zero. The large grids are
 ``synthetic_grid``s: ACTIVSg10k and case1354pegase ship as HDF5 and the
 card's machine has no h5py.
 
@@ -63,8 +73,13 @@ from juliagrid_tpu_torch import (add_ammeter, add_pmu, add_varmeter,
                                  power_system, reactive_limit, residual_test,
                                  state_estimation, update_voltmeter,
                                  update_wattmeter)
+from juliagrid_tpu_torch import newton_raphson_bbd, power_flow_bbd
 from juliagrid_tpu_torch.convert import (dcse_arrays_from_numpy,
                                          pmuse_arrays_from_numpy)
+from juliagrid_tpu_torch.estimation.acse_bbd import (_block_chunk,
+                                                     _gn_increment_bbd,
+                                                     gauss_newton_bbd,
+                                                     se_bbd_solve)
 from juliagrid_tpu_torch.estimation.acse import (_normal_equations,
                                                  _se_solve, _solve_normal,
                                                  build_h, compile_se_arrays)
@@ -79,6 +94,7 @@ from juliagrid_tpu_torch.estimation.pmuse import (_pmuse_host,
 from juliagrid_tpu_torch.estimation.takahashi import projection_diag_sparse
 from juliagrid_tpu_torch.kernels import gs_sweep as k4
 from juliagrid_tpu_torch.kernels import nr_fill as k1
+from juliagrid_tpu_torch.kernels import schur_gather as k5
 from juliagrid_tpu_torch.kernels import se_fill as k3
 from juliagrid_tpu_torch.ops import linalg
 from juliagrid_tpu_torch.oracle import (oracle_dc, oracle_fdpf, oracle_nr,
@@ -88,10 +104,14 @@ from juliagrid_tpu_torch.parallel import (batched_dc_solve, batched_nr_solve,
 from juliagrid_tpu_torch.powerflow.ac import (_max_mismatch, _nr_solve,
                                               _nr_update, compile_ac_arrays)
 from juliagrid_tpu_torch.powerflow.dc import _dc_solve
-from juliagrid_tpu_torch.powerflow.fast_decoupled import _fnr_matrices
+from juliagrid_tpu_torch.postprocessing import ac as ac_post
+from juliagrid_tpu_torch.powerflow.fast_decoupled import (
+    _fnr_matrices, fast_newton_raphson_bbd, power_flow_fnr_bbd)
 from juliagrid_tpu_torch.powerflow.gauss_seidel import (_gs_solve, _to_rect,
                                                         compile_gs_arrays)
+from juliagrid_tpu_torch.powerflow.newton_bbd import _blocks, compile_nr_bbd
 from juliagrid_tpu_torch.report.log import suppress
+from juliagrid_tpu_torch.utils.profiling import device_stages
 from juliagrid_tpu_torch.utils.synthetic import synthetic_grid
 
 DATA = Path(__file__).resolve().parent / "tests" / "data"
@@ -118,6 +138,10 @@ GS_NR_TOL = 1e-7           # Gauss-Seidel state against Newton-Raphson's
 DC_SMALL_TOL = 1e-10       # case14/30 DC, and fleet scenarios vs single
 FLEET_DC = 1024            # DC scenarios (bench config 2's shape)
 FDPF_CAP = 30              # power_flow(iteration=) of the fast decoupled path
+NR_CAP = 20                # power_flow_bbd(iteration=), its default
+#: fast decoupled steps followed on the 25k lattice, where the method
+#: diverges (the scipy oracle's mismatch reaches 1e48 in 100 iterations)
+FDPF_25K_STEPS = 6
 LINEAR_TOL = 1e-8          # DC SE vs oracle_dc, PMU SE vs NR
 CARD_CPU_TOL = 1e-10       # a linear estimate on the card vs the CPU run
 LNR_STATE_TOL = 1e-9       # lnr_removal vs the stepwise loop
@@ -125,6 +149,11 @@ RN_SPARSE_TOL = 1e-6       # residual_test: dense vs Takahashi max rn
 THRESHOLD = 3.0            # normalized-residual threshold (bench config 4)
 #: bench config 4's planted wattmeter errors (bench.py:415-416)
 CONFIG4_PLANTED = ((3, 5.0), (40, -4.0))
+BBD_GRID = (158, 158)      # 24,964 buses: benchmarks/scale_25k.py's lattice
+BBD_BLOCKS = 16            # BBD blocks of the 10k and 25k grids
+SE_BBD_BLOCKS = 8          # BBD blocks of the 1,369-bus SE (the default)
+K5_REL_TOL = 1e-12         # |kernel - plain| <= tol * max(1, |plain|)
+BBD_DENSE_TOL = 1e-9       # 10k BBD NR vs the dense NR; BBD SE vs dense SE
 #: published peaks of the card (NVIDIA data sheet, H100 SXM, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 67e12
@@ -291,13 +320,13 @@ def phase0():
     card = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        for build in [pool.submit(k._library) for k in (k1, k3, k4)]:
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for build in [pool.submit(k._library) for k in (k1, k3, k4, k5)]:
             build.result()
     build_s = time.perf_counter() - t0
     print(f"phase 0 device: {torch.cuda.get_device_name(0)} ({card}), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"K1, K3 and K4 build+load {build_s!r} s")
+          f"K1, K3, K4 and K5 build+load {build_s!r} s")
     return card
 
 
@@ -389,7 +418,7 @@ def phase3():
           "10k grid: K1 and nr_fill_ref solves differ in state")
     print("phase 3 _nr_solve wall (K1, nr_fill_ref, nr_fill_ref, K1): "
           + ", ".join(f"{seconds!r} s" for seconds, _ in runs))
-    return launches
+    return launches, analysis
 
 
 def phase4():
@@ -1431,20 +1460,418 @@ def phase12():
     return launches
 
 
-def kernel_entry(name, replaces, launches, err, times):
+# --------------------------------------------------------------------------
+# Bordered-block-diagonal scale path (phases 13-15)
+# --------------------------------------------------------------------------
+
+def rel_err(got, ref):
+    """max |a - b| and max |a - b| / max(1, |b|) over pairs of tensors."""
+    worst_abs = worst_rel = 0.0
+    for a, b in zip(got, ref):
+        diff = (a - b).abs()
+        worst_abs = max(worst_abs, diff.max().item())
+        worst_rel = max(worst_rel,
+                        (diff / b.abs().clamp(min=1.0)).max().item())
+    return worst_abs, worst_rel
+
+
+def compare_k1_routed(label, arr, rng):
+    """Phase 13: K1's routed mode against nr_fill_routed_ref at a random
+    state of the BBD layout ``arr``."""
+    net = arr.net
+    n = net.bus_type.numel()
+    vm = torch.tensor(1.0 + 0.05 * rng.standard_normal(n), device="cuda")
+    va = torch.tensor(0.2 * rng.standard_normal(n), device="cuda")
+    got = k1.nr_fill_routed(net, arr.route, vm, va)
+    ref = k1.nr_fill_routed_ref(net, arr.route, vm, va)
+    torch.cuda.synchronize()
+    worst_abs, worst_rel = rel_err(got, ref)
+    check(worst_rel <= K1_REL_TOL,
+          f"{label}: K1 routed disagrees with its plain version, rel "
+          f"{worst_rel:.3e}")
+    check(torch.equal(got.buf != 0, ref.buf != 0),
+          f"{label}: K1 routed pattern differs from its plain version")
+    least = bound(tensor_bytes(net.row_ptr, net.cols, net.yg, net.yb,
+                               net.diag, net.bus_type, net.p_sched,
+                               net.q_sched, vm, va, arr.route.off,
+                               arr.route.ones, *got),
+                  net.cols.numel() * K1_OPS_PER_ENTRY)
+    del got, ref
+    ms = cuda_ms(lambda: k1.nr_fill_routed(net, arr.route, vm, va), reps=20)
+    plain_ms = cuda_ms(lambda: k1.nr_fill_routed_ref(net, arr.route, vm, va),
+                       reps=5)
+    print(f"phase 13 {label} K1 routed: n={n}, buffer "
+          f"{arr.route.size * 8 / 1e9!r} GB, max abs diff {worst_abs!r}, "
+          f"max rel diff {worst_rel!r}, pattern equal; K1 routed {ms!r} ms, "
+          f"plain {plain_ms!r} ms per call; bound {least[0]!r} ms by "
+          f"{least[1]}")
+    return worst_abs, ms, plain_ms, least
+
+
+def compare_k5(label, route):
+    """Phase 13: K5 against schur_gather_ref and one index_put_ on random
+    contributions of the layout's shapes (sign -1 and a border base, as the
+    BBD NR calls it)."""
+    k, width = route.bsel.shape
+    nb = route.nb
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64,
+                           device="cuda")
+
+    contrib, parts = randn(k, width, width), randn(k, width)
+    a_bb, r_bb = randn(nb, nb), randn(nb)
+    got = k5.schur_gather(route, contrib, parts, a_bb, r_bb, -1.0)
+    ref = k5.schur_gather_ref(route, contrib, parts, a_bb, r_bb, -1.0)
+    torch.cuda.synchronize()
+    worst_abs, worst_rel = rel_err(got, ref)
+    check(worst_rel <= K5_REL_TOL,
+          f"{label}: K5 disagrees with schur_gather_ref, rel {worst_rel:.3e}")
+    sources = route.mat_src.numel() + route.rhs_src.numel()
+    # the function reads each real contribution and part once (not the pad
+    # slots, nor K5's own gather tables: bsel alone says where each goes),
+    # the border block and right-hand side, and writes the border system
+    least = bound(8 * sources + tensor_bytes(route.bsel, a_bb, r_bb, *got),
+                  2 * sources)
+    del got, ref
+    ms = cuda_ms(lambda: k5.schur_gather(route, contrib, parts, a_bb, r_bb,
+                                         -1.0), reps=20)
+    plain_ms = cuda_ms(lambda: k5.schur_gather_ref(route, contrib, parts,
+                                                   a_bb, r_bb, -1.0), reps=5)
+    s_pad = contrib.new_zeros((nb + 1, nb + 1))
+    index = (route.bsel[:, :, None].expand(-1, -1, width),
+             route.bsel[:, None, :].expand(-1, width, -1))
+    library_ms = cuda_ms(lambda: s_pad.index_put_(index, contrib,
+                                                  accumulate=True), reps=20)
+    print(f"phase 13 {label} K5: k={k}, L={width}, nb={nb}, {sources} "
+          f"sources into {route.mat_dst.numel()} + {route.rhs_dst.numel()} "
+          f"destinations; max abs diff {worst_abs!r}, max rel diff "
+          f"{worst_rel!r}; K5 {ms!r} ms, plain {plain_ms!r} ms, index_put_ "
+          f"{library_ms!r} ms per call; bound {least[0]!r} ms by {least[1]}")
+    return worst_abs, ms, plain_ms, least, library_ms
+
+
+def phase13():
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for label, shape in (("10k", GRID), ("25k", BBD_GRID)):
+        system = synthetic_grid(*shape)
+        t_build, (arr, lay) = wall_s(lambda: compile_nr_bbd(
+            system, BBD_BLOCKS, "cuda"))
+        print(f"phase 13 {label} BBD layout: k={lay.k}, ni={lay.ni}, "
+              f"mb={lay.mb}, mbl={lay.mbl}; compile_nr_bbd {t_build!r} s")
+        out[label] = (compare_k1_routed(label, arr, rng),
+                      compare_k5(label, arr.schur))
+        del arr
+    k1r_err = max(v[0][0] for v in out.values())
+    k5_err = max(v[1][0] for v in out.values())
+    # the JSON line carries the 25k layout's times
+    return (k1r_err, *out["25k"][0][1:]), (k5_err, *out["25k"][1][1:])
+
+
+def stage_ms(split, per=None):
+    """``device_stages`` totals as text, each over ``per`` (default: its
+    own count)."""
+    return ", ".join(f"{key} {ms / (per or count)!r} ms"
+                     for key, (count, ms) in split.items())
+
+
+def nr_bbd_run(label, system, reference, tol, n_blocks=None, cap=NR_CAP,
+               converges=True):
+    """Phase 14: the BBD NR main path on ``system`` in ``n_blocks`` blocks
+    (default ``BBD_BLOCKS``; counts reset just before, read just after),
+    capped at ``cap`` iterations and checked against ``reference`` (an
+    analysis or oracle result with magnitude/angle, its iterations and
+    whether it converged): the same count, both converged as
+    ``converges`` says, and if they did, the same state."""
+    torch.cuda.reset_peak_memory_stats()
+    k1.nr_fill_routed.launches = 0
+    k5.schur_gather.launches = 0
+    t_build, analysis = wall_s(lambda: newton_raphson_bbd(
+        system, n_blocks=n_blocks or BBD_BLOCKS, device="cuda"))
+    start = (analysis.voltage.magnitude.copy(),
+             analysis.voltage.angle.copy())
+    vm0, va0 = analysis._state()
+    with device_stages() as first:
+        t_solve, _ = wall_s(lambda: power_flow_bbd(analysis, iteration=cap))
+    launches = (k1.nr_fill_routed.launches, k5.schur_gather.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    it = analysis.method.iteration
+    check(launches == (it + 1, it),
+          f"{label} BBD NR: K1 routed / K5 launched {launches} times for "
+          f"{it} iterations")
+    if hasattr(reference, "iterations"):
+        ref_it, ref_conv = reference.iterations, reference.converged
+        ref_vm, ref_va = reference.magnitude, reference.angle
+    else:
+        ref_it, ref_conv = (reference.method.iteration,
+                            reference.method.converged)
+        ref_vm, ref_va = reference.voltage.magnitude, reference.voltage.angle
+    conv = analysis.method.converged
+    check(conv == ref_conv == converges and it == ref_it,
+          f"{label} BBD NR: {it} iterations (converged {conv}), reference "
+          f"{ref_it} ({ref_conv})")
+    dvm = float(np.abs(analysis.voltage.magnitude - ref_vm).max())
+    dva = wrapped_max(analysis.voltage.angle, ref_va)
+    check(not converges or (dvm <= tol and dva <= tol),
+          f"{label} BBD NR: |dvm| {dvm:.3e}, |dva| {dva:.3e} over {tol}")
+    # the same solve again from the same start, with the card warmed up
+    analysis.voltage.magnitude, analysis.voltage.angle = start
+    with device_stages() as split:
+        t_again, _ = wall_s(lambda: power_flow_bbd(analysis, iteration=cap))
+    check(analysis.method.iteration == it,
+          f"{label} BBD NR: {analysis.method.iteration} iterations again")
+    lay = analysis._bbd_layout
+    # the interior LU as PyTorch batches it (MAGMA's batched getrf), against
+    # the port's one cuSOLVER getrf per block, on the first Jacobian
+    a_ii = _blocks(k1.nr_fill_routed(analysis.arrays.net,
+                                     analysis.arrays.route, vm0, va0).buf,
+                   lay)[0]
+    batched_ms, _ = event_ms(lambda: torch.linalg.lu_factor(a_ii))
+    blocks_ms, _ = event_ms(lambda: linalg.lu_factor_blocks(a_ii))
+    del a_ii
+    print(f"phase 14 {label} BBD NR main path: n={system.bus.number}, k="
+          f"{lay.k}, ni={lay.ni}, mb={lay.mb}, mbl={lay.mbl}; {it} "
+          f"iterations (reference {ref_it}), converged {conv}, max mismatch "
+          f"{analysis.method.max_mismatch_active!r} / "
+          f"{analysis.method.max_mismatch_reactive!r}, max |dvm| {dvm!r}, "
+          f"max |dva| {dva!r}, K1 routed / K5 launches {launches}; wall: "
+          f"newton_raphson_bbd {t_build!r} s, power_flow_bbd {t_solve!r} s"
+          f" ({t_again!r} s again); peak device memory {peak_gb!r} GB")
+    print(f"phase 14 {label} BBD NR per iteration (CUDA events between the "
+          f"marks of power_flow_bbd, {it} steps, {it + 1} fills), solved "
+          f"again: {stage_ms(split)}; first solve: {stage_ms(first)}; "
+          f"interior LU once more: batched lu_factor {batched_ms!r} ms, per "
+          f"block {blocks_ms!r} ms")
+    return analysis, launches
+
+
+def fdpf_bbd_run(label, system, bx, cap, converges):
+    """Phase 14: the BBD fast decoupled path against oracle_fdpf, both
+    capped at ``cap`` iterations: the same count, the same convergence
+    (``converges``) and the same state."""
+    name = f"{label} FDPF-BBD {'BX' if bx else 'XB'}"
+    k1.nr_fill.launches = 0
+    t_build, analysis = wall_s(lambda: fast_newton_raphson_bbd(
+        system, bx=bx, n_blocks=BBD_BLOCKS, device="cuda"))
+    t_solve, _ = wall_s(lambda: power_flow_fnr_bbd(analysis,
+                                                   iteration=cap))
+    launches = k1.nr_fill.launches
+    it = analysis.method.iteration
+    oracle = oracle_fdpf(system, bx=bx, iteration=cap)
+    check(launches == 2 * it + 1,
+          f"{name}: K1 launched {launches} times for {it} iterations")
+    check(analysis.method.converged == oracle.converged == converges
+          and it == oracle.iterations,
+          f"{name}: {it} iterations (converged "
+          f"{analysis.method.converged}), oracle {oracle.iterations} "
+          f"({oracle.converged})")
+    dvm = float(np.abs(analysis.voltage.magnitude - oracle.magnitude).max())
+    dva = wrapped_max(analysis.voltage.angle, oracle.angle)
+    check(dvm <= GRID_STATE_TOL and dva <= GRID_STATE_TOL,
+          f"{name}: |dvm| {dvm:.3e}, |dva| {dva:.3e}")
+    print(f"phase 14 {name}: {it} iterations (oracle {oracle.iterations}),"
+          f" converged {analysis.method.converged}, max mismatch "
+          f"{analysis.method.max_mismatch_active!r} / "
+          f"{analysis.method.max_mismatch_reactive!r} (oracle "
+          f"{oracle.max_mismatch_active!r} / "
+          f"{oracle.max_mismatch_reactive!r}), max |dvm| {dvm!r}, max |dva| "
+          f"{dva!r}; wall: construction "
+          f"(partition, blocks, two BBD factorizations) {t_build!r} s, "
+          f"power_flow_fnr_bbd {t_solve!r} s")
+
+
+def phase14(dense_10k):
+    """The BBD power flows; returns the 10k and 25k NR analyses and the
+    K1 routed / K5 launches of their main paths."""
+    system = synthetic_grid(*GRID)
+    nr_10k, launches = nr_bbd_run("10k", system, dense_10k, BBD_DENSE_TOL)
+    for bx in (True, False):
+        fdpf_bbd_run("10k", system, bx, FDPF_CAP, True)
+    t_system, system = wall_s(lambda: synthetic_grid(*BBD_GRID))
+    t_oracle, oracle = wall_s(lambda: oracle_nr(system))
+    print(f"phase 14 25k grid: n={system.bus.number}, "
+          f"{system.branch.number} branches; power_system {t_system!r} s; "
+          f"oracle_nr {oracle.iterations} iterations in {t_oracle!r} s")
+    nr_25k, counts = nr_bbd_run("25k", system, oracle, GRID_STATE_TOL)
+    launches = [a + b for a, b in zip(launches, counts)]
+    for bx in (True, False):
+        fdpf_bbd_run("25k", system, bx, FDPF_25K_STEPS, False)
+    return (nr_10k, nr_25k), launches
+
+
+def compare_k3_routed(label, sb, lay, vm, va):
+    """Phase 15: K3's routed mode against se_fill_routed_ref at the state
+    ``vm``/``va``, all blocks in one launch."""
+    arr, route = sb.base, sb.route
+    scale = arr.w.sqrt()
+    got = k3.se_fill_routed(arr, sb.net, route, vm, va, scale)
+    ref = k3.se_fill_routed_ref(arr, sb.net, route, vm, va, scale)
+    torch.cuda.synchronize()
+    worst_abs, worst_rel = rel_err(got, ref)
+    check(worst_rel <= K3_REL_TOL,
+          f"{label}: K3 routed disagrees with its plain version, rel "
+          f"{worst_rel:.3e}")
+    check(torch.equal(got.jac != 0, ref.jac != 0),
+          f"{label}: K3 routed pattern differs from its plain version")
+    net = sb.net
+    least = bound(tensor_bytes(arr.desc.idx, arr.desc.coef, arr.status,
+                               arr.mean, net.row_ptr, net.cols, net.yg,
+                               net.yb, net.diag, route.row_block,
+                               route.row_slot, route.colmap, scale, vm, va,
+                               *got),
+                  arr.mean.numel() * K3_OPS_PER_ROW)
+    gb = got.jac.numel() * 8 / 1e9
+    del got, ref
+    ms = cuda_ms(lambda: k3.se_fill_routed(arr, sb.net, route, vm, va,
+                                           scale), reps=10)
+    plain_ms = cuda_ms(lambda: k3.se_fill_routed_ref(arr, sb.net, route, vm,
+                                                     va, scale), reps=3)
+    print(f"phase 15 {label} K3 routed: m={arr.mean.numel()}, k={lay.k}, "
+          f"mr={lay.mr}, width {2 * lay.ni + 2 * lay.lb}, H {gb!r} GB; max "
+          f"abs diff {worst_abs!r}, max rel diff {worst_rel!r}, pattern "
+          f"equal; K3 routed {ms!r} ms, plain {plain_ms!r} ms per call; "
+          f"bound {least[0]!r} ms by {least[1]}")
+    return worst_abs, ms, plain_ms, least
+
+
+def se_bbd_run(label, mon, n_blocks, reference, tol, start=None):
+    """Phase 15: the BBD SE main path (counts reset just before, read just
+    after) from the case's stored voltages or from ``start`` (magnitude,
+    angle), checked against ``reference`` (magnitude, angle, iterations or
+    None)."""
+    torch.cuda.reset_peak_memory_stats()
+    t_build, se = wall_s(lambda: gauss_newton_bbd(mon, n_blocks=n_blocks,
+                                                  device="cuda"))
+    if start is not None:
+        se.voltage.magnitude, se.voltage.angle = start
+    start = se.voltage.magnitude.copy(), se.voltage.angle.copy()
+    vm0, va0 = se._state()
+    k3.se_fill_routed.launches = 0
+    k5.schur_gather.launches = 0
+    with device_stages() as first:
+        t_solve, _ = wall_s(lambda: se_bbd_solve(se))
+    launches = (k3.se_fill_routed.launches, k5.schur_gather.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    it = se.method.iteration
+    lay = se._bbd_layout
+    chunks = -(-lay.k // _block_chunk(lay, vm0.device))
+    check(launches == (chunks * (it + 1), it + 1),
+          f"{label} BBD SE: K3 routed / K5 launched {launches} times for "
+          f"{it} iterations")
+    vm, va, ref_it = reference
+    check(ref_it is None or it == ref_it,
+          f"{label} BBD SE: {it} iterations, reference {ref_it}")
+    dvm, dva = check_se_state(f"{label} BBD SE", se, vm, va, tol)
+    # the same estimate again from the same start, with the card warmed up
+    se.voltage.magnitude, se.voltage.angle = start
+    with device_stages() as split:
+        t_again, _ = wall_s(lambda: se_bbd_solve(se))
+    check(se.method.iteration == it,
+          f"{label} BBD SE: {se.method.iteration} iterations again")
+    print(f"phase 15 {label} BBD SE main path: n={se.system.bus.number}, "
+          f"m={se.arrays.mean.numel()}, k={lay.k}, ni={lay.ni}, mb={lay.mb}"
+          f", mr={lay.mr}, lb={lay.lb}, {chunks} chunk(s); {it} iterations "
+          f"(reference {ref_it}), max |dvm| {dvm!r}, max |dva| {dva!r}, K3 "
+          f"routed / K5 launches {launches}; wall: gauss_newton_bbd "
+          f"{t_build!r} s, se_bbd_solve {t_solve!r} s ({t_again!r} s "
+          f"again); peak device memory {peak_gb!r} GB")
+    print(f"phase 15 {label} BBD SE per increment (CUDA events between the "
+          f"marks of se_bbd_solve, {it + 1} increments), solved again: "
+          f"{stage_ms(split, it + 1)}; first solve: {stage_ms(first, it + 1)}")
+    return se, launches
+
+
+def perturbed(system, vm, va, rng):
+    """``(vm, va)`` with noise on the PQ magnitudes (0.01) and the
+    non-slack angles (0.02 rad)."""
+    n = system.bus.number
+    is_pq = system.bus.layout.type.array[:n] == 1
+    moved = np.arange(n) != system.bus.layout.slack
+    return (vm + np.where(is_pq, 0.01 * rng.standard_normal(n), 0.0),
+            va + np.where(moved, 0.02 * rng.standard_normal(n), 0.0))
+
+
+def zero_noise_run(label, nr, rng):
+    """Phase 15: the BBD SE of the zero-noise voltmeter, wattmeter and
+    varmeter set of the BBD power flow ``nr`` gives its state back. The
+    estimator starts from the last estimate, here the power-flow state
+    perturbed: from the flat start Gauss-Newton does not converge on these
+    lattices (the 25k one's angles span 11.7 rad), in the port as in
+    ``oracle_wls_se`` (PERF.md, section 6)."""
+    t_post, _ = wall_s(lambda: (ac_post.power(nr), ac_post.current(nr)))
+    mon = measurement(nr.system)
+    t_set, _ = wall_s(lambda: (
+        add_voltmeter(mon, analysis=nr, noise=False),
+        add_wattmeter(mon, analysis=nr, noise=False),
+        add_varmeter(mon, analysis=nr, noise=False)))
+    print(f"phase 15 {label} zero-noise set: {mon.voltmeter.number} "
+          f"voltmeters, {mon.wattmeter.number} wattmeters, "
+          f"{mon.varmeter.number} varmeters; post-processing {t_post!r} s, "
+          f"measurement set {t_set!r} s")
+    vm, va = nr.voltage.magnitude, nr.voltage.angle
+    return se_bbd_run(label, mon, BBD_BLOCKS, (vm, va, None), GRID_STATE_TOL,
+                      perturbed(nr.system, vm, va, rng))
+
+
+def phase15(nr_bbd):
+    rng = np.random.default_rng(SEED)
+    # the 1,369-bus set of phase 6 (no correlated pairs) against the dense
+    # estimate
+    label = f"{SE_GRID[0]}x{SE_GRID[1]}"
+    system = synthetic_grid(*SE_GRID)
+    mon, _ = scada_pmu(system)
+    dense = gauss_newton(mon, device="cuda")
+    state_estimation(dense)
+    se, launches = se_bbd_run(
+        label, mon, SE_BBD_BLOCKS,
+        (dense.voltage.magnitude, dense.voltage.angle,
+         dense.method.iteration), BBD_DENSE_TOL)
+    k3r = compare_k3_routed(label, se._bbd, se._bbd_layout, *se._state())
+    # the gain stage over chunks of blocks, as where the card's memory asks
+    # for it, gives the increment of one pass
+    vm, va = (torch.tensor(x, device="cuda") for x in perturbed(
+        system, se.voltage.magnitude, se.voltage.angle, rng))
+    whole, _ = _gn_increment_bbd(se._bbd, se._bbd_layout, vm, va)
+    chunked, _ = _gn_increment_bbd(se._bbd, se._bbd_layout, vm, va, chunk=3)
+    diff = (whole - chunked).abs().max().item()
+    check(diff <= TWIN_STATE_TOL * max(1.0, whole.abs().max().item()),
+          f"{label} BBD SE: the increment in chunks of 3 blocks is {diff:.3e}"
+          f" from one pass")
+    print(f"phase 15 {label} BBD SE increment in chunks of 3 blocks vs one "
+          f"pass: max abs diff {diff!r}")
+    del se
+
+    # the zero-noise sets from the phase-14 BBD NR solutions
+    for label, nr in zip(("10k", "25k"), nr_bbd):
+        se, counts = zero_noise_run(label, nr, rng)
+        launches = [a + b for a, b in zip(launches, counts)]
+        if label == "25k":
+            vm, va = (torch.tensor(x, device="cuda") for x in perturbed(
+                nr.system, se.voltage.magnitude, se.voltage.angle, rng))
+            k3r_25k = compare_k3_routed(label, se._bbd, se._bbd_layout, vm,
+                                        va)
+        del se
+    err = max(k3r[0], k3r_25k[0])
+    return (err, *k3r_25k[1:]), launches
+
+
+def kernel_entry(name, replaces, launches, err, times, source=None,
+                 library_ms=None):
     ms, plain_ms, (bound_ms, bound_by) = times
     return {"name": name, "route": "cuda",
-            "source": f"juliagrid_tpu_torch/kernels/csrc/{name}.cu",
+            "source": f"juliagrid_tpu_torch/kernels/csrc/{source or name}.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def main():
     card = phase0()
     k1_err, *k1_times = phase1()
     phase2()
-    k1_launches = phase3()
+    k1_launches, dense_10k = phase3()
     phase4()
     k3_err, k3_times = phase5()
     k3_launches = phase6()
@@ -1454,16 +1881,31 @@ def main():
     phase10()
     phase11()
     k3_launches += phase12()
+    (k1r_err, *k1r_times), (k5_err, *k5_times) = phase13()
+    k5_library_ms = k5_times.pop()
+    nr_bbd, (k1r_launches, k5_launches) = phase14(dense_10k)
+    (k3r_err, *k3r_times), (k3r_launches, k5_se) = phase15(nr_bbd)
+    k5_launches += k5_se
     print(card)
-    # no single PyTorch call computes K1's, K3's or K4's function:
-    # library_ms is null
+    # no single PyTorch call computes K1's, K3's or K4's function, or the
+    # routed modes': library_ms is null; K5's is one index_put_
     print(json.dumps({"kernels": [
         kernel_entry("nr_fill", "juliagrid_tpu/powerflow/ac.py:92",
                      k1_launches, k1_err, k1_times),
         kernel_entry("se_fill", "juliagrid_tpu/estimation/acse.py:463",
                      k3_launches, k3_err, k3_times),
         kernel_entry("gs_sweep", "juliagrid_tpu/powerflow/gauss_seidel.py:97",
-                     k4_launches, k4_err, k4_times)]}))
+                     k4_launches, k4_err, k4_times),
+        kernel_entry("nr_fill_routed",
+                     "juliagrid_tpu/powerflow/newton_bbd.py:253",
+                     k1r_launches, k1r_err, k1r_times, source="nr_fill"),
+        kernel_entry("se_fill_routed",
+                     "juliagrid_tpu/estimation/acse_bbd.py:286",
+                     k3r_launches, k3r_err, k3r_times, source="se_fill"),
+        kernel_entry("schur_gather",
+                     "juliagrid_tpu/powerflow/newton_bbd.py:341",
+                     k5_launches, k5_err, k5_times,
+                     library_ms=k5_library_ms)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

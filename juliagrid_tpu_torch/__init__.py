@@ -12,7 +12,12 @@ estimation runs through a fourth (``kernels/csrc/se_fill.cu``) for the
 measurement functions and Jacobian, then an f64 gain matmul and Cholesky;
 the linear DC and PMU estimators through one f64 gain matmul and solve;
 bad-data processing through the same kernel and a dense f64 projection (or
-the host Takahashi path at scale). The numpy host layer (parsers, data
+the host Takahashi path at scale). Single large grids take the
+bordered-block-diagonal path (``newton_raphson_bbd``,
+``fast_newton_raphson_bbd``, ``gauss_newton_bbd``): K1 and K3 write
+straight into the blocks of a partition, the interiors factor in one
+batched f64 LU, and a fifth kernel (``kernels/csrc/schur_gather.cu``)
+gathers the border system. The numpy host layer (parsers, data
 model, measurements, post-processing, observability and PMU placement) is a
 copy of the JAX package's, so the port imports no JAX.
 
@@ -45,6 +50,7 @@ from .powerflow.ac import mismatch, newton_raphson, set_initial_point, solve
 from .powerflow.fast_decoupled import (fast_newton_raphson_bx,
                                        fast_newton_raphson_xb)
 from .powerflow.gauss_seidel import gauss_seidel
+from .powerflow.newton_bbd import newton_raphson_bbd, power_flow_bbd
 from .powerflow.dc import dc_power_flow
 from .powerflow.driver import power_flow
 from .powerflow.limits import adjust_angle, reactive_limit

@@ -11,7 +11,12 @@ and ``GsArrays`` (to which they add the PQ and PV bus lists of K4's two
 passes). ``se_arrays_from_numpy`` does the same for the
 measurement-row IR: it takes an ``SeArrays`` host mirror (the port's, or
 the JAX package's from ``compile_se_arrays(..., return_host=True)``) and
-adds K3's descriptor table. ``dcse_arrays_from_numpy`` and
+adds K3's descriptor table. ``nr_bbd_arrays_from_numpy`` and
+``se_bbd_arrays_from_numpy`` take the routing tables of the JAX package's
+``NrBbdArrays`` and ``SeBbdArrays`` (under their field names) and derive
+from them what the port's BBD paths read: K1's and K3's routed-mode tables,
+K5's gather tables and each bus's place in the block layout.
+``dcse_arrays_from_numpy`` and
 ``pmuse_arrays_from_numpy`` take the fields of the JAX package's
 ``DcSeArrays`` and ``PmuSeArrays`` (dense H included) for the linear
 estimators. Feeding both packages the same arrays lets a test compare their
@@ -27,7 +32,9 @@ from .config import resolve_device
 from .estimation.acse import BranchGroup, SeArrays
 from .estimation.dcse import DcSeArrays
 from .estimation.pmuse import PmuSeArrays
-from .kernels.se_fill import SeFillTable, se_fill_table
+from .kernels.nr_fill import NrRoute, check_route
+from .kernels.schur_gather import schur_route
+from .kernels.se_fill import SeFillTable, SeRoute, se_fill_table
 from .ops import linalg
 from .powerflow.ac import AcArrays, check_entry_list
 from .powerflow.dc import DcArrays
@@ -183,3 +190,163 @@ def se_arrays_from_numpy(host, device=None) -> SeArrays:
             idx=torch.tensor(idx, device=dev),
             coef=torch.tensor(coef, device=dev)),
         **index)
+
+
+def _var_pos(bus_block, bus_slot, k: int, ni: int, mb: int) -> np.ndarray:
+    """``[2, n]`` flat positions of each bus's θ and V variables in the
+    block layout ``[k 2ni | 2mb]``: interior slot s of block b at
+    ``2ni b + s`` (V: ``+ ni``), border slot q at ``2ni k + q`` (V:
+    ``+ mb``)."""
+    bus_block = np.asarray(bus_block, dtype=np.int64)
+    bus_slot = np.asarray(bus_slot, dtype=np.int64)
+    interior = bus_block >= 0
+    ang = np.where(interior, 2 * ni * bus_block + bus_slot,
+                   2 * ni * k + bus_slot)
+    return np.stack([ang, ang + np.where(interior, ni, mb)])
+
+
+def nr_bbd_arrays_from_numpy(*, rows, cols, yg, yb, diag, bus_type, slack,
+                             p_sched, q_sched, ii_sel, ii_blk, ii_row,
+                             ii_col, ib_sel, ib_blk, ib_row, ib_col, bi_sel,
+                             bi_blk, bi_row, bi_col, bb_sel, bb_row, bb_col,
+                             bus_block, bus_slot, mask_int, mask_bdr, bsel,
+                             bmask, device=None):
+    """``(NrBbdArrays, _BbdLayout)`` on ``device`` (default
+    ``config.device``) from the numpy fields of an ``NrBbdArrays`` of the
+    JAX package (or ``newton_bbd.nr_bbd_tables``).
+
+    The four routing families become K1's routed offsets into one flat
+    buffer ``a_ii | a_ib | a_bi | a_bb``, with every value whose row or
+    column variable is masked dropped (-1) and the masked and padded
+    variables' diagonal positions listed for 1.0 — the family masks of the
+    JAX package's ``_nr_bbd_step`` (:308-319). Raises unless every
+    destination has one writer (``check_route``)."""
+    from .powerflow.newton_bbd import NrBbdArrays, _BbdLayout
+    dev = resolve_device(device)
+    net = ac_arrays_from_numpy(
+        rows=rows, cols=cols, yg=yg, yb=yb, diag=diag, bus_type=bus_type,
+        slack=slack, p_sched=p_sched, q_sched=q_sched, device=dev)
+    mask_int = np.asarray(mask_int, dtype=np.float64)
+    mask_bdr = np.asarray(mask_bdr, dtype=np.float64)
+    bsel = np.asarray(bsel, dtype=np.int64)
+    bmask = np.asarray(bmask, dtype=np.float64)
+    k, n2i = mask_int.shape
+    nbr, n2l = len(mask_bdr), bsel.shape[1]
+    layout = _BbdLayout(k=k, ni=n2i // 2, mb=nbr // 2, mbl=n2l // 2)
+    s_ii, s_ib = k * n2i * n2i, k * n2i * n2l
+    size = s_ii + 2 * s_ib + nbr * nbr
+    mloc = np.append(mask_bdr, 0.0)[bsel] * bmask
+
+    nnz = len(rows)
+    off = np.full(4 * nnz, -1, dtype=np.int64)
+
+    def route(sel, keep, flat):
+        sel = np.asarray(sel, dtype=np.int64)
+        off[sel[keep != 0]] = flat[keep != 0]
+
+    b, r, c = (np.asarray(x, dtype=np.int64) for x in (ii_blk, ii_row,
+                                                        ii_col))
+    route(ii_sel, mask_int[b, r] * mask_int[b, c], (b * n2i + r) * n2i + c)
+    b, r, c = (np.asarray(x, dtype=np.int64) for x in (ib_blk, ib_row,
+                                                        ib_col))
+    route(ib_sel, mask_int[b, r] * mloc[b, c],
+          s_ii + (b * n2i + r) * n2l + c)
+    b, r, c = (np.asarray(x, dtype=np.int64) for x in (bi_blk, bi_row,
+                                                        bi_col))
+    route(bi_sel, mloc[b, r] * mask_int[b, c],
+          s_ii + s_ib + (b * n2l + r) * n2i + c)
+    r, c = (np.asarray(x, dtype=np.int64) for x in (bb_row, bb_col))
+    route(bb_sel, mask_bdr[r] * mask_bdr[c],
+          s_ii + 2 * s_ib + r * nbr + c)
+    off = off.reshape(4, nnz)
+
+    b, i = np.nonzero(mask_int == 0)
+    q = np.flatnonzero(mask_bdr == 0)
+    ones = np.concatenate([(b * n2i + i) * n2i + i,
+                           s_ii + 2 * s_ib + q * nbr + q])
+    check_route(off, ones, size)
+
+    def i64(a):
+        return torch.tensor(np.ascontiguousarray(a, dtype=np.int64),
+                            device=dev)
+
+    arrays = NrBbdArrays(
+        net=net, route=NrRoute(off=i64(off), ones=i64(ones), size=size),
+        var_pos=i64(_var_pos(bus_block, bus_slot, k, layout.ni, layout.mb)),
+        bsel=i64(bsel), bmask=torch.tensor(bmask, device=dev),
+        schur=schur_route(bsel, nbr, dev))
+    return arrays, layout
+
+
+def se_bbd_arrays_from_numpy(*, base, net, ent_rows, hi_sel, hi_blk, hi_row,
+                             hi_col, hb_sel, hb_blk, hb_row, hb_col,
+                             rows_idx, row_mask, lb_gidx, bus_block,
+                             bus_slot, mask_int, mask_bdr, device=None):
+    """``(SeBbdArrays, _SeBbdLayout)`` on ``device`` (default
+    ``config.device``) from the routing tables of an ``SeBbdArrays`` of
+    the JAX package (or ``acse_bbd.se_bbd_tables``) as numpy arrays.
+    ``base`` is an ``SeArrays`` on the device or a host mirror of one;
+    ``net`` an ``AcArrays`` on the device or a mapping of its numpy fields.
+
+    From the row routing come K3's row maps (block and slot of each row),
+    from the bus routing and ``lb_gidx`` its column map (each block's
+    angle column of each of its buses), and from ``lb_gidx`` K5's gather
+    tables. The JAX package's per-block padded entry tables (``pb_*``)
+    serve its per-block streaming only and are not taken."""
+    from .estimation.acse_bbd import SeBbdArrays, _SeBbdLayout
+    dev = resolve_device(device)
+    if not isinstance(base.mean, torch.Tensor):
+        base = se_arrays_from_numpy(base, dev)
+    if not isinstance(net, AcArrays):
+        net = ac_arrays_from_numpy(device=dev, **net)
+    mask_int = np.asarray(mask_int, dtype=np.float64)
+    mask_bdr = np.asarray(mask_bdr, dtype=np.float64)
+    rows_idx = np.asarray(rows_idx, dtype=np.int64)
+    lb_gidx = np.asarray(lb_gidx, dtype=np.int64)
+    bus_block = np.asarray(bus_block, dtype=np.int64)
+    bus_slot = np.asarray(bus_slot, dtype=np.int64)
+    k, n2i = mask_int.shape
+    layout = _SeBbdLayout(k=k, ni=n2i // 2, mb=len(mask_bdr) // 2,
+                          mr=rows_idx.shape[1], lb=lb_gidx.shape[1] // 2)
+    m, n = int(base.mean.shape[0]), len(bus_block)
+
+    row_block = np.full(m, -1, dtype=np.int64)
+    row_slot = np.zeros(m, dtype=np.int64)
+    blk, slot = np.nonzero(np.asarray(row_mask) != 0)
+    row_block[rows_idx[blk, slot]] = blk
+    row_slot[rows_idx[blk, slot]] = slot
+    if np.any(row_block < 0):
+        raise ValueError("a measurement row belongs to no block")
+
+    colmap = np.full((k, n), -1, dtype=np.int64)
+    interior = np.flatnonzero(bus_block >= 0)
+    colmap[bus_block[interior], interior] = bus_slot[interior]
+    border_bus = np.zeros(int(np.sum(bus_block < 0)), dtype=np.int64)
+    border_bus[bus_slot[bus_block < 0]] = np.flatnonzero(bus_block < 0)
+    blk, slot = np.nonzero(lb_gidx[:, :layout.lb] < len(border_bus))
+    colmap[blk, border_bus[lb_gidx[blk, slot]]] = n2i + slot
+
+    def i64(a):
+        return torch.tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, dtype=np.int32), device=dev)
+
+    route = SeRoute(
+        row_block=i32(row_block), row_slot=i32(row_slot), colmap=i32(colmap),
+        ent_rows=i64(ent_rows), hi_sel=i64(hi_sel), hi_blk=i64(hi_blk),
+        hi_row=i64(hi_row), hi_col=i64(hi_col), hb_sel=i64(hb_sel),
+        hb_blk=i64(hb_blk), hb_row=i64(hb_row), hb_col=i64(hb_col),
+        mask_int=torch.tensor(mask_int, device=dev),
+        mask_lb=torch.tensor(np.append(mask_bdr, 0.0)[lb_gidx], device=dev),
+        mr=layout.mr, ni=layout.ni, lb=layout.lb)
+    arrays = SeBbdArrays(
+        base=base, net=net, route=route, rows_idx=i64(rows_idx),
+        row_mask=torch.tensor(np.asarray(row_mask, dtype=np.float64),
+                              device=dev),
+        lb_gidx=i64(lb_gidx),
+        var_pos=i64(_var_pos(bus_block, bus_slot, k, layout.ni, layout.mb)),
+        mask_int=torch.tensor(mask_int, device=dev),
+        mask_bdr=torch.tensor(mask_bdr, device=dev),
+        schur=schur_route(lb_gidx, len(mask_bdr), dev))
+    return arrays, layout

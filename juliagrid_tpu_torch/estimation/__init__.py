@@ -1,8 +1,9 @@
-"""State estimation subpackage: Gauss-Newton WLS AC, DC and PMU state
-estimation, bad data and observability (the LAV estimators are not ported
-yet)."""
+"""State estimation subpackage: Gauss-Newton WLS AC (dense and BBD), DC and
+PMU state estimation, bad data and observability (the LAV estimators are
+not ported yet)."""
 
 from .acse import gauss_newton, increment, solve, state_estimation
+from .acse_bbd import gauss_newton_bbd, se_bbd_solve
 from .dcse import dc_state_estimation
 from .pmuse import pmu_state_estimation
 from .baddata import chi_test, lnr_removal, residual_test

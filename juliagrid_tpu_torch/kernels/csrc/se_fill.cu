@@ -36,6 +36,16 @@
 // so each product and sum rounds on its own as the plain version's
 // op-by-op kernels do; only the injection rows' summation order differs.
 //
+// Routed mode (se_fill_routed_launch) replaces the per-block H of the BBD
+// estimator, juliagrid_tpu/estimation/acse_bbd.py:256-302 (h_entries routed
+// into H_int and H_bdr by _gains_block, with its status and slack masks):
+// the same row evaluation (fill_row), one scenario, but each row writes
+// row row_slot[r] of block row_block[r]'s [mr, 2ni + 2lb] matrix, its
+// columns mapped per block (interior slots, then local border slots), each
+// value times the row's status and the square root of its weight. The host
+// partition gives every row's variables to one block, and the column map
+// is one-to-one inside a block, so every element still has one writer.
+//
 // Bound: with the Jacobian, the launcher zeroes B m 2n doubles first
 // (cudaMemsetAsync), a write at full memory bandwidth: 2.2 GB for case118
 // x1024, 10.9 GB for 32 scenarios of a 1,369-bus grid, about 0.7 and
@@ -200,45 +210,21 @@ __device__ Entries eval_branch(int code, double a, double b, double c,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-se_fill_kernel(const int* __restrict__ idx,
-               const double* __restrict__ coef,
-               const double* __restrict__ status,
-               int slack,
-               const int* __restrict__ row_ptr,
-               const int* __restrict__ cols,
-               const double* __restrict__ yg,
-               const double* __restrict__ yb,
-               const int* __restrict__ diag,
-               const double* __restrict__ vm,
-               const double* __restrict__ va,
-               const double* __restrict__ mean,
-               double* __restrict__ h,
-               double* __restrict__ r,
-               double* __restrict__ jac,
-               int n, int m, int batch) {
-  const int64_t warp =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  // blockDim.x is a multiple of 32, so a warp leaves here as a whole and
-  // the full-mask shuffles below see all 32 lanes.
-  if (warp >= static_cast<int64_t>(m) * batch) return;
-  const int b = static_cast<int>(warp / m);
-  const int row = static_cast<int>(warp % m);
-
+// One measurement row of one scenario, evaluated by a warp: `put(col, v)`
+// receives every Jacobian value with its column in the 2n state vector
+// (theta then V) and stores it where the mode wants it; lane 0 writes h and
+// the residual.
+template <class Put>
+__device__ __forceinline__ void fill_row(
+    int row, int m, int lane, const int* __restrict__ idx,
+    const double* __restrict__ coef, double st,
+    const int* __restrict__ row_ptr, const int* __restrict__ cols,
+    const double* __restrict__ yg, const double* __restrict__ yb,
+    const int* __restrict__ diag, const double* __restrict__ vmb,
+    const double* __restrict__ vab, int n, const double* __restrict__ mean,
+    double* __restrict__ h, double* __restrict__ r, int64_t out, Put put) {
   const int code = idx[row];
   const int f = idx[m + row];
-  const double st = status[row];
-  const double* vmb = vm + static_cast<int64_t>(b) * n;
-  const double* vab = va + static_cast<int64_t>(b) * n;
-  const int64_t out = static_cast<int64_t>(b) * m + row;
-  double* hrow = jac == nullptr
-                     ? nullptr
-                     : jac + out * 2 * static_cast<int64_t>(n);
-  auto put = [&](int col, double v) {
-    if (hrow != nullptr && col != slack) hrow[col] = v * st;
-  };
-
   double hv;
   if (code == 6 || code == 9) {  // P or Q injection at bus f
     const double vi = vmb[f];
@@ -331,6 +317,100 @@ se_fill_kernel(const int* __restrict__ idx,
   r[out] = mean[out] - hs;
 }
 
+__global__ void __launch_bounds__(kThreads)
+se_fill_kernel(const int* __restrict__ idx,
+               const double* __restrict__ coef,
+               const double* __restrict__ status,
+               int slack,
+               const int* __restrict__ row_ptr,
+               const int* __restrict__ cols,
+               const double* __restrict__ yg,
+               const double* __restrict__ yb,
+               const int* __restrict__ diag,
+               const double* __restrict__ vm,
+               const double* __restrict__ va,
+               const double* __restrict__ mean,
+               double* __restrict__ h,
+               double* __restrict__ r,
+               double* __restrict__ jac,
+               int n, int m, int batch) {
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  // blockDim.x is a multiple of 32, so a warp leaves here as a whole and
+  // the full-mask shuffles below see all 32 lanes.
+  if (warp >= static_cast<int64_t>(m) * batch) return;
+  const int b = static_cast<int>(warp / m);
+  const int row = static_cast<int>(warp % m);
+
+  const double st = status[row];
+  const int64_t out = static_cast<int64_t>(b) * m + row;
+  double* hrow = jac == nullptr
+                     ? nullptr
+                     : jac + out * 2 * static_cast<int64_t>(n);
+  auto put = [&](int col, double v) {
+    if (hrow != nullptr && col != slack) hrow[col] = v * st;
+  };
+  fill_row(row, m, lane, idx, coef, st, row_ptr, cols, yg, yb, diag,
+           vm + static_cast<int64_t>(b) * n, va + static_cast<int64_t>(b) * n,
+           n, mean, h, r, out, put);
+}
+
+// Routed mode, one scenario: warp `row` writes row row_slot[row] of block
+// row_block[row] when that block lies in [block_lo, block_hi). Column of
+// bus j in block b: a = colmap[b n + j], the angle's local column (an
+// interior slot, or 2ni + a local border slot); the magnitude's is a + ni
+// for an interior bus, a + lb for a border bus. Values are scaled by the
+// row's status and by scale[row] (the square root of its weight).
+__global__ void __launch_bounds__(kThreads)
+se_fill_routed_kernel(const int* __restrict__ idx,
+                      const double* __restrict__ coef,
+                      const double* __restrict__ status,
+                      int slack,
+                      const int* __restrict__ row_ptr,
+                      const int* __restrict__ cols,
+                      const double* __restrict__ yg,
+                      const double* __restrict__ yb,
+                      const int* __restrict__ diag,
+                      const double* __restrict__ vm,
+                      const double* __restrict__ va,
+                      const double* __restrict__ mean,
+                      double* __restrict__ h,
+                      double* __restrict__ r,
+                      const int* __restrict__ row_block,
+                      const int* __restrict__ row_slot,
+                      const int* __restrict__ colmap,
+                      const double* __restrict__ scale,
+                      double* __restrict__ hblk,
+                      int n, int m, int ni, int lb, int mr, int block_lo,
+                      int block_hi) {
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (warp >= m) return;
+  const int row = static_cast<int>(warp);
+  const double st = status[row];
+  const int blk = row_block[row];
+  const int64_t width = 2 * static_cast<int64_t>(ni) + 2 * lb;
+  double* hrow = nullptr;
+  const int* cmap = nullptr;
+  if (hblk != nullptr && blk >= block_lo && blk < block_hi) {
+    hrow = hblk + (static_cast<int64_t>(blk - block_lo) * mr + row_slot[row])
+                      * width;
+    cmap = colmap + static_cast<int64_t>(blk) * n;
+  }
+  const double rs = scale[row];
+  auto put = [&](int col, double v) {
+    if (hrow == nullptr || col == slack) return;
+    const bool mag = col >= n;
+    const int a = cmap[mag ? col - n : col];
+    if (a < 0) return;  // not a variable of this block (host-checked)
+    hrow[mag ? a + (a < ni ? ni : lb) : a] = v * st * rs;
+  };
+  fill_row(row, m, lane, idx, coef, st, row_ptr, cols, yg, yb, diag, vm, va,
+           n, mean, h, r, row, put);
+}
+
 }  // namespace
 
 // Launch K3 on `stream`. All arrays are device pointers: the descriptor
@@ -361,6 +441,39 @@ extern "C" int se_fill_launch(const int* idx, const double* coef,
   se_fill_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       idx, coef, status, slack, row_ptr, cols, yg, yb, diag, vm, va, mean, h,
       r, jac, n, m, batch);
+  return cudaGetLastError();
+}
+
+// Launch K3's routed mode for one state on `stream`: h and r ([m]) as
+// above, and, unless `hblk` is null, zero the [block_hi - block_lo, mr,
+// 2ni + 2lb] per-block matrices `hblk` and fill the rows of those blocks.
+// row_block/row_slot are [m], colmap [k, n]. Returns a cudaError_t code.
+extern "C" int se_fill_routed_launch(
+    const int* idx, const double* coef, const double* status, int slack,
+    const int* row_ptr, const int* cols, const double* yg, const double* yb,
+    const int* diag, const double* vm, const double* va, const double* mean,
+    double* h, double* r, const int* row_block, const int* row_slot,
+    const int* colmap, const double* scale, double* hblk, int n, int m,
+    int ni, int lb, int mr, int block_lo, int block_hi, void* stream) {
+  if (n <= 0 || m <= 0 || ni <= 0 || lb <= 0 || mr <= 0 ||
+      block_hi < block_lo) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hblk != nullptr) {
+    const size_t bytes = static_cast<size_t>(block_hi - block_lo) * mr *
+                         (2 * static_cast<size_t>(ni) + 2 * lb) *
+                         sizeof(double);
+    const cudaError_t err = cudaMemsetAsync(hblk, 0, bytes, s);
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t threads = static_cast<int64_t>(m) * kWarp;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  se_fill_routed_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      idx, coef, status, slack, row_ptr, cols, yg, yb, diag, vm, va, mean, h,
+      r, row_block, row_slot, colmap, scale, hblk, n, m, ni, lb, mr,
+      block_lo, block_hi);
   return cudaGetLastError();
 }
 

@@ -11,6 +11,13 @@ The CUDA source, its mapping and what bounds it are described in
 the kernel (and the call raises if the kernel does not build or launch), a
 CPU tensor to ``nr_fill_ref``, the plain PyTorch transcription of the same
 jnp code. ``nr_fill.launches`` counts kernel launches.
+
+``nr_fill_routed`` is K1's routed mode for the BBD Newton-Raphson
+(``powerflow/newton_bbd.py``): one state, and instead of the dense Jacobian
+one flat buffer of the interior, coupling and border blocks, written at the
+offsets of an ``NrRoute`` that ``compile_nr_bbd`` builds and checks once on
+the host. It dispatches the same way, to ``nr_fill_routed_ref`` on the CPU,
+and counts its own launches in ``nr_fill_routed.launches``.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import ctypes
 import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import _build
@@ -32,6 +40,37 @@ class NrFill(NamedTuple):
     mp: torch.Tensor   # f64[B, n] p - p_sched, zero at the slack
     mq: torch.Tensor   # f64[B, n] q - q_sched, zero off PQ buses
     jac: Optional[torch.Tensor]  # f64[B, 2n, 2n] masked Jacobian, or None
+
+
+class NrRoute(NamedTuple):
+    """Where K1's routed mode writes: ``off[q, k]`` is the flat-buffer
+    offset of quadrant ``q`` (H, N, J, L) of Y entry ``k`` (-1: drop), and
+    ``ones`` the positions set to 1.0 (masked and padded variables)."""
+
+    off: torch.Tensor   # i64[4, nnz]
+    ones: torch.Tensor  # i64[n_ones]
+    size: int           # length of the flat buffer
+
+
+class NrFillRouted(NamedTuple):
+    """K1 routed outputs for one state."""
+
+    p: torch.Tensor    # f64[n]
+    q: torch.Tensor    # f64[n]
+    mp: torch.Tensor   # f64[n] p - p_sched, zero at the slack
+    mq: torch.Tensor   # f64[n] q - q_sched, zero off PQ buses
+    buf: torch.Tensor  # f64[size] the routed, masked Jacobian blocks
+
+
+def check_route(off: np.ndarray, ones: np.ndarray, size: int) -> None:
+    """Raise unless every non-negative offset and every identity position
+    lies in the buffer and no two of them are equal: the guarantee that
+    gives each element of the routed buffer one writer."""
+    dest = np.concatenate([off[off >= 0], ones])
+    if dest.size and (dest.min() < 0 or dest.max() >= size):
+        raise ValueError("routed offset outside the buffer")
+    if np.unique(dest).size != dest.size:
+        raise ValueError("two routed values share one buffer element")
 
 
 def _check_inputs(arr, vm, va, p_sched, q_sched):
@@ -73,20 +112,29 @@ def _library() -> ctypes.CDLL:
     lib.nr_fill_launch.argtypes = (
         [ptr] * 6 + [i32] + [ptr] * 4 + [ptr] * 5 + [i32, i32, ptr])
     lib.nr_fill_launch.restype = i32
+    i64 = ctypes.c_int64
+    lib.nr_fill_routed_launch.argtypes = (
+        [ptr] * 6 + [i32] + [ptr] * 4 + [ptr] * 4
+        + [ptr, i64, ptr, i64, ptr, i64, i32, ptr])
+    lib.nr_fill_routed_launch.restype = i32
     lib.nr_fill_error_string.argtypes = [i32]
     lib.nr_fill_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(arr, vm, va, p_sched, q_sched, jacobian: bool) -> NrFill:
+def _check_network(arr, f64=("yg", "yb")) -> None:
     for name in ("row_ptr", "cols", "diag", "bus_type"):
         t = getattr(arr, name)
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"AcArrays.{name} must be contiguous int32")
-    for name in ("yg", "yb"):
+    for name in f64:
         t = getattr(arr, name)
         if t.dtype != torch.float64 or not t.is_contiguous():
             raise TypeError(f"AcArrays.{name} must be contiguous float64")
+
+
+def _launch(arr, vm, va, p_sched, q_sched, jacobian: bool) -> NrFill:
+    _check_network(arr)
     vm, va, p_sched, q_sched = (t.contiguous()
                                 for t in (vm, va, p_sched, q_sched))
     batch, n = vm.shape
@@ -109,6 +157,75 @@ def _launch(arr, vm, va, p_sched, q_sched, jacobian: bool) -> NrFill:
                            + lib.nr_fill_error_string(err).decode())
     nr_fill.launches += 1
     return NrFill(p, q, mp, mq, jac)
+
+
+def nr_fill_routed(arr, route: NrRoute, vm, va) -> NrFillRouted:
+    """Injections, masked mismatch and the routed, masked Jacobian blocks
+    at the state ``vm``/``va`` (``[n]`` each) of the network ``arr``
+    (``AcArrays``)."""
+    _check_inputs(arr, vm[None], va[None], arr.p_sched[None],
+                  arr.q_sched[None])
+    if route.off.shape != (4, arr.cols.numel()):
+        raise ValueError(f"route.off must have shape [4, nnz], got "
+                         f"{tuple(route.off.shape)}")
+    if vm.device.type == "cpu":
+        return nr_fill_routed_ref(arr, route, vm, va)
+    if vm.device.type != "cuda":
+        raise ValueError(f"nr_fill_routed runs on cuda or cpu tensors, not "
+                         f"{vm.device}")
+    return _launch_routed(arr, route, vm, va)
+
+
+nr_fill_routed.launches = 0
+
+
+def _launch_routed(arr, route: NrRoute, vm, va) -> NrFillRouted:
+    _check_network(arr, ("yg", "yb", "p_sched", "q_sched"))
+    for name, t in (("off", route.off), ("ones", route.ones)):
+        if t.dtype != torch.int64 or not t.is_contiguous() \
+                or t.device != vm.device:
+            raise TypeError(f"NrRoute.{name} must be contiguous int64 on "
+                            f"{vm.device}")
+    vm, va = vm.contiguous(), va.contiguous()
+    n = vm.shape[0]
+    lib = _library()
+    out = torch.empty((4, n), dtype=torch.float64, device=vm.device)
+    p, q, mp, mq = out.unbind(0)
+    buf = torch.empty(route.size, dtype=torch.float64, device=vm.device)
+    with torch.cuda.device(vm.device):
+        stream = torch.cuda.current_stream(vm.device).cuda_stream
+        err = lib.nr_fill_routed_launch(
+            arr.row_ptr.data_ptr(), arr.cols.data_ptr(), arr.yg.data_ptr(),
+            arr.yb.data_ptr(), arr.diag.data_ptr(), arr.bus_type.data_ptr(),
+            int(arr.slack), vm.data_ptr(), va.data_ptr(),
+            arr.p_sched.data_ptr(), arr.q_sched.data_ptr(), p.data_ptr(),
+            q.data_ptr(), mp.data_ptr(), mq.data_ptr(), route.off.data_ptr(),
+            route.off.shape[1], route.ones.data_ptr(), route.ones.numel(),
+            buf.data_ptr(), route.size, n, stream)
+    if err != 0:
+        raise RuntimeError("nr_fill routed launch failed: "
+                           + lib.nr_fill_error_string(err).decode())
+    nr_fill_routed.launches += 1
+    return NrFillRouted(p, q, mp, mq, buf)
+
+
+def nr_fill_routed_ref(arr, route: NrRoute, vm, va) -> NrFillRouted:
+    """Plain PyTorch routed K1: ``_quadrant_values`` of newton_bbd.py
+    (the JAX package's :253), its values put at the route's offsets, and
+    1.0 at the identity positions. The CPU path, and the check the routed
+    kernel is held to on the card."""
+    # newton_bbd.py imports this module for nr_fill_routed
+    from ..powerflow.newton_bbd import _quadrant_values
+
+    res = nr_fill_ref(arr, vm[None], va[None], arr.p_sched[None],
+                      arr.q_sched[None])
+    vals = _quadrant_values(arr, vm, va, res.p[0], res.q[0])
+    off = route.off.reshape(-1)
+    keep = off >= 0
+    buf = torch.zeros(route.size, dtype=vm.dtype, device=vm.device)
+    buf[off[keep]] = vals[keep]
+    buf[route.ones] = 1.0
+    return NrFillRouted(res.p[0], res.q[0], res.mp[0], res.mq[0], buf)
 
 
 def nr_fill_ref(arr, vm, va, p_sched, q_sched,

@@ -14,6 +14,14 @@ The kernel reads a per-row descriptor table (``SeFillTable``) that
 tensor goes to the kernel (and the call raises if the kernel does not build
 or launch), a CPU tensor to ``se_fill_ref``, the plain PyTorch
 transcription of the jnp code. ``se_fill.launches`` counts kernel launches.
+
+``se_fill_routed`` is K3's routed mode for the BBD estimator
+(``estimation/acse_bbd.py``): one state, and instead of the dense H one
+``[mr, 2ni + 2lb]`` matrix per block of the partition (its rows, its
+interior columns, its local border columns), scaled by W½, written through
+the row and column maps of an ``SeRoute``. It dispatches the same way, to
+``se_fill_routed_ref`` on the CPU, and counts its own launches in
+``se_fill_routed.launches``.
 """
 
 from __future__ import annotations
@@ -39,6 +47,30 @@ class SeFillTable(NamedTuple):
 
     idx: torch.Tensor   # i32[3, m]: type code, bus or from-bus, to-bus (-1)
     coef: torch.Tensor  # f64[5, m]: PiModel a, b, c, d and shift angle phi
+
+
+class SeRoute(NamedTuple):
+    """Where K3's routed mode writes, and the entry routing of the JAX
+    package's per-block H (``SeBbdArrays.hi_*``/``hb_*``) that its plain
+    version scatters through."""
+
+    row_block: torch.Tensor  # i32[m] block of each measurement row
+    row_slot: torch.Tensor   # i32[m] row slot inside its block
+    colmap: torch.Tensor     # i32[k, n] angle column of bus j in block b
+    ent_rows: torch.Tensor   # i64[E] measurement row of each H entry
+    hi_sel: torch.Tensor     # i64 entries on interior columns ...
+    hi_blk: torch.Tensor
+    hi_row: torch.Tensor
+    hi_col: torch.Tensor
+    hb_sel: torch.Tensor     # ... and on local border columns
+    hb_blk: torch.Tensor
+    hb_row: torch.Tensor
+    hb_col: torch.Tensor
+    mask_int: torch.Tensor   # f64[k, 2ni] 0 at the slack angle and pads
+    mask_lb: torch.Tensor    # f64[k, 2lb] the border mask in local slots
+    mr: int
+    ni: int
+    lb: int
 
 
 class SeFill(NamedTuple):
@@ -131,13 +163,15 @@ def _library() -> ctypes.CDLL:
     lib.se_fill_launch.argtypes = (
         [ptr] * 3 + [i32] + [ptr] * 11 + [i32] * 3 + [ptr])
     lib.se_fill_launch.restype = i32
+    lib.se_fill_routed_launch.argtypes = (
+        [ptr] * 3 + [i32] + [ptr] * 15 + [i32] * 7 + [ptr])
+    lib.se_fill_routed_launch.restype = i32
     lib.se_fill_error_string.argtypes = [i32]
     lib.se_fill_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(arr, net, vm, va, mean, jacobian: bool,
-            mask_slack: bool) -> SeFill:
+def _check_tables(arr, net) -> None:
     table = arr.desc
     for name, t, dtype in (("desc.idx", table.idx, torch.int32),
                            ("desc.coef", table.coef, torch.float64),
@@ -149,6 +183,12 @@ def _launch(arr, net, vm, va, mean, jacobian: bool,
                            ("net.diag", net.diag, torch.int32)):
         if t.dtype != dtype or not t.is_contiguous():
             raise TypeError(f"{name} must be contiguous {dtype}")
+
+
+def _launch(arr, net, vm, va, mean, jacobian: bool,
+            mask_slack: bool) -> SeFill:
+    _check_tables(arr, net)
+    table = arr.desc
     vm, va, mean = (t.contiguous() for t in (vm, va, mean))
     batch, n = vm.shape
     m = mean.shape[1]
@@ -170,6 +210,96 @@ def _launch(arr, net, vm, va, mean, jacobian: bool,
         raise RuntimeError("se_fill launch failed: "
                            + lib.se_fill_error_string(err).decode())
     se_fill.launches += 1
+    return SeFill(h, r, jac)
+
+
+def se_fill_routed(arr, net, route: SeRoute, vm, va, scale,
+                   block_lo: int = 0, block_hi: Optional[int] = None):
+    """h, residuals (``[m]``) and the routed per-block H (``[block_hi -
+    block_lo, mr, 2ni + 2lb]``, W½-scaled by ``scale``) at the state
+    ``vm``/``va`` (``[n]`` each) of the measurement set ``arr`` on the
+    network ``net``."""
+    k = route.colmap.shape[0]
+    block_hi = k if block_hi is None else block_hi
+    if not 0 <= block_lo <= block_hi <= k:
+        raise ValueError(f"blocks [{block_lo}, {block_hi}) outside [0, {k})")
+    _check_inputs(arr, net, vm[None], va[None], arr.mean[None])
+    if scale.shape != arr.mean.shape or scale.dtype != torch.float64:
+        raise ValueError("scale must be float64 of the shape of mean")
+    if vm.device.type == "cpu":
+        return se_fill_routed_ref(arr, net, route, vm, va, scale, block_lo,
+                                  block_hi)
+    if vm.device.type != "cuda":
+        raise ValueError(f"se_fill_routed runs on cuda or cpu tensors, not "
+                         f"{vm.device}")
+    return _launch_routed(arr, net, route, vm, va, scale, block_lo, block_hi)
+
+
+se_fill_routed.launches = 0
+
+
+def _launch_routed(arr, net, route: SeRoute, vm, va, scale, block_lo: int,
+                   block_hi: int) -> SeFill:
+    _check_tables(arr, net)
+    for name in ("row_block", "row_slot", "colmap"):
+        t = getattr(route, name)
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"SeRoute.{name} must be contiguous int32")
+    vm, va, scale = vm.contiguous(), va.contiguous(), scale.contiguous()
+    mean = arr.mean.contiguous()
+    n, m = vm.shape[0], mean.shape[0]
+    width = 2 * route.ni + 2 * route.lb
+    lib = _library()
+    out = torch.empty((2, m), dtype=torch.float64, device=vm.device)
+    h, r = out.unbind(0)
+    jac = torch.empty((block_hi - block_lo, route.mr, width),
+                      dtype=torch.float64, device=vm.device)
+    with torch.cuda.device(vm.device):
+        stream = torch.cuda.current_stream(vm.device).cuda_stream
+        err = lib.se_fill_routed_launch(
+            arr.desc.idx.data_ptr(), arr.desc.coef.data_ptr(),
+            arr.status.data_ptr(), int(arr.slack), net.row_ptr.data_ptr(),
+            net.cols.data_ptr(), net.yg.data_ptr(), net.yb.data_ptr(),
+            net.diag.data_ptr(), vm.data_ptr(), va.data_ptr(),
+            mean.data_ptr(), h.data_ptr(), r.data_ptr(),
+            route.row_block.data_ptr(), route.row_slot.data_ptr(),
+            route.colmap.data_ptr(), scale.data_ptr(),
+            jac.data_ptr() if jac.numel() else None, n, m, route.ni,
+            route.lb, route.mr, block_lo, block_hi, stream)
+    if err != 0:
+        raise RuntimeError("se_fill routed launch failed: "
+                           + lib.se_fill_error_string(err).decode())
+    se_fill_routed.launches += 1
+    return SeFill(h, r, jac)
+
+
+def se_fill_routed_ref(arr, net, route: SeRoute, vm, va, scale,
+                       block_lo: int = 0,
+                       block_hi: Optional[int] = None) -> SeFill:
+    """Plain PyTorch routed K3: ``h_entries`` times the row status, then
+    the JAX package's per-block scatter of ``_gains_block``
+    (acse_bbd.py:286-295) — interior entries at their slot, border entries
+    at 2ni + their local slot, each masked and times ``scale`` of its row.
+    The CPU path, and the check the routed kernel is held to on the
+    card."""
+    from ..estimation.acse import h_entries
+
+    k = route.colmap.shape[0]
+    block_hi = k if block_hi is None else block_hi
+    vals, h = h_entries(arr, net, vm, va)
+    r = arr.mean - h
+    vals = vals * arr.status[route.ent_rows]
+    jac = vm.new_zeros((block_hi - block_lo, route.mr,
+                        2 * route.ni + 2 * route.lb))
+    for sel, blk, row, col, mask, col0 in (
+            (route.hi_sel, route.hi_blk, route.hi_row, route.hi_col,
+             route.mask_int, 0),
+            (route.hb_sel, route.hb_blk, route.hb_row, route.hb_col,
+             route.mask_lb, 2 * route.ni)):
+        keep = (blk >= block_lo) & (blk < block_hi)
+        sel, blk, row, col = sel[keep], blk[keep], row[keep], col[keep]
+        v = vals[sel] * mask[blk, col] * scale[route.ent_rows[sel]]
+        jac.index_put_((blk - block_lo, row, col0 + col), v, accumulate=True)
     return SeFill(h, r, jac)
 
 

@@ -8,7 +8,8 @@ native f64, so there is no f32 factor and no refinement sweep.
 The ``kind`` tags (LU / KLU / QR / LL / LDLt) mirror the reference's
 factorization menu; KLU aliases LU and LDLt aliases LL (Cholesky).
 ``factorize``/``solve`` take a leading batch dimension as well: a fleet of
-scenario Jacobians factors in one batched call. ``pw_lsq_solve`` is the
+scenario Jacobians factors in one batched call, and ``batched_lu_solve2``
+factors the BBD interior blocks once for two solves. ``pw_lsq_solve`` is the
 Peters-Wilkinson least-squares solve of the state estimator's PW tag.
 """
 
@@ -18,6 +19,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import mark
 
 # Public factorization tags (API parity with the reference exports).
 LU = "LU"
@@ -92,6 +95,51 @@ def solve_columns(factor: DenseFactor, b: torch.Tensor) -> torch.Tensor:
         (c,) = factor.data
         return torch.cholesky_solve(b, c)
     raise ValueError(f"unknown factorization kind {factor.kind}")
+
+
+def lu_factor_blocks(a: torch.Tensor):
+    """f64 LU factors and pivots of each block of ``a`` (``[k, n, n]``);
+    raises ``torch.linalg.LinAlgError`` naming the first singular block.
+
+    On the CPU one batched call. On the card one cuSOLVER getrf per block,
+    each on a stream of its own: a getrf of a few thousand rows is bound by
+    its column-by-column latency, not by the card's rate, so the blocks'
+    factorizations overlap; PyTorch's batched call goes to MAGMA's batched
+    getrf, which is slower at these sizes (PERF.md, section 5). Either way
+    one readback of the factorizations' ``info`` follows."""
+    if a.device.type != "cuda":
+        lu, piv, info = torch.linalg.lu_factor_ex(a)
+    else:
+        lu = torch.empty_like(a)
+        piv = torch.empty(a.shape[:-1], dtype=torch.int32, device=a.device)
+        info = torch.empty(a.shape[:-2], dtype=torch.int32, device=a.device)
+        main = torch.cuda.current_stream(a.device)
+        streams = [torch.cuda.Stream(a.device) for _ in range(a.shape[0])]
+        for blk, lu_b, piv_b, info_b, side in zip(a, lu, piv, info, streams):
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                torch.linalg.lu_factor_ex(blk, out=(lu_b, piv_b, info_b))
+        for side in streams:
+            main.wait_stream(side)
+    singular = torch.nonzero(info).flatten().tolist()
+    if singular:
+        raise torch.linalg.LinAlgError(
+            f"lu_factor_blocks: block {singular[0]} is singular (U's "
+            f"diagonal element {int(info[singular[0]])} is zero)")
+    return lu, piv
+
+
+def batched_lu_solve2(a: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor):
+    """One f64 LU of each block of ``a`` (``[k, n, n]``) and two solves
+    against it: ``r1`` (``[k, n]`` or ``[k, n, m1]``) and ``r2``
+    (``[k, n, m2]``). The BBD interior step; the JAX package's VMEM switch
+    and its f32 factor with refinement sweeps are TPU-only and not ported."""
+    mark("interior LU")
+    lu, piv = lu_factor_blocks(a)
+    mark("interior solves")
+    vec = r1.dim() == a.dim() - 1
+    y1 = torch.linalg.lu_solve(lu, piv, r1.unsqueeze(-1) if vec else r1)
+    return (y1.squeeze(-1) if vec else y1), torch.linalg.lu_solve(lu, piv, r2)
 
 
 def pw_lsq_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

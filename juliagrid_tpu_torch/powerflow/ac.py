@@ -18,8 +18,9 @@ stop if the iteration limit is reached, otherwise solve and increment.
 
 The analysis object and its stepwise ``mismatch``/``solve`` also serve the
 fast decoupled (``fast_decoupled.py``) and Gauss-Seidel
-(``gauss_seidel.py``) methods; the BBD methods of the JAX package wait for
-ROADMAP item 11.
+(``gauss_seidel.py``) methods and the bordered-block-diagonal variants
+(``newton_bbd.py``, ``fast_decoupled.py``), which keep their own drivers
+(``power_flow_bbd``, ``power_flow_fnr_bbd``) as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,14 +39,6 @@ from ..system.model import model
 from ..system.types import PowerSystem
 from ..utils.errors import SlackDefinitionError
 from ..utils.profiling import Timings
-
-#: methods of the JAX package that the port does not run yet
-_NOT_PORTED = {
-    "newton_raphson_bbd": "ROADMAP item 11 (BBD scale path)",
-    "fast_newton_raphson_bbd_bx": "ROADMAP item 11 (BBD scale path)",
-    "fast_newton_raphson_bbd_xb": "ROADMAP item 11 (BBD scale path)",
-}
-
 
 #: method names of the fast decoupled analyses (``fast_decoupled.py``)
 FAST_DECOUPLED = ("fast_newton_raphson_bx", "fast_newton_raphson_xb")
@@ -222,7 +215,7 @@ class AcPowerFlow:
     system: PowerSystem
     voltage: Polar
     method: MethodState
-    arrays: NamedTuple     # AcArrays, FnrArrays or GsArrays, by method
+    arrays: NamedTuple     # AcArrays, FnrArrays, GsArrays or NrBbdArrays
     device: torch.device
     power: Optional[object] = None
     current: Optional[object] = None
@@ -233,10 +226,6 @@ class AcPowerFlow:
         system moved past the captured revision (reference acPowerFlow.jl:
         802-811, 890-895 decides rebuild vs refactorize; the dense path
         treats both as a snapshot refresh)."""
-        if self.method.name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{self.method.name} is not ported yet: "
-                f"{_NOT_PORTED[self.method.name]}")
         rev = self.system.model.revision
         sig = self.signature
         if sig and (sig.get("type") != rev.type
@@ -272,6 +261,15 @@ class AcPowerFlow:
             elif self.method.name == "gauss_seidel":
                 from .gauss_seidel import compile_gs_arrays
                 self.arrays = compile_gs_arrays(self.system, self.device)
+            elif self.method.name == "newton_raphson_bbd":
+                from .newton_bbd import compile_nr_bbd
+                self.arrays, self._bbd_layout = compile_nr_bbd(
+                    self.system, self._bbd_n_blocks, self.device)
+            elif self.method.name.startswith("fast_newton_raphson_bbd"):
+                from .fast_decoupled import compile_fnr_bbd
+                self.arrays, self._bbd_factors = compile_fnr_bbd(
+                    self.system, self.method.name.endswith("bx"),
+                    self._bbd_n_blocks, self.device)
             else:
                 self.arrays = compile_ac_arrays(self.system, self.device)
             sig["ac_model"] = rev.ac_model
@@ -369,7 +367,10 @@ def mismatch(analysis: AcPowerFlow):
         from .gauss_seidel import gs_mismatch
         return gs_mismatch(analysis)
     vm, va = analysis._state()
-    _, _, del_p, del_q = _mismatch(analysis.arrays, vm, va)
+    arr = analysis.arrays
+    _, _, del_p, del_q = _mismatch(
+        arr.net if analysis.method.name == "newton_raphson_bbd" else arr,
+        vm, va)
     del_p, del_q = torch.stack([del_p, del_q]).tolist()
     analysis.method.max_mismatch_active = del_p
     analysis.method.max_mismatch_reactive = del_q

@@ -14,19 +14,27 @@ two launches of K1 (``kernels/nr_fill.py``) without the Jacobian for the
 injections. The JAX package's f32 factor with three f64 refinement sweeps
 is not ported: the card factors in f64.
 
-The BBD variants (``fast_newton_raphson_bbd``) wait for ROADMAP item 11.
+The BBD variant (``fast_newton_raphson_bbd``, the large-network form)
+builds B' and B'' as scipy CSR on the host, cuts them into bordered
+block-diagonal form on the ``nd_partition`` of the Y-bus pattern, and
+factors them once in f64 (``ops/bbd.py::bbd_precompute``); its half-steps
+are ``bbd_presolved_solve`` calls, its mismatches K1 without the Jacobian.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from ..config import resolve_device
 from ..kernels.nr_fill import nr_fill
 from ..ops import linalg
+from ..ops.bbd import bbd_precompute, bbd_presolved_solve, build_bbd_arrays
+from ..ops.partition import nd_partition
 from ..system.model import model
 from ..system.types import PowerSystem
 from .ac import (AcPowerFlow, MethodState, Polar, compile_ac_arrays,
@@ -133,28 +141,33 @@ def _fnr_mismatch_pair(arr: FnrArrays, vm, va):
     return mp, mq, mp.abs().amax(), mq.abs().amax()
 
 
-def _fnr_half_steps(arr: FnrArrays, vm, va, mp):
+def _dense_solves(arr: FnrArrays):
+    """The half-step solvers of the dense path: the B' and B'' LU."""
+    return partial(linalg.solve, arr.bp), partial(linalg.solve, arr.bq)
+
+
+def _fnr_half_steps(arr, vm, va, mp, solves):
     """One iteration from the active mismatch ``mp`` at ``(vm, va)``: the
     P half-step, a fresh reactive mismatch at the new angles
-    (acPowerFlow.jl:959-970), the Q half-step."""
+    (acPowerFlow.jl:959-970), the Q half-step. ``solves`` is the pair of
+    B' and B'' solvers."""
+    solve_p, solve_q = solves
     n = vm.shape[0]
     not_slack = torch.arange(n, device=vm.device) != arr.slack
     is_pq = arr.bus_type == 1
-    va = va + torch.where(not_slack, linalg.solve(arr.bp, mp), 0.0)
+    va = va + torch.where(not_slack, solve_p(mp), 0.0)
     res = nr_fill(arr, vm[None], va[None], arr.p_sched[None],
                   arr.q_sched[None])
     mq = res.mq[0] / vm
-    vm = vm + torch.where(is_pq, linalg.solve(arr.bq, mq), 0.0)
+    vm = vm + torch.where(is_pq, solve_q(mq), 0.0)
     return vm, va
 
 
-def _fnr_solve(arr: FnrArrays, vm, va, tol: float, max_iter: int,
-               kind: str = "LU"):
-    """Full fast decoupled loop: per iteration two K1 launches, two
-    ``lu_solve`` calls and one scalar-pair readback. The count equals the
+def _fnr_loop(arr, vm, va, tol: float, max_iter: int, solves):
+    """Fast decoupled loop: per iteration two K1 launches, the two
+    half-step solves and one scalar-pair readback. The count equals the
     number of iterations, and convergence is judged on the freshly
-    recomputed mismatch. ``kind`` is accepted as the JAX package accepts
-    it: B' and B'' are LU-factored whatever it says."""
+    recomputed mismatch."""
     mp, _, del_p, del_q = _fnr_mismatch_pair(arr, vm, va)
     it = 0
     while True:
@@ -162,10 +175,18 @@ def _fnr_solve(arr: FnrArrays, vm, va, tol: float, max_iter: int,
         converged = del_p < tol and del_q < tol
         if converged or it >= max_iter:
             break
-        vm, va = _fnr_half_steps(arr, vm, va, mp)
+        vm, va = _fnr_half_steps(arr, vm, va, mp, solves)
         it += 1
         mp, _, del_p, del_q = _fnr_mismatch_pair(arr, vm, va)
     return vm, va, it, del_p, del_q, converged
+
+
+def _fnr_solve(arr: FnrArrays, vm, va, tol: float, max_iter: int,
+               kind: str = "LU"):
+    """The dense fast decoupled loop, on the B' and B'' LU factors.
+    ``kind`` is accepted as the JAX package accepts it: B' and B'' are
+    LU-factored whatever it says."""
+    return _fnr_loop(arr, vm, va, tol, max_iter, _dense_solves(arr))
 
 
 def fast_newton_raphson_bx(system: PowerSystem,
@@ -219,7 +240,102 @@ def fnr_solve_step(analysis: AcPowerFlow):
     """Reference solve! for the fast decoupled methods: one iteration."""
     vm, va = analysis._state()
     mp, _, _, _ = _fnr_mismatch_pair(analysis.arrays, vm, va)
-    vm, va = _fnr_half_steps(analysis.arrays, vm, va, mp)
+    vm, va = _fnr_half_steps(analysis.arrays, vm, va, mp,
+                             _dense_solves(analysis.arrays))
     analysis.voltage.magnitude = vm.cpu().numpy()
     analysis.voltage.angle = va.cpu().numpy()
     analysis.method.iteration += 1
+
+
+# ---------------------------------------------------------------------------
+# Fast decoupled on the BBD substrate (constant factors amortize perfectly)
+# ---------------------------------------------------------------------------
+
+def _fnr_matrices_sparse(system: PowerSystem, bx: bool):
+    """Sparse-CSR masked B'/B'' (the coefficients of ``_fnr_coefficients``)
+    for the BBD scale path: no dense n x n intermediate."""
+    n = system.bus.number
+    rows, cols, p_vals, q_vals = _fnr_coefficients(system, bx)
+    bp = sp.coo_matrix((p_vals, (rows, cols)), shape=(n, n)).tocsr()
+    bq = sp.coo_matrix((q_vals, (rows, cols)), shape=(n, n)).tocsr()
+    bq = bq + sp.diags(system.bus.shunt.susceptance.array[:n])
+
+    types = system.bus.layout.type.array[:n]
+    slack = system.bus.layout.slack
+    m_p = (np.arange(n) != slack).astype(np.float64)
+    m_q = (types == 1).astype(np.float64)
+    bp = sp.diags(m_p) @ bp @ sp.diags(m_p) + sp.diags(1.0 - m_p)
+    bq = sp.diags(m_q) @ bq @ sp.diags(m_q) + sp.diags(1.0 - m_q)
+    return bp.tocsr(), bq.tocsr()
+
+
+def compile_fnr_bbd(system: PowerSystem, bx: bool, n_blocks: int,
+                    device=None):
+    """The network snapshot and the BBD factors of B' and B'' on
+    ``device`` (default ``config.device``); shared by construction and the
+    signature refresh."""
+    dev = resolve_device(device)
+    model(system, "ac")
+    base = compile_ac_arrays(system, dev)
+    bp, bq = _fnr_matrices_sparse(system, bx)
+    # partition on the stored pattern (incl. structural zeros) so the
+    # B'/B'' entries — whose pattern is a subset of it — never cross blocks
+    nodal = system.model.ac.nodal.tocsr()
+    pattern = sp.csr_matrix(
+        (np.ones(nodal.nnz), nodal.indices, nodal.indptr), shape=nodal.shape)
+    block_of, border = nd_partition(pattern, n_blocks)
+    f_p = bbd_precompute(build_bbd_arrays(bp, block_of, border, dev))
+    f_q = bbd_precompute(build_bbd_arrays(bq, block_of, border, dev))
+    return base, (f_p, f_q)
+
+
+def fast_newton_raphson_bbd(system: PowerSystem, bx: bool = True,
+                            n_blocks: int = 4, device=None) -> AcPowerFlow:
+    """Fast decoupled power flow with B'/B'' factored once in BBD form —
+    the large-network variant of fast_newton_raphson_bx/xb — on ``device``
+    (default ``config.device``)."""
+    device = resolve_device(device)
+    system.check_slack()
+    magnitude, angle = initialize_ac_power_flow(system)
+    base, factors = compile_fnr_bbd(system, bx, n_blocks, device)
+    rev = system.model.revision
+    name = "fast_newton_raphson_bbd_bx" if bx \
+        else "fast_newton_raphson_bbd_xb"
+    analysis = AcPowerFlow(
+        system=system,
+        voltage=Polar(magnitude, angle),
+        method=MethodState(name),
+        arrays=base,
+        device=device,
+        signature={"ac_model": rev.ac_model, "ac_pattern": rev.ac_pattern,
+                   "type": rev.type, "injection": rev.injection,
+                   "slack": rev.slack},
+    )
+    analysis._bbd_factors = factors
+    analysis._bbd_n_blocks = n_blocks
+    return analysis
+
+
+def _fnr_bbd_solve(arr, f_p, f_q, vm, va, tol: float, max_iter: int):
+    """The fast decoupled loop on the precomputed BBD factors of B' and
+    B''."""
+    return _fnr_loop(arr, vm, va, tol, max_iter,
+                     (partial(bbd_presolved_solve, f_p),
+                      partial(bbd_presolved_solve, f_q)))
+
+
+def power_flow_fnr_bbd(analysis: AcPowerFlow, iteration: int = 30,
+                       tolerance: float = 1e-8):
+    """Driver for the BBD fast decoupled analysis."""
+    analysis._refresh_arrays()
+    f_p, f_q = analysis._bbd_factors
+    vm, va = analysis._state()
+    vm, va, it, del_p, del_q, conv = _fnr_bbd_solve(
+        analysis.arrays, f_p, f_q, vm, va, tolerance, iteration)
+    analysis.voltage.magnitude = vm.cpu().numpy()
+    analysis.voltage.angle = va.cpu().numpy()
+    analysis.method.iteration = it
+    analysis.method.converged = conv
+    analysis.method.max_mismatch_active = del_p
+    analysis.method.max_mismatch_reactive = del_q
+    return analysis

@@ -8,6 +8,12 @@ analysis and printable as a table. Driver code wraps its phases in
 Spans measure *host-observed* wall time: a CUDA launch returns before the
 device finishes, so drivers that want honest numbers end the span at a
 host readback (ours do — every iteration reads its mismatch back).
+
+Device stages measure the card's time instead: a solver calls
+``mark(name)`` where a stage begins, and inside a ``device_stages()`` block
+each mark records a CUDA event on the current stream, so the time from one
+mark to the next is the named stage's. Outside such a block ``mark`` does
+nothing.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from __future__ import annotations
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+
+import torch
 
 
 @dataclass
@@ -59,3 +67,40 @@ class Timings:
 #: process-wide default registry (drivers record here too, so a process's
 #: cumulative picture is one ``default_timings.report()`` away)
 default_timings = Timings()
+
+#: (name, CUDA event) of each mark while a ``device_stages()`` block records
+_marks: list | None = None
+
+
+def mark(name: str | None):
+    """Begin the device stage ``name`` (None: no stage) on the current
+    CUDA stream; it ends at the next mark. A no-op unless a
+    ``device_stages()`` block is recording."""
+    if _marks is not None:
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        _marks.append((name, event))
+
+
+@contextmanager
+def device_stages():
+    """Record the marks of the code inside; yields a dict that holds
+    ``{name: (count, total_ms)}`` of CUDA-event time once the block ends
+    (the last stage ends with the block)."""
+    global _marks
+    if _marks is not None:
+        raise RuntimeError("device_stages blocks do not nest")
+    out: dict = {}
+    _marks = []
+    try:
+        yield out
+    finally:
+        marks, _marks = _marks, None
+        mark_end = torch.cuda.Event(enable_timing=True)
+        mark_end.record()
+        torch.cuda.synchronize()
+        for (name, start), (_, stop) in zip(marks,
+                                            marks[1:] + [(None, mark_end)]):
+            if name is not None:
+                cnt, tot = out.get(name, (0, 0.0))
+                out[name] = (cnt + 1, tot + start.elapsed_time(stop))

@@ -129,8 +129,8 @@ def test_power_flow_refuses_unported_methods(data_path):
     with pytest.raises(NotImplementedError, match="Newton-Raphson"):
         jgt.power_flow(object())
     analysis = jgt.newton_raphson(system, device="cpu")
-    analysis.method.name = "newton_raphson_bbd"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    analysis.method.name = "newton_raphson_sparse"
+    with pytest.raises(ValueError, match="unknown method"):
         jgt.power_flow(analysis)
 
 
