@@ -9,16 +9,21 @@ It builds the port's CUDA kernels K1 (``nr_fill``), K3 (``se_fill``), K4
 (``gs_sweep``) and K5 (``schur_gather``) from the sources in the checkout and holds each against
 its plain PyTorch version. It drives the Newton-Raphson main path —
 ``power_system`` -> ``newton_raphson`` -> ``power_flow`` — on a 10,000-bus
-grid, checked against the independent scipy oracle, and a 1024-scenario
-case118 fleet (phases 1-4). Then the Gauss-Newton WLS state-estimation path
+grid, checked against the independent scipy oracle, a 1024-scenario
+case118 fleet and a case14 fleet with one singular scenario (phases 1-4).
+Then the Gauss-Newton WLS state-estimation path
 — ``measurement`` + ``add_*`` -> ``gauss_newton`` -> ``state_estimation`` —
 on a 1,369-bus grid against the scipy oracle and on case14/30 with every row
 type, and the Monte-Carlo SE fleets of bench configs 3 and 5b (phases 5-7).
-Then the rest of power flow: K4 against its plain version (phase 8), the
-Gauss-Seidel path — ``gauss_seidel`` -> ``power_flow`` — on case14/30/118
-against the JAX package's iteration counts and the port's Newton-Raphson
-(phase 9), and the DC path, the DC fleets, the fast decoupled path and the
-reactive limits against the scipy oracles and the port's CPU run (phase 10).
+Then the rest of power flow: K4 against its plain version on case14/30/118,
+the 10k and 25k grids and a grid with a 152-entry Y row, a launch of many
+sweeps against as many one-sweep launches, both voltage layouts (phase 8);
+the Gauss-Seidel path — ``gauss_seidel`` -> ``power_flow``, one K4 launch a
+solve — on case14/30/118 against the JAX package's iteration counts and the
+port's Newton-Raphson, and 5,000 sweeps on the 10k grid against the JAX
+package's mismatch (phase 9); and the DC path, the DC fleets, the fast
+decoupled path and the reactive limits against the scipy oracles and the
+port's CPU run (phase 10).
 Then the linear estimators (phase 11): DC state estimation on the 10k grid
 against ``oracle_dc``, with one planted wattmeter error found by
 ``chi_test`` and the dense ``residual_test`` on the card and gone after
@@ -111,6 +116,8 @@ from juliagrid_tpu_torch.powerflow.gauss_seidel import (_gs_solve, _to_rect,
                                                         compile_gs_arrays)
 from juliagrid_tpu_torch.powerflow.newton_bbd import _blocks, compile_nr_bbd
 from juliagrid_tpu_torch.report.log import suppress
+from juliagrid_tpu_torch.system.builders import (add_branch, add_bus,
+                                                 add_generator)
 from juliagrid_tpu_torch.utils.profiling import device_stages
 from juliagrid_tpu_torch.utils.synthetic import synthetic_grid
 
@@ -118,6 +125,9 @@ DATA = Path(__file__).resolve().parent / "tests" / "data"
 SEED = 0
 GRID = (100, 100)          # 10,000 buses
 FLEET = 1024               # case118 scenarios (bench config 1's shape)
+#: the JAX package's batched_nr_solve on case14 x4, the second scenario
+#: started at zero magnitudes: iterations and converged flags
+SINGULAR_FLEET = ([7, 20, 7, 7], [True, False, True, True])
 K1_REL_TOL = 1e-12         # |kernel - plain| <= tol * max(1, |plain|)
 SMALL_STATE_TOL = 1e-9     # case14/30 against the oracle
 GRID_STATE_TOL = 1e-8      # 10k grid against the oracle
@@ -133,7 +143,18 @@ SE_TOL = 1e-8              # GN max|dx| tolerance (state_estimation default)
 #: by tests/test_torch_powerflow_methods.py)
 GS_ITERATIONS = {"case14test": 281, "case30test": 761, "case118": 2111}
 GS_CAP = 5000              # power_flow(iteration=) of the Gauss-Seidel path
+#: the JAX package's _gs_solve on the 10k grid from its start, GS_10K_SWEEPS
+#: sweeps without converging: max|dP|, max|dQ| (f64 on the CPU)
+GS_10K_SWEEPS = 5000
+GS_10K_PAIR = (0.029414719534635925, 0.004503041625773047)
+#: GS contracts there: a start perturbed by 1e-15 moves the pair 9.4e-14 and
+#: 2.8e-13 (relative), and the port's level-by-level plain sweep, whose row
+#: sums round in another order, ends 5.3e-14 and 1.8e-13 away; 1e-10 leaves
+#: a margin of 500
+GS_10K_REL_TOL = 1e-10
 K4_REL_TOL = 1e-12         # |kernel - plain| <= tol * max(1, |plain|)
+K4_SWEEPS = 20             # sweeps of a split-checked K4 launch
+K4_TIMED_SWEEPS = 100      # sweeps of a timed K4 launch
 GS_NR_TOL = 1e-7           # Gauss-Seidel state against Newton-Raphson's
 DC_SMALL_TOL = 1e-10       # case14/30 DC, and fleet scenarios vs single
 FLEET_DC = 1024            # DC scenarios (bench config 2's shape)
@@ -184,6 +205,23 @@ def cuda_ms(fn, reps):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps):
+    """Device ms of one run of ``fn`` with the runs back to back: they are
+    queued behind a sleep kernel long enough for the host to enqueue them
+    all, so the host's launch path leaves no gap between them."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(500_000 * reps)   # ~0.25 ms of the card's clock a run
     start.record()
     for _ in range(reps):
         fn()
@@ -454,6 +492,35 @@ def phase4():
           f"{total} NR iterations (max {int(ker[2].max())}), state vs "
           f"nr_fill_ref {dstate!r}; NR iterations/s "
           + ", ".join(f"{name} {rate!r}" for name, rate in rates))
+    singular_fleet()
+
+
+def singular_fleet():
+    """Phase 4: case14 x4 with the second scenario started at zero
+    magnitudes (a singular Jacobian) gives the JAX package's counts and
+    flags, and the CPU run's states for the other three."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        analysis = newton_raphson(power_system(str(DATA / "case14test.m")),
+                                  device=device)
+        arr = analysis.arrays
+        vm, va = (x.expand(4, -1).clone() for x in analysis._state())
+        vm[1] = 0.0
+        runs.append(batched_nr_solve(arr, vm, va,
+                                     arr.p_sched.expand(4, -1).contiguous(),
+                                     arr.q_sched.expand(4, -1).contiguous()))
+    (vm, va, iters, conv), cpu = runs
+    counts, flags = SINGULAR_FLEET
+    check(iters.tolist() == counts and conv.tolist() == flags,
+          f"singular fleet: {iters.tolist()} iterations, converged "
+          f"{conv.tolist()}, JAX {counts}, {flags}")
+    good = [0, 2, 3]
+    dstate = max((vm[good].cpu() - cpu[0][good]).abs().max().item(),
+                 (va[good].cpu() - cpu[1][good]).abs().max().item())
+    check(dstate <= CARD_CPU_TOL, f"singular fleet: {dstate:.3e} off the CPU")
+    print(f"phase 4 case14 x4 with a singular scenario: iterations "
+          f"{iters.tolist()}, converged {conv.tolist()} (JAX {counts}, "
+          f"{flags}), good states vs the CPU run {dstate!r}")
 
 
 # --------------------------------------------------------------------------
@@ -823,91 +890,180 @@ def wrapped_max(a, b):
     return float(np.abs((d + np.pi) % (2 * np.pi) - np.pi).max())
 
 
+def hub_grid(leaves=150, seed=5):
+    """A slack, a PQ hub tied to it and to ``leaves`` buses on a ring
+    (every 7th a PV bus): the hub's Y row has leaves + 2 entries, wider
+    than four chunks of 32 (tests/test_torch_gs_sweep.py builds the same
+    grid in both packages)."""
+    rng = np.random.default_rng(seed)
+    system = power_system()
+    add_bus(system, label=1, type=3, magnitude=1.0, angle=0.0)
+    add_bus(system, label=2, type=1, active=0.02, reactive=0.01)
+    for k in range(leaves):
+        pv = k % 7 == 3
+        add_bus(system, label=k + 3, type=2 if pv else 1,
+                active=0.0 if pv else float(rng.uniform(0.002, 0.01)),
+                reactive=0.0 if pv else float(rng.uniform(0.0005, 0.003)))
+    add_branch(system, from_bus=1, to_bus=2, resistance=0.001,
+               reactance=0.01)
+    for k in range(leaves):
+        add_branch(system, from_bus=2, to_bus=k + 3,
+                   resistance=float(rng.uniform(0.01, 0.03)),
+                   reactance=float(rng.uniform(0.05, 0.15)),
+                   susceptance=0.01)
+        add_branch(system, from_bus=k + 3, to_bus=(k + 1) % leaves + 3,
+                   resistance=float(rng.uniform(0.02, 0.05)),
+                   reactance=float(rng.uniform(0.1, 0.2)))
+    add_generator(system, bus=1, active=0.5, magnitude=1.0)
+    for k in range(3, leaves, 7):
+        add_generator(system, bus=k + 3, active=0.01, magnitude=1.01)
+    return system
+
+
 def case_system(case):
     if case == "10k grid":
         return synthetic_grid(*GRID)
+    if case == "25k grid":
+        return synthetic_grid(*BBD_GRID)
+    if case == "hub grid":
+        return hub_grid()
     return power_system(str(DATA / f"{case}.m"))
 
 
-def compare_k4(label, arr, rng, plain_reps):
-    """Phase 8: K4 against gs_sweep_ref from a random state around the flat
-    start. ``plain_reps`` 0 times the compared run of the plain version
-    alone (about 10^5 small launches at 10k buses)."""
+def levels(arr):
+    """PQ and PV levels of one sweep."""
+    return arr.pq_ptr.numel() - 1 + arr.pv_ptr.numel() - 1
+
+
+def k4_same(a, b):
+    """Two K4 results equal bit for bit (state and mismatch)."""
+    return (torch.equal(a.vre, b.vre) and torch.equal(a.vim, b.vim)
+            and torch.equal(a.mismatch, b.mismatch))
+
+
+def k4_split_check(label, arr, vre, vim):
+    """One launch of K4_SWEEPS sweeps against as many one-sweep launches,
+    bit for bit."""
+    whole = k4.gs_sweep(arr, vre, vim, max_sweeps=K4_SWEEPS)
+    step = k4.gs_sweep(arr, vre, vim, max_sweeps=0)
+    for _ in range(K4_SWEEPS):
+        step = k4.gs_sweep(arr, step.vre, step.vim, max_sweeps=1)
+    check(k4_same(whole, step),
+          f"{label}: {K4_SWEEPS} sweeps in one launch differ from "
+          f"{K4_SWEEPS} launches")
+    return whole
+
+
+def compare_k4(label, arr, rng):
+    """Phase 8: one K4 sweep against gs_sweep_ref from a random state
+    around the flat start (the plain version timed on the compared run).
+    K4's time is a one-sweep launch made alone, the host's launch path in
+    it (``cuda_ms``, as every kernel of the ``kernels`` line); its device
+    time alone, and per sweep and per level from a launch of
+    K4_TIMED_SWEEPS sweeps against a launch of the mismatch alone, come
+    from launches queued back to back (``queued_ms``)."""
     n = arr.bus_type.numel()
     vm = 1.0 + 0.05 * rng.standard_normal(n)
     va = 0.1 * rng.standard_normal(n)
     vre, vim = (torch.tensor(x, device="cuda")
                 for x in (vm * np.cos(va), vm * np.sin(va)))
     got = k4.gs_sweep(arr, vre, vim)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    ref = k4.gs_sweep_ref(arr, vre, vim)
-    ev[1].record()
-    torch.cuda.synchronize()
-    worst_rel = worst_abs = 0.0
-    for name in ("vre", "vim", "mismatch"):
-        a, b = getattr(got, name), getattr(ref, name)
-        diff = (a - b).abs()
-        worst_abs = max(worst_abs, diff.max().item())
-        worst_rel = max(worst_rel,
-                        (diff / b.abs().clamp(min=1.0)).max().item())
+    plain_ms, ref = event_ms(lambda: k4.gs_sweep_ref(arr, vre, vim))
+    worst_abs, worst_rel = rel_err((got.vre, got.vim, got.mismatch),
+                                   (ref.vre, ref.vim, ref.mismatch))
     check(worst_rel <= K4_REL_TOL,
           f"{label}: K4 disagrees with gs_sweep_ref, rel {worst_rel:.3e}")
+    check(got.info[2:].tolist() == [1.0, 0.0],
+          f"{label}: K4 reports {got.info[2:].tolist()} for one sweep")
+    # a one-sweep launch reads the table three times: the mismatch, the
+    # sweep, the mismatch
     least = bound(tensor_bytes(arr.nb, arr.yre, arr.yim, arr.dre, arr.dim,
                                arr.bus_type, arr.p_sched, arr.q_sched,
-                               arr.vg, arr.pq, arr.pv, vre, vim, *got),
-                  arr.nb.numel() * K4_OPS_PER_ENTRY + n * K4_OPS_PER_BUS)
+                               arr.vg, arr.pq_order, arr.pq_ptr,
+                               arr.pv_order, arr.pv_ptr, vre, vim, *got),
+                  3 * arr.nb.numel() * K4_OPS_PER_ENTRY
+                  + n * K4_OPS_PER_BUS)
     ms = cuda_ms(lambda: k4.gs_sweep(arr, vre, vim), reps=20)
-    plain_ms = (cuda_ms(lambda: k4.gs_sweep_ref(arr, vre, vim),
-                        reps=plain_reps) if plain_reps
-                else ev[0].elapsed_time(ev[1]))
-    print(f"phase 8 {label} n={n} row width {arr.nb.shape[1]}: one sweep + "
+    device_ms = queued_ms(lambda: k4.gs_sweep(arr, vre, vim), reps=20)
+    mis_ms = queued_ms(lambda: k4.gs_sweep(arr, vre, vim, max_sweeps=0),
+                       reps=20)
+    many_ms = queued_ms(lambda: k4.gs_sweep(arr, vre, vim,
+                                            max_sweeps=K4_TIMED_SWEEPS),
+                        reps=3)
+    sweep_us = 1e3 * (many_ms - mis_ms) / K4_TIMED_SWEEPS
+    nlev = levels(arr)
+    cluster, distributed = k4._layout(0, n, arr.widest, nlev, None, None)
+    print(f"phase 8 {label} n={n} row width {arr.nb.shape[1]}, {nlev} "
+          f"levels (widest {arr.widest}), cluster {cluster} "
+          f"{'distributed' if distributed else 'replicated'}: one sweep + "
           f"mismatch, max abs diff {worst_abs!r}, max rel diff "
-          f"{worst_rel!r} (mismatch K4 {got.mismatch.tolist()!r}); K4 "
-          f"{ms!r} ms, gs_sweep_ref {plain_ms!r} ms per call; bound "
-          f"{least[0]!r} ms by {least[1]} (the dependent chain sets K4's "
-          "time)")
-    return worst_abs, ms, plain_ms, least
+          f"{worst_rel!r}; K4 {ms!r} ms launched alone, {device_ms!r} ms "
+          f"queued (mismatch alone {mis_ms!r} ms, "
+          f"{K4_TIMED_SWEEPS} sweeps {many_ms!r} ms: {sweep_us!r} us a sweep "
+          f"with its mismatch, {sweep_us / max(nlev, 1)!r} us a level), "
+          f"gs_sweep_ref {plain_ms!r} ms; bound {least[0]!r} ms by "
+          f"{least[1]} (the chain of levels sets K4's time)")
+    return worst_abs, ms, plain_ms, least, (vre, vim)
+
+
+def k4_nan_check(label, arr, vre, vim):
+    """K4 from the state with one bus NaN, three sweeps to TOL: NaN at the
+    buses gs_sweep_ref gives NaN, the other buses within K4_REL_TOL, a NaN
+    mismatch pair, the three sweeps done and no convergence, as in jnp."""
+    vre = vre.clone()
+    vre[vre.numel() // 2] = float("nan")
+    got = k4.gs_sweep(arr, vre, vim, max_sweeps=3, tol=TOL)
+    ref = k4.gs_sweep_ref(arr, vre, vim, max_sweeps=3, tol=TOL)
+    same = all(torch.equal(a.isnan(), b.isnan())
+               for a, b in ((got.vre, ref.vre), (got.vim, ref.vim)))
+    keep = ~ref.vre.isnan()
+    _, rel = rel_err((got.vre[keep], got.vim[keep]),
+                     (ref.vre[keep], ref.vim[keep]))
+    check(same and rel <= K4_REL_TOL and bool(got.mismatch.isnan().all())
+          and got.info[2:].tolist() == [3.0, 0.0],
+          f"{label}: K4 from a NaN bus differs from gs_sweep_ref (NaN "
+          f"buses alike {same}, rel {rel:.3e}, info {got.info.tolist()})")
+    print(f"phase 8 {label}: one bus NaN, 3 sweeps to {TOL}: NaN at the "
+          f"same {int((~keep).sum())} buses as gs_sweep_ref, the rest "
+          f"within {rel!r} rel, mismatch NaN, not converged")
 
 
 def phase8():
     rng = np.random.default_rng(SEED)
     worst = 0.0
     times = None
-    for case in ("case14test", "case30test", "case118", "10k grid"):
+    for case in ("case14test", "case30test", "case118", "10k grid",
+                 "25k grid", "hub grid"):
         arr = compile_gs_arrays(case_system(case), "cuda")
-        err, ms, plain_ms, least = compare_k4(
-            case, arr, rng, 0 if case == "10k grid" else 3)
+        err, ms, plain_ms, least, state = compare_k4(case, arr, rng)
         worst = max(worst, err)
         if case == "case118":
             times = (ms, plain_ms, least)
+            k4_nan_check(case, arr, *state)
+        if case in ("case118", "10k grid"):
+            whole = k4_split_check(case, arr, *state)
+            line = (f"phase 8 {case}: {K4_SWEEPS} sweeps in one launch = "
+                    f"{K4_SWEEPS} launches bit for bit")
+            if case == "10k grid":
+                # the other voltage layout: the same bits, its own time
+                other = k4._launch(arr, *state, K4_SWEEPS, 0.0,
+                                   distributed=True)
+                check(k4_same(whole, other),
+                      "10k grid: the distributed layout differs")
+                lay_ms = [cuda_ms(lambda d=d: k4._launch(
+                    arr, *state, K4_SWEEPS, 0.0, distributed=d),
+                    reps=3) for d in (False, True, True, False)]
+                line += (f"; distributed voltage the same bits; "
+                         f"{K4_SWEEPS} sweeps replicated, distributed, "
+                         f"distributed, replicated: "
+                         + ", ".join(f"{t!r} ms" for t in lay_ms))
+            print(line)
     return worst, times
 
 
-def gs_timed_run(arr, vm, va):
-    """The loop of ``_gs_solve`` with CUDA events around every K4 launch;
-    returns the iterations, K4's device ms in all and the loop's wall s."""
-    marks = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    vre, vim = _to_rect(vm, va)
-    sweep, it = False, 0
-    while True:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        res = k4.gs_sweep(arr, vre, vim, sweep=sweep)
-        ev[1].record()
-        marks.append(ev)
-        del_p, del_q = res.mismatch.tolist()
-        if (del_p < TOL and del_q < TOL) or it >= GS_CAP:
-            break
-        vre, vim, sweep = res.vre, res.vim, True
-        it += 1
-    wall = time.perf_counter() - t0
-    return it, sum(a.elapsed_time(b) for a, b in marks), wall
-
-
 def phase9():
+    """Gauss-Seidel ``power_flow`` on case14/30/118 in the JAX package's
+    counts, one K4 launch each; then 5,000 sweeps on the 10k grid."""
     total = 0
     for case in ("case14test", "case30test", "case118"):
         nr = newton_raphson(case_system(case), device="cuda")
@@ -922,8 +1078,8 @@ def phase9():
         it = analysis.method.iteration
         check(analysis.method.converged and it == GS_ITERATIONS[case],
               f"{case} GS: {it} iterations, JAX {GS_ITERATIONS[case]}")
-        check(launches == it + 1,
-              f"{case} GS: K4 launched {launches} times for {it} iterations")
+        check(launches == 1,
+              f"{case} GS: K4 launched {launches} times for one solve")
         dvm = float(np.abs(analysis.voltage.magnitude
                            - nr.voltage.magnitude).max())
         dva = wrapped_max(analysis.voltage.angle, nr.voltage.angle)
@@ -950,12 +1106,38 @@ def phase9():
             line += (f"; gs_sweep_ref loop {twin[2]} iterations, state "
                      f"{dtwin!r} away")
         else:
-            runs, k4_ms, wall = gs_timed_run(analysis.arrays, vm0, va0)
-            check(runs == it, f"{case} GS: the timed loop took {runs}")
-            line += (f"; timed loop {wall!r} s: {1e3 * wall / (it + 1)!r} ms "
-                     f"per iteration, K4 {k4_ms / (it + 1)!r} ms per launch "
-                     f"({k4_ms / (1e3 * wall)!r} of the loop's wall)")
+            arr = analysis.arrays
+            k4_ms, res = event_ms(lambda: k4.gs_sweep(
+                arr, *_to_rect(vm0, va0), max_sweeps=GS_CAP, tol=TOL))
+            wall, out = wall_s(lambda: _gs_solve(arr, vm0, va0, TOL, GS_CAP))
+            check(out[2] == it and int(res.info[2]) == it,
+                  f"{case} GS: the timed solve took {out[2]}")
+            line += (f"; _gs_solve wall {wall!r} s, its K4 launch "
+                     f"{k4_ms!r} ms ({1e3 * k4_ms / (it + 1)!r} us a sweep "
+                     f"with its mismatch, {k4_ms / (1e3 * wall)!r} of the "
+                     "wall)")
         print(line)
+
+    analysis = gauss_seidel(case_system("10k grid"), device="cuda")
+    k4.gs_sweep.launches = 0
+    seconds, _ = wall_s(lambda: power_flow(analysis,
+                                           iteration=GS_10K_SWEEPS))
+    launches = k4.gs_sweep.launches
+    total += launches
+    pair = (analysis.method.max_mismatch_active,
+            analysis.method.max_mismatch_reactive)
+    rel = max(abs(a - b) / b for a, b in zip(pair, GS_10K_PAIR))
+    check(analysis.method.iteration == GS_10K_SWEEPS
+          and not analysis.method.converged and launches == 1,
+          f"10k grid GS: {analysis.method.iteration} sweeps, converged "
+          f"{analysis.method.converged}, {launches} launches")
+    check(rel <= GS_10K_REL_TOL,
+          f"10k grid GS: mismatch {pair} against the JAX package's "
+          f"{GS_10K_PAIR}, rel {rel:.3e}")
+    print(f"phase 9 10k grid Gauss-Seidel: {GS_10K_SWEEPS} sweeps, not "
+          f"converged, mismatch {pair!r} (JAX {GS_10K_PAIR!r}, rel {rel!r}), "
+          f"K4 launches {launches}; power_flow wall {seconds!r} s, "
+          f"{1e3 * seconds / GS_10K_SWEEPS!r} ms a sweep")
     return total
 
 
@@ -1508,6 +1690,17 @@ def compare_k1_routed(label, arr, rng):
     return worst_abs, ms, plain_ms, least
 
 
+def k5_bound(route):
+    """K5's least time on ``route``: it reads each real contribution and
+    part once (not the pad slots, nor its own gather tables: bsel alone
+    says where each goes), the border block and right-hand side, and
+    writes the border system."""
+    sources = route.mat_src.numel() + route.rhs_src.numel()
+    border = 8 * (route.nb * route.nb + route.nb)
+    return bound(8 * sources + tensor_bytes(route.bsel) + 2 * border,
+                 2 * sources)
+
+
 def compare_k5(label, route):
     """Phase 13: K5 against schur_gather_ref and one index_put_ on random
     contributions of the layout's shapes (sign -1 and a border base, as the
@@ -1529,11 +1722,7 @@ def compare_k5(label, route):
     check(worst_rel <= K5_REL_TOL,
           f"{label}: K5 disagrees with schur_gather_ref, rel {worst_rel:.3e}")
     sources = route.mat_src.numel() + route.rhs_src.numel()
-    # the function reads each real contribution and part once (not the pad
-    # slots, nor K5's own gather tables: bsel alone says where each goes),
-    # the border block and right-hand side, and writes the border system
-    least = bound(8 * sources + tensor_bytes(route.bsel, a_bb, r_bb, *got),
-                  2 * sources)
+    least = k5_bound(route)
     del got, ref
     ms = cuda_ms(lambda: k5.schur_gather(route, contrib, parts, a_bb, r_bb,
                                          -1.0), reps=20)
@@ -1815,6 +2004,16 @@ def zero_noise_run(label, nr, rng):
                       perturbed(nr.system, vm, va, rng))
 
 
+def print_k5_bound(label, route):
+    """Phase 15: K5's bound at an SE layout (its time per increment is in
+    the stage split)."""
+    k, width = route.bsel.shape
+    least = k5_bound(route)
+    print(f"phase 15 {label} BBD SE K5: k={k}, L={width}, nb={route.nb}, "
+          f"{route.mat_src.numel() + route.rhs_src.numel()} sources; bound "
+          f"{least[0]!r} ms by {least[1]}")
+
+
 def phase15(nr_bbd):
     rng = np.random.default_rng(SEED)
     # the 1,369-bus set of phase 6 (no correlated pairs) against the dense
@@ -1828,6 +2027,7 @@ def phase15(nr_bbd):
         label, mon, SE_BBD_BLOCKS,
         (dense.voltage.magnitude, dense.voltage.angle,
          dense.method.iteration), BBD_DENSE_TOL)
+    print_k5_bound(label, se._bbd.schur)
     k3r = compare_k3_routed(label, se._bbd, se._bbd_layout, *se._state())
     # the gain stage over chunks of blocks, as where the card's memory asks
     # for it, gives the increment of one pass
@@ -1846,6 +2046,7 @@ def phase15(nr_bbd):
     # the zero-noise sets from the phase-14 BBD NR solutions
     for label, nr in zip(("10k", "25k"), nr_bbd):
         se, counts = zero_noise_run(label, nr, rng)
+        print_k5_bound(label, se._bbd.schur)
         launches = [a + b for a, b in zip(launches, counts)]
         if label == "25k":
             vm, va = (torch.tensor(x, device="cuda") for x in perturbed(

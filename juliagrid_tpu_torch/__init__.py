@@ -6,7 +6,7 @@ hand-written CUDA kernel (``kernels/csrc/nr_fill.cu``) for the injections,
 mismatch and Jacobian fill, and ``torch.linalg`` for the f64 solve; the
 fast decoupled power flow through the same kernel and two f64 LU factors
 made once; the Gauss-Seidel power flow through a third
-(``kernels/csrc/gs_sweep.cu``), which runs a whole sweep in one launch; the
+(``kernels/csrc/gs_sweep.cu``), which runs a whole solve in one launch; the
 DC power flow through one f64 solve. The Gauss-Newton WLS AC state
 estimation runs through a fourth (``kernels/csrc/se_fill.cu``) for the
 measurement functions and Jacobian, then an f64 gain matmul and Cholesky;

@@ -1,22 +1,21 @@
 """Network and measurement state carried across: numpy arrays to the port's
 device snapshots.
 
-``ac_arrays_from_numpy`` takes the fields of an ``AcArrays`` as numpy
-arrays — from the port's own host layer, or ``np.asarray`` of each field of
-the JAX package's ``AcArrays`` — and places them on a torch device with the
-CSR row offsets K1 needs. ``dc_arrays_from_numpy``,
-``fnr_arrays_from_numpy`` and ``gs_arrays_from_numpy`` do the same for the
-``DcArrays``, ``FnrArrays`` (whose masked B' and B'' they factor in f64)
-and ``GsArrays`` (to which they add the PQ and PV bus lists of K4's two
-passes). ``se_arrays_from_numpy`` does the same for the
-measurement-row IR: it takes an ``SeArrays`` host mirror (the port's, or
-the JAX package's from ``compile_se_arrays(..., return_host=True)``) and
-adds K3's descriptor table. ``nr_bbd_arrays_from_numpy`` and
-``se_bbd_arrays_from_numpy`` take the routing tables of the JAX package's
-``NrBbdArrays`` and ``SeBbdArrays`` (under their field names) and derive
-from them what the port's BBD paths read: K1's and K3's routed-mode tables,
-K5's gather tables and each bus's place in the block layout.
-``dcse_arrays_from_numpy`` and
+``ac_arrays_from_numpy`` takes the fields of an ``AcArrays`` as numpy arrays
+— from the port's own host layer, or ``np.asarray`` of each field of the JAX
+package's ``AcArrays`` — and places them on a torch device with the CSR row
+offsets K1 needs. ``dc_arrays_from_numpy``, ``fnr_arrays_from_numpy`` and
+``gs_arrays_from_numpy`` do the same for the ``DcArrays``, ``FnrArrays``
+(whose masked B' and B'' they factor in f64) and ``GsArrays`` (to which they
+add the PQ and PV bus lists of the sequential sweep and K4's level
+schedule). ``se_arrays_from_numpy`` does the same for the measurement-row
+IR: it takes an ``SeArrays`` host mirror (the port's, or the JAX package's
+from ``compile_se_arrays(..., return_host=True)``) and adds K3's descriptor
+table. ``nr_bbd_arrays_from_numpy`` and ``se_bbd_arrays_from_numpy`` take
+the routing tables of the JAX package's ``NrBbdArrays`` and ``SeBbdArrays``
+(under their field names) and derive from them what the port's BBD paths
+read: K1's and K3's routed-mode tables, K5's gather tables and each bus's
+place in the block layout. ``dcse_arrays_from_numpy`` and
 ``pmuse_arrays_from_numpy`` take the fields of the JAX package's
 ``DcSeArrays`` and ``PmuSeArrays`` (dense H included) for the linear
 estimators. Feeding both packages the same arrays lets a test compare their
@@ -39,7 +38,7 @@ from .ops import linalg
 from .powerflow.ac import AcArrays, check_entry_list
 from .powerflow.dc import DcArrays
 from .powerflow.fast_decoupled import FnrArrays
-from .powerflow.gauss_seidel import GsArrays
+from .powerflow.gauss_seidel import GsArrays, level_schedule, row_counts
 
 
 def ac_arrays_from_numpy(*, rows, cols, yg, yb, diag, bus_type, slack,
@@ -107,9 +106,13 @@ def fnr_arrays_from_numpy(*, rows, cols, yg, yb, diag, bus_type, slack,
 def gs_arrays_from_numpy(*, nb, yre, yim, dre, dim, bus_type, slack,
                          p_sched, q_sched, vg, device=None) -> GsArrays:
     """``GsArrays`` on ``device`` (default ``config.device``) from numpy,
-    with the ascending PQ and PV bus lists K4 walks."""
+    with the ascending PQ and PV bus lists of the sequential sweep and the
+    level schedule K4 walks (``gauss_seidel.level_schedule``)."""
     dev = resolve_device(device)
     bus_type = np.asarray(bus_type, dtype=np.int32)
+    counts = row_counts(nb)
+    pq_order, pq_ptr = level_schedule(nb, counts, bus_type, 1)
+    pv_order, pv_ptr = level_schedule(nb, counts, bus_type, 2)
 
     def i32(a):
         return torch.tensor(np.asarray(a, dtype=np.int32), device=dev)
@@ -122,7 +125,11 @@ def gs_arrays_from_numpy(*, nb, yre, yim, dre, dim, bus_type, slack,
         bus_type=i32(bus_type), slack=int(slack), p_sched=f64(p_sched),
         q_sched=f64(q_sched), vg=f64(vg),
         pq=i32(np.flatnonzero(bus_type == 1)),
-        pv=i32(np.flatnonzero(bus_type == 2)))
+        pv=i32(np.flatnonzero(bus_type == 2)),
+        pq_order=i32(pq_order), pq_ptr=i32(pq_ptr),
+        pv_order=i32(pv_order), pv_ptr=i32(pv_ptr),
+        widest=int(max(np.diff(pq_ptr).max(initial=0),
+                       np.diff(pv_ptr).max(initial=0))))
 
 
 def _f64(a, dev) -> torch.Tensor:

@@ -61,14 +61,20 @@ def mask_identity(a: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     return a
 
 
-def factorize(a: torch.Tensor, kind: str = LU) -> DenseFactor:
+def factorize(a: torch.Tensor, kind: str = LU,
+              check: bool = True) -> DenseFactor:
     """Factorize ``a`` (``[..., n, n]``) in f64.
 
     Mirrors reference ``factorization``; the dense path has no symbolic
     phase, so ``factorization!`` (numeric-only refresh) also lands here.
+    An LU raises on a singular matrix unless ``check`` is off: then a
+    singular member of a batch factors as it comes out (a zero pivot), its
+    solves give inf or NaN, and the others are untouched.
     """
     kind = {KLU: LU, LDLT: LL}.get(kind, kind)
     if kind == LU:
+        if not check:
+            return DenseFactor(LU, tuple(torch.linalg.lu_factor_ex(a)[:2]))
         return DenseFactor(LU, tuple(torch.linalg.lu_factor(a)))
     if kind == QR:
         return DenseFactor(QR, tuple(torch.linalg.qr(a)))

@@ -5,7 +5,7 @@ The reference runs scenario studies by re-running scripts. Here the scenario
 axis is a leading tensor dimension: K1 and K3 run with scenarios on their
 launch grids (one warp per scenario and bus, or scenario and measurement
 row), the NR Jacobians factor in one batched f64
-``torch.linalg.lu_factor``/``lu_solve``, the SE gains form in one
+``torch.linalg.lu_factor_ex``/``lu_solve``, the SE gains form in one
 batched matmul and factor in one batched f64 Cholesky, and the DC fleet
 shares one factorization of B and solves every scenario in one call.
 """
@@ -30,7 +30,10 @@ def batched_nr_solve(arr: AcArrays, vm0, va0, p_sched, q_sched,
     pattern/values) is shared. All scenarios iterate in lockstep until every
     scenario converges or hits the cap; only scenarios still active advance,
     each with its own iteration count — the batched equivalent of the
-    reference driver loop. Returns (vm, va, iterations, converged).
+    reference's iteration loop. Returns (vm, va, iterations, converged). A
+    scenario whose Jacobian is singular does not stop the fleet: its state
+    turns to inf or NaN, which never converges, and it runs to the cap as
+    in the JAX package.
     ``fill`` exists so a check can run the same loop on ``nr_fill_ref``;
     the main path never passes it.
     """
@@ -41,7 +44,7 @@ def batched_nr_solve(arr: AcArrays, vm0, va0, p_sched, q_sched,
     iters = torch.zeros(vm.shape[0], dtype=torch.int32, device=vm.device)
     it = 0
     while it < max_iter and bool(active.any()):
-        vm_new, va_new = _nr_update(arr, vm, va, res, "LU")
+        vm_new, va_new = _nr_update(arr, vm, va, res, "LU", check=False)
         vm = torch.where(active[:, None], vm_new, vm)
         va = torch.where(active[:, None], va_new, va)
         iters += active.to(iters.dtype)

@@ -145,14 +145,16 @@ def _max_mismatch(res: NrFill):
     return torch.stack([res.mp.abs().amax(-1), res.mq.abs().amax(-1)], -1)
 
 
-def _nr_update(arr: AcArrays, vm, va, res: NrFill, kind: str):
+def _nr_update(arr: AcArrays, vm, va, res: NrFill, kind: str,
+               check: bool = True):
     """Newton step for ``[B, n]`` states from K1's output at those states.
 
     The right-hand side needs no mask: K1's mismatch is already zero at the
-    slack angle and at non-PQ magnitudes (rhs * m of ac.py:176)."""
+    slack angle and at non-PQ magnitudes (rhs * m of ac.py:176). A singular
+    Jacobian raises unless ``check`` is off (``linalg.factorize``)."""
     n = vm.shape[-1]
     rhs = torch.cat([res.mp, res.mq], dim=-1)
-    dx = linalg.solve(linalg.factorize(res.jac, kind), rhs)
+    dx = linalg.solve(linalg.factorize(res.jac, kind, check), rhs)
     not_slack, is_pq = _masks(arr, n)
     va_new = va - torch.where(not_slack, dx[..., :n], 0.0)
     vm_new = vm - torch.where(is_pq, dx[..., n:], 0.0)

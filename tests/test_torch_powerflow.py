@@ -12,7 +12,7 @@ import juliagrid_tpu_torch as jgt
 from juliagrid_tpu.parallel.batch import batched_nr_solve_jit
 from juliagrid_tpu_torch.parallel import batched_nr_solve
 from juliagrid_tpu_torch.postprocessing.ac import current as ac_current
-from juliagrid_tpu_torch.powerflow.ac import mismatch, solve
+from juliagrid_tpu_torch.powerflow.ac import _nr_solve, mismatch, solve
 
 from .utils import assert_bus_balance, assert_power, assert_voltage, h5group
 
@@ -164,6 +164,35 @@ def test_batched_nr_solve_matches_jax(data_path, spread):
     for g, w in zip(got[:2], want[:2]):
         np.testing.assert_allclose(g.numpy()[conv], np.asarray(w)[conv],
                                    **STATE_TOL)
+
+
+def test_batched_nr_solve_survives_a_singular_scenario(data_path):
+    """Four case14 scenarios, the second started at zero magnitudes so its
+    Jacobian is singular: it runs to the cap unconverged, as in the JAX
+    package, and the three others converge to the JAX package's states."""
+    path = str(data_path / "case14test.m")
+    ref = jg.newton_raphson(jg.power_system(path))
+    arr = jgt.newton_raphson(jgt.power_system(path), device="cpu").arrays
+    vm0 = np.tile(ref.voltage.magnitude, (4, 1))
+    vm0[1, :] = 0.0
+    va0 = np.tile(ref.voltage.angle, (4, 1))
+    ps = np.tile(np.asarray(ref.arrays.p_sched), (4, 1))
+    qs = np.tile(np.asarray(ref.arrays.q_sched), (4, 1))
+    want = batched_nr_solve_jit(ref.arrays, *(jnp.asarray(x)
+                                              for x in (vm0, va0, ps, qs)),
+                                tol=1e-8, max_iter=20)
+    got = batched_nr_solve(arr, *(torch.from_numpy(x)
+                                  for x in (vm0, va0, ps, qs)))
+    assert got[2].tolist() == np.asarray(want[2]).tolist() == [7, 20, 7, 7]
+    assert got[3].tolist() == np.asarray(want[3]).tolist() == [True, False,
+                                                               True, True]
+    good = [0, 2, 3]
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.numpy()[good], np.asarray(w)[good],
+                                   **STATE_TOL)
+    with pytest.raises(RuntimeError, match="zero"):
+        _nr_solve(arr, torch.from_numpy(vm0[1]), torch.from_numpy(va0[1]),
+                  1e-8, 20, "LU")
 
 
 def test_iteration_cap_matches_jax(data_path):
