@@ -6,11 +6,12 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels K1 (``nr_fill``), K3 (``se_fill``), K4
-(``gs_sweep``) and K5 (``schur_gather``) from the sources in the checkout and holds each against
-its plain PyTorch version. It drives the Newton-Raphson main path —
-``power_system`` -> ``newton_raphson`` -> ``power_flow`` — on a 10,000-bus
-grid, checked against the independent scipy oracle, a 1024-scenario
-case118 fleet and a case14 fleet with one singular scenario (phases 1-4).
+(``gs_sweep``) and K5 (``schur_gather``) from the sources in the checkout
+and holds each against its plain PyTorch version. It drives the
+Newton-Raphson main path — ``power_system`` -> ``newton_raphson`` ->
+``power_flow`` — on a 10,000-bus grid, checked against the independent
+scipy oracle, a 1024-scenario case118 fleet and a case14 fleet with one
+singular scenario (phases 1-4).
 Then the Gauss-Newton WLS state-estimation path
 — ``measurement`` + ``add_*`` -> ``gauss_newton`` -> ``state_estimation`` —
 on a 1,369-bus grid against the scipy oracle and on case14/30 with every row
@@ -44,10 +45,22 @@ the 24,964-bus ``synthetic_grid(158, 158)`` against ``oracle_nr``, and
 14); K3's routed mode against its plain version, ``gauss_newton_bbd`` ->
 ``se_bbd_solve`` on the 1,369-bus set against the dense estimate (and in
 chunks of blocks against one pass), and the 10k and 25k zero-noise sets
-reproducing the phase-14 states (phase 15). Every phase prints its lines
-and times; any failure exits non-zero. The large grids are
-``synthetic_grid``s: ACTIVSg10k and case1354pegase ship as HDF5 and the
-card's machine has no h5py.
+reproducing the phase-14 states (phase 15). Then the interior point
+(phase 16): ``dc_optimal_power_flow`` -> ``power_flow`` on case14/30
+against the port's CPU run; case118 and the real ACTIVSg10k grid with the
+distinct linear costs of tests/test_opf_anchor.py against an LP assembled
+from raw data in scipy sparse matrices and solved by HiGHS (every flow and
+angle limit included); ACTIVSg10k with its own costs, its dispatch checked
+for bus balance and every limit from raw data, with the per-iteration
+split of the card's time and the peak memory; case1354pegase against the
+CPU run (objective and feasibility: one cost for all its generators leaves
+the dispatch free) and, with the anchor's costs, against HiGHS; DC, PMU
+and AC LAV (``state_estimation`` on the ``*_lav_*``
+analyses; AC through K3) reproducing the case14test power flow, and bench
+config 4's case118 AC LAV against the CPU run. Every phase prints its lines
+and times; any failure exits non-zero. The 10k and 25k NR/SE grids are
+``synthetic_grid``s; phase 16 loads ACTIVSg10k and case1354pegase from
+their numpy-only ``.npz`` snapshots (the card's machine has no h5py).
 
 The second-last lines are the card's ``nvidia-smi`` name and power limit
 and a JSON object with each kernel's launches on the main paths, error
@@ -79,6 +92,10 @@ from juliagrid_tpu_torch import (add_ammeter, add_pmu, add_varmeter,
                                  state_estimation, update_voltmeter,
                                  update_wattmeter)
 from juliagrid_tpu_torch import newton_raphson_bbd, power_flow_bbd
+from juliagrid_tpu_torch import (ac_lav_state_estimation, cost,
+                                 dc_lav_state_estimation,
+                                 dc_optimal_power_flow,
+                                 pmu_lav_state_estimation)
 from juliagrid_tpu_torch.convert import (dcse_arrays_from_numpy,
                                          pmuse_arrays_from_numpy)
 from juliagrid_tpu_torch.estimation.acse_bbd import (_block_chunk,
@@ -175,6 +192,17 @@ BBD_BLOCKS = 16            # BBD blocks of the 10k and 25k grids
 SE_BBD_BLOCKS = 8          # BBD blocks of the 1,369-bus SE (the default)
 K5_REL_TOL = 1e-12         # |kernel - plain| <= tol * max(1, |plain|)
 BBD_DENSE_TOL = 1e-9       # 10k BBD NR vs the dense NR; BBD SE vs dense SE
+OPF_10K = "case_ACTIVSg10k.npz"     # phase 16's full width (numpy snapshot)
+OPF_PEGASE = "case1354pegase.npz"
+OPF_SMALL_TOL = 1e-8       # case14/30 DC OPF angles and dispatch, card vs CPU
+LP_OBJ_RTOL = 1e-7         # DC OPF objective vs HiGHS (the anchor's rtol)
+LP_OBJ_RTOL_LOOSE = 1e-6   # ... when the 10k LP stops acceptable
+LP_PG_ATOL_118, LP_PG_ATOL_10K = 2e-6, 1e-5  # dispatch vs HiGHS
+FEAS_BALANCE_TOL = 1e-8    # 10k own-cost dispatch: bus balance (p.u.)
+FEAS_LIMIT_TOL = 1e-7      # ... capability, flow and angle limits
+PEGASE_OBJ_RTOL, PEGASE_PG_TOL = 1e-7, 1e-6  # pegase vs CPU / HiGHS
+LAV_DC_TOL, LAV_PMU_TOL, LAV_AC_TOL = 1e-6, 1e-6, 1e-5  # vs the power flow
+LAV_CARD_CPU_TOL = 1e-7    # config 4's AC LAV, card vs CPU
 #: published peaks of the card (NVIDIA data sheet, H100 SXM, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 67e12
@@ -2058,6 +2086,360 @@ def phase15(nr_bbd):
     return (err, *k3r_25k[1:]), launches
 
 
+# --------------------------------------------------------------------------
+# Interior point: DC optimal power flow and LAV state estimation (phase 16)
+# --------------------------------------------------------------------------
+
+def opf_solve(system, device, stages=False):
+    """``dc_optimal_power_flow`` -> ``power_flow(power=True)`` on
+    ``device``: the analysis, its wall (s) and, with ``stages``, the
+    card's time by ``ipm``'s stages (``device_stages``) and the peak
+    device memory (bytes)."""
+    analysis = dc_optimal_power_flow(system, device=device)
+    if device == "cpu":
+        t0 = time.perf_counter()
+        power_flow(analysis, power=True)
+        return analysis, time.perf_counter() - t0, None, None
+    torch.cuda.reset_peak_memory_stats()
+    if stages:
+        with device_stages() as split:
+            wall, _ = wall_s(lambda: power_flow(analysis, power=True))
+    else:
+        split = None
+        wall, _ = wall_s(lambda: power_flow(analysis, power=True))
+    return analysis, wall, split, torch.cuda.max_memory_allocated()
+
+
+def opf_line(label, analysis, wall):
+    res = analysis.method.result
+    return (f"{label}: status {res.status}, {res.iterations} iterations, "
+            f"objective {res.objective!r}, KKT error {res.kkt_error!r}, "
+            f"power_flow(power=True) {wall!r} s")
+
+
+def linear_costs(system, seed=11):
+    """Every generator's cost replaced by a distinct linear curve (the
+    anchor of tests/test_opf_anchor.py), so the DC OPF is an LP."""
+    rng = np.random.default_rng(seed)
+    g = system.generator.number
+    c1 = 20.0 + 30.0 * rng.random(g)
+    for i in range(g):
+        cost(system, system.generator.label.label(i), active=2,
+             polynomial=[float(c1[i]), 5.0])
+    return c1
+
+
+def dc_network(system):
+    """The DC network from raw branch data (reactance, tap, shift), apart
+    from the port's model: in-service branch ends, admittances, shifts,
+    the branch-bus incidence ``a`` (+1 at the from bus) and the flows'
+    constant part."""
+    from scipy import sparse
+    n, br = system.bus.number, system.branch
+    m = br.number
+    on = np.flatnonzero(br.layout.status.array[:m] == 1)
+    f = br.layout.from_bus.array[:m][on]
+    t = br.layout.to_bus.array[:m][on]
+    tau = br.parameter.turns_ratio.array[:m][on].copy()
+    tau[tau == 0.0] = 1.0
+    adm = 1.0 / (br.parameter.reactance.array[:m][on] * tau)
+    phi = br.parameter.shift_angle.array[:m][on]
+    k = len(on)
+    a = sparse.csr_matrix((np.r_[np.ones(k), -np.ones(k)],
+                           (np.r_[np.arange(k), np.arange(k)], np.r_[f, t])),
+                          shape=(k, n))
+    return on, f, t, adm, phi, a
+
+
+def dc_limits(system, on):
+    """The limited branch flows and angle differences of the DC OPF model:
+    a branch's flow rows when a bound is nonzero and finite, its angle rows
+    when a bound is meaningful (not 0 or ±2π)."""
+    br = system.branch
+    m = br.number
+    lo, hi = br.flow.min_from_bus.array[:m][on], br.flow.max_from_bus.array[
+        :m][on]
+    flow = ((lo != 0) & np.isfinite(lo)) | ((hi != 0) & np.isfinite(hi))
+    alo = br.voltage.min_diff_angle.array[:m][on]
+    ahi = br.voltage.max_diff_angle.array[:m][on]
+    two_pi = 2 * np.pi
+    ang = ((np.isfinite(alo) & (alo != 0) & (alo != -two_pi))
+           | (np.isfinite(ahi) & (ahi != 0) & (ahi != two_pi)))
+    return flow, lo, hi, ang, alo, ahi
+
+
+def independent_dc_lp(system, c1):
+    """The DC OPF LP with every flow and angle limit, assembled from raw
+    system data in scipy sparse matrices and solved by HiGHS."""
+    from scipy import sparse
+    from scipy.optimize import linprog
+    n, bus, gen = system.bus.number, system.bus, system.generator
+    g = gen.number
+    on_g = np.flatnonzero(gen.layout.status.array[:g] == 1)
+    on, f, t, adm, phi, a = dc_network(system)
+    flow, lo, hi, ang, alo, ahi = dc_limits(system, on)
+    da = sparse.diags(adm) @ a                 # branch flows: da θ - adm φ
+    ag = sparse.csr_matrix((-np.ones(len(on_g)),
+                            (gen.layout.bus.array[:g][on_g],
+                             np.arange(len(on_g)))), shape=(n, len(on_g)))
+    # balance: Aᵀ (da θ - adm φ) - Σ pg = -pd - gsh
+    a_eq = sparse.hstack([a.T @ da, ag]).tocsr()
+    b_eq = (-bus.demand.active.array[:n] - bus.shunt.conductance.array[:n]
+            + a.T @ (adm * phi))
+    # flow rows: lo <= da θ - adm φ <= hi; angle rows: lo <= a θ <= hi
+    rows, rhs = [], []
+    for sel, mat, off, low, high in ((flow, da, adm * phi, lo, hi),
+                                     (ang, a, np.zeros_like(phi), alo, ahi)):
+        for sign, bnd in ((1.0, high), (-1.0, low)):
+            keep = sel & np.isfinite(bnd)
+            rows.append(sign * mat[keep])
+            rhs.append(sign * (bnd[keep] + off[keep]))
+    a_th = sparse.vstack(rows)
+    a_ub = sparse.hstack([a_th, sparse.csr_matrix(
+        (a_th.shape[0], len(on_g)))]).tocsr()
+    b_ub = np.concatenate(rhs)
+    slack = bus.layout.slack
+    bounds = [(None, None)] * n
+    bounds[slack] = (float(bus.voltage.angle[slack]),) * 2
+    for i in on_g:
+        low, high = gen.capability.min_active[i], gen.capability.max_active[i]
+        bounds.append((float(low) if np.isfinite(low) else None,
+                       float(high) if np.isfinite(high) else None))
+    c = np.r_[np.zeros(n), c1[on_g]]
+    t0 = time.perf_counter()
+    res = linprog(c, A_ub=a_ub, b_ub=b_ub, A_eq=a_eq, b_eq=b_eq,
+                  bounds=bounds, method="highs")
+    check(res.status == 0, f"HiGHS: {res.message}")
+    pg = np.zeros(g)
+    pg[on_g] = res.x[n:]
+    return res.fun + 5.0 * len(on_g), pg, time.perf_counter() - t0
+
+
+def dc_feasibility(system, theta, pg):
+    """Worst bus-balance residual (p.u.) and worst capability, flow and
+    angle-limit violations of a DC dispatch, from raw system data."""
+    n, bus, gen = system.bus.number, system.bus, system.generator
+    g = gen.number
+    on, f, t, adm, phi, a = dc_network(system)
+    flow, lo, hi, ang, alo, ahi = dc_limits(system, on)
+    pf = adm * (a @ theta - phi)
+    supply = np.bincount(gen.layout.bus.array[:g], weights=pg, minlength=n)
+    balance = supply - bus.demand.active.array[:n] \
+        - bus.shunt.conductance.array[:n] - a.T @ pf
+    on_g = gen.layout.status.array[:g] == 1
+    cap = np.maximum(gen.capability.min_active.array[:g] - pg,
+                     pg - gen.capability.max_active.array[:g])[on_g]
+    dth = a @ theta
+
+    def over(val, low, high, sel):
+        low = np.where(np.isfinite(low), low, -np.inf)[sel]
+        high = np.where(np.isfinite(high), high, np.inf)[sel]
+        worst = np.maximum(low - val[sel], val[sel] - high)
+        return float(worst.max()) if worst.size else -np.inf
+
+    return (float(np.abs(balance).max()), float(cap.max()),
+            over(pf, lo, hi, flow), over(dth, alo, ahi, ang),
+            int(flow.sum()), int(ang.sum()))
+
+
+def opf_small():
+    """case14test/30test card vs CPU; the case118 LP anchor vs HiGHS."""
+    for case in ("case14test", "case30test"):
+        card, wall, _, _ = opf_solve(case_system(case), "cuda")
+        cpu, _, _, _ = opf_solve(case_system(case), "cpu")
+        dva = float(np.abs(card.voltage.angle - cpu.voltage.angle).max())
+        dpg = float(np.abs(card.power.generator.active
+                           - cpu.power.generator.active).max())
+        check(card.method.converged and cpu.method.converged
+              and dva <= OPF_SMALL_TOL and dpg <= OPF_SMALL_TOL,
+              f"{case} DC OPF: card vs CPU |d theta| {dva:.3e}, |d pg| "
+              f"{dpg:.3e}, converged {card.method.converged}/"
+              f"{cpu.method.converged}")
+        print(f"phase 16 {opf_line(case + ' DC OPF', card, wall)}; "
+              f"CPU {cpu.method.iteration} iterations; card vs CPU "
+              f"|d theta| {dva!r}, |d pg| {dpg!r}")
+    system = case_system("case118")
+    c1 = linear_costs(system)
+    want, pg_lp, t_lp = independent_dc_lp(system, c1)
+    card, wall, split, _ = opf_solve(system, "cuda", stages=True)
+    it = card.method.iteration
+    dobj = abs(card.method.objective - want) / abs(want)
+    dpg = float(np.abs(card.power.generator.active - pg_lp).max())
+    check(card.method.converged and dobj <= LP_OBJ_RTOL
+          and dpg <= LP_PG_ATOL_118,
+          f"case118 LP: objective rel {dobj:.3e}, |d pg| {dpg:.3e}")
+    print(f"phase 16 {opf_line('case118 LP (anchor costs)', card, wall)}; "
+          f"vs HiGHS ({t_lp!r} s) objective rel {dobj!r}, |d pg| {dpg!r}; "
+          f"per iteration (CUDA events): {stage_ms(split, it)}")
+
+
+def opf_10k():
+    """ACTIVSg10k at full width: (a) the anchor's linear costs against
+    HiGHS with every flow limit; (b) the case's own costs, with the
+    feasibility of the dispatch checked from raw data."""
+    system = power_system(str(DATA / OPF_10K))
+    c1 = linear_costs(system)
+    want, pg_lp, t_lp = independent_dc_lp(system, c1)
+    card, wall, split, peak = opf_solve(system, "cuda", stages=True)
+    res = card.method.result
+    dobj = abs(card.method.objective - want) / abs(want)
+    dpg = float(np.abs(card.power.generator.active - pg_lp).max())
+    obj_tol = LP_OBJ_RTOL if res.status == "optimal" else LP_OBJ_RTOL_LOOSE
+    check(res.status in ("optimal", "acceptable") and dobj <= obj_tol
+          and dpg <= LP_PG_ATOL_10K,
+          f"{OPF_10K} LP: status {res.status}, objective rel {dobj:.3e} "
+          f"(tol {obj_tol}), |d pg| {dpg:.3e}")
+    print(f"phase 16 {opf_line(OPF_10K + ' LP (anchor costs)', card, wall)};"
+          f" vs HiGHS ({t_lp!r} s) objective rel {dobj!r}, |d pg| {dpg!r};"
+          f" peak {peak / 1e9!r} GB; per iteration (CUDA events): "
+          f"{stage_ms(split, res.iterations)}")
+
+    system = power_system(str(DATA / OPF_10K))
+    card, wall, split, peak = opf_solve(system, "cuda", stages=True)
+    res = card.method.result
+    spec = card._spec
+    bal, cap, flow, ang, n_flow, n_ang = dc_feasibility(
+        system, card.voltage.angle, card.power.generator.active)
+    check(res.status in ("optimal", "acceptable") and bal <= FEAS_BALANCE_TOL
+          and max(cap, flow, ang) <= FEAS_LIMIT_TOL,
+          f"{OPF_10K} DC OPF: status {res.status}, balance {bal:.3e}, "
+          f"limits {cap:.3e} / {flow:.3e} / {ang:.3e}")
+    print(f"phase 16 {opf_line(OPF_10K + ' DC OPF (own costs)', card, wall)}"
+          f"; n_x {spec.n_x}, {len(spec.ineq_tags)} inequality rows "
+          f"({n_flow} limited flows, {n_ang} angle limits); worst balance "
+          f"{bal!r} p.u., capability {cap!r}, flow {flow!r}, angle {ang!r}; "
+          f"peak {peak / 1e9!r} GB; per iteration (CUDA events): "
+          f"{stage_ms(split, res.iterations)}")
+
+
+def opf_pegase():
+    """case1354pegase with its own costs, card against the CPU run: every
+    generator has the same linear cost, so every balanced dispatch inside
+    the limits is optimal and the dispatch is not unique: both runs are
+    held to the objective and to feasibility from raw data. With the
+    anchor's distinct linear costs the dispatch is unique: the card's
+    against HiGHS."""
+    system = power_system(str(DATA / OPF_PEGASE))
+    card, wall, split, peak = opf_solve(system, "cuda", stages=True)
+    cpu_system = power_system(str(DATA / OPF_PEGASE))
+    cpu, t_cpu, _, _ = opf_solve(cpu_system, "cpu")
+    res, spec = card.method.result, card._spec
+    on = spec.gen_on
+    one_cost = not spec.obj_quad[on].any() \
+        and np.unique(spec.obj_lin[on]).size == 1
+    dobj = abs(card.method.objective - cpu.method.objective) / abs(
+        cpu.method.objective)
+    dpg = float(np.abs(card.power.generator.active
+                       - cpu.power.generator.active).max())
+    worst = [dc_feasibility(s, a.voltage.angle, a.power.generator.active)
+             for s, a in ((system, card), (cpu_system, cpu))]
+    feasible = all(bal <= FEAS_BALANCE_TOL and max(cap, flow, ang)
+                   <= FEAS_LIMIT_TOL for bal, cap, flow, ang, _, _ in worst)
+    check(res.status in ("optimal", "acceptable")
+          and res.status == cpu.method.result.status
+          and dobj <= PEGASE_OBJ_RTOL and feasible
+          and (one_cost or dpg <= PEGASE_PG_TOL),
+          f"{OPF_PEGASE}: status {res.status}/{cpu.method.result.status}, "
+          f"objective rel {dobj:.3e}, |d pg| {dpg:.3e}, feasibility "
+          f"{worst}")
+    print(f"phase 16 {opf_line(OPF_PEGASE + ' DC OPF', card, wall)}; CPU "
+          f"{cpu.method.iteration} iterations in {t_cpu!r} s; card vs CPU "
+          f"objective rel {dobj!r}; one cost for all "
+          f"{int(on.sum())} generators: {one_cost}, so the dispatch is not "
+          f"unique (card vs CPU |d pg| {dpg!r}); worst balance, capability,"
+          f" flow: card {worst[0][:3]}, CPU {worst[1][:3]}; peak "
+          f"{peak / 1e9!r} GB; per iteration (CUDA events): "
+          f"{stage_ms(split, res.iterations)}")
+
+    system = power_system(str(DATA / OPF_PEGASE))
+    c1 = linear_costs(system)
+    want, pg_lp, t_lp = independent_dc_lp(system, c1)
+    card, wall, split, _ = opf_solve(system, "cuda", stages=True)
+    res = card.method.result
+    dobj = abs(card.method.objective - want) / abs(want)
+    dpg = float(np.abs(card.power.generator.active - pg_lp).max())
+    check(res.status in ("optimal", "acceptable") and dobj <= PEGASE_OBJ_RTOL
+          and dpg <= PEGASE_PG_TOL,
+          f"{OPF_PEGASE} LP: status {res.status}, objective rel {dobj:.3e},"
+          f" |d pg| {dpg:.3e}")
+    print(f"phase 16 {opf_line(OPF_PEGASE + ' LP (anchor costs)', card, wall)}"
+          f"; vs HiGHS ({t_lp!r} s) objective rel {dobj!r}, |d pg| {dpg!r}; "
+          f"per iteration (CUDA events): {stage_ms(split, res.iterations)}")
+
+
+def lav_runs():
+    """DC, PMU and AC LAV reproduce the case14test power flow on the card;
+    config 4's case118 AC LAV on the card against the CPU run. Returns
+    K3's launches on the card."""
+    launches = 0
+    system, pf = solved_case("case14test")
+    dpf = dc_power_flow(system, device="cuda")
+    power_flow(dpf, power=True)
+    dmon = measurement(system)
+    add_wattmeter(dmon, analysis=dpf)
+    pmon = measurement(system)
+    add_pmu(pmon, analysis=pf)
+    amon = measurement(system)
+    for add in (add_voltmeter, add_wattmeter, add_varmeter):
+        add(amon, analysis=pf)
+    for kind, build, mon, ref, tol in (
+            ("DC", dc_lav_state_estimation, dmon, dpf, LAV_DC_TOL),
+            ("PMU", pmu_lav_state_estimation, pmon, pf, LAV_PMU_TOL),
+            ("AC", ac_lav_state_estimation, amon, pf, LAV_AC_TOL)):
+        se = build(mon, device="cuda")
+        k3.se_fill.launches = 0
+        wall, _ = wall_s(lambda: state_estimation(se, iteration=200))
+        launches += k3.se_fill.launches
+        dva = float(np.abs(se.voltage.angle - ref.voltage.angle).max())
+        dvm = 0.0 if kind == "DC" else float(np.abs(
+            se.voltage.magnitude - ref.voltage.magnitude).max())
+        check(se.method.converged and max(dva, dvm) <= tol,
+              f"case14test {kind} LAV: converged {se.method.converged}, "
+              f"|d theta| {dva:.3e}, |d V| {dvm:.3e} over {tol}")
+        print(f"phase 16 case14test {kind} LAV vs the power flow: "
+              f"{se.method.iteration} iterations, |d theta| {dva!r}, |d V| "
+              f"{dvm!r}; state_estimation {wall!r} s, K3 launches "
+              f"{k3.se_fill.launches}")
+
+    def config4(device):
+        system = case_system("case118")
+        mon, _ = scada_pmu(system)
+        planted(mon, CONFIG4_PLANTED)
+        return ac_lav_state_estimation(mon, device=device)
+
+    card, cpu = config4("cuda"), config4("cpu")
+    k3.se_fill.launches = 0
+    with device_stages() as split:
+        wall, _ = wall_s(lambda: state_estimation(card, iteration=200))
+    n_k3 = k3.se_fill.launches
+    launches += n_k3
+    t0 = time.perf_counter()
+    state_estimation(cpu, iteration=200)
+    t_cpu = time.perf_counter() - t0
+    dstate = max(float(np.abs(card.voltage.magnitude
+                              - cpu.voltage.magnitude).max()),
+                 float(np.abs(card.voltage.angle - cpu.voltage.angle).max()))
+    it = card.method.iteration
+    check(card.method.converged and cpu.method.converged and n_k3 > 0
+          and it == cpu.method.iteration and dstate <= LAV_CARD_CPU_TOL,
+          f"config 4 AC LAV: converged {card.method.converged}/"
+          f"{cpu.method.converged}, iterations {it}/{cpu.method.iteration},"
+          f" card vs CPU {dstate:.3e}, K3 launches {n_k3}")
+    print(f"phase 16 config 4 AC LAV (case118, wattmeters 3 and 40 "
+          f"planted): converged, {it} iterations on card and CPU, card vs "
+          f"CPU state {dstate!r}; state_estimation {wall!r} s (CPU "
+          f"{t_cpu!r} s), K3 launches {n_k3}; per iteration (CUDA events): "
+          f"{stage_ms(split, it)}")
+    return launches
+
+
+def phase16():
+    opf_small()
+    opf_10k()
+    opf_pegase()
+    return lav_runs()
+
+
 def kernel_entry(name, replaces, launches, err, times, source=None,
                  library_ms=None):
     ms, plain_ms, (bound_ms, bound_by) = times
@@ -2087,6 +2469,7 @@ def main():
     nr_bbd, (k1r_launches, k5_launches) = phase14(dense_10k)
     (k3r_err, *k3r_times), (k3r_launches, k5_se) = phase15(nr_bbd)
     k5_launches += k5_se
+    k3_launches += phase16()
     print(card)
     # no single PyTorch call computes K1's, K3's or K4's function, or the
     # routed modes': library_ms is null; K5's is one index_put_

@@ -17,7 +17,10 @@ bordered-block-diagonal path (``newton_raphson_bbd``,
 ``fast_newton_raphson_bbd``, ``gauss_newton_bbd``): K1 and K3 write
 straight into the blocks of a partition, the interiors factor in one
 batched f64 LU, and a fifth kernel (``kernels/csrc/schur_gather.cu``)
-gathers the border system. The numpy host layer (parsers, data
+gathers the border system. The in-house interior point (``opf/ipm.py``,
+derivatives from ``torch.func``, an f64 LU of the KKT system) solves the DC
+optimal power flow and the LAV estimators (the AC kind through K3). The
+numpy host layer (parsers, data
 model, measurements, post-processing, observability and PMU placement) is a
 copy of the JAX package's, so the port imports no JAX.
 
@@ -55,10 +58,16 @@ from .powerflow.dc import dc_power_flow
 from .powerflow.driver import power_flow
 from .powerflow.limits import adjust_angle, reactive_limit
 
+# optimal power flow
+from .opf import dc_optimal_power_flow, solve_opf
+from .system.builders import cost
+
 # state estimation
 from .estimation.acse import gauss_newton, increment, state_estimation
 from .estimation.dcse import dc_state_estimation
 from .estimation.pmuse import pmu_state_estimation
+from .estimation.lav import (ac_lav_state_estimation, dc_lav_state_estimation,
+                             pmu_lav_state_estimation)
 from .estimation.baddata import chi_test, lnr_removal, residual_test
 from .estimation.observability import (island_topological,
                                        island_topological_flow,

@@ -357,3 +357,62 @@ def se_bbd_arrays_from_numpy(*, base, net, ent_rows, hi_sel, hi_blk, hi_row,
         mask_bdr=torch.tensor(mask_bdr, device=dev),
         schur=schur_route(lb_gidx, len(mask_bdr), dev))
     return arrays, layout
+
+
+def dcopf_arrays_from_numpy(spec, device=None, b_dense=None):
+    """``DcOpfArrays`` on ``device`` (default ``config.device``) from the
+    host lists of a DC OPF spec: the port's ``opf/dcopf._DcSpec`` or the
+    JAX package's (same fields; its ``b_dense``, ``rhs`` and ``gen_bus``
+    go through ``np.asarray``). B is ``b_dense`` when given, else scattered
+    from the spec's DC nodal matrix (``nodal``) or copied from its dense
+    ``b_dense``. The inequality rows follow the lists in the JAX package's
+    emission order."""
+    from .opf.dcopf import DcOpfArrays
+
+    dev = resolve_device(device)
+    n, g, n_h = int(spec.n), int(spec.g), int(spec.n_h)
+    if b_dense is None:
+        if hasattr(spec, "nodal"):
+            coo = spec.nodal.tocoo()
+            b_dense = linalg.dense_from_coo(coo.row, coo.col, coo.data, n,
+                                            dev)
+        else:
+            b_dense = _f64(np.asarray(spec.b_dense), dev)
+    gen_on = np.asarray(spec.gen_on, dtype=bool)
+
+    # row r: a * (x[i1] - b * x[i2] - off) + c0 + e * x[i3]
+    rows = []
+    for i, lo in spec.cap_lo:
+        rows.append((n + i, 0, 0, 1.0, 0.0, 0.0, -lo, 0.0))
+    for i, hi in spec.cap_hi:
+        rows.append((n + i, 0, 0, -1.0, 0.0, 0.0, hi, 0.0))
+    for (f, t, adm, phi, lo, hi, _k) in spec.flows:
+        if np.isfinite(lo):
+            rows.append((f, t, 0, adm, 1.0, phi, -lo, 0.0))
+        if np.isfinite(hi):
+            rows.append((f, t, 0, -adm, 1.0, phi, hi, 0.0))
+    for (f, t, lo, hi, _k) in spec.angles:
+        rows.append((f, t, 0, 1.0, 1.0, 0.0, -lo, 0.0))
+        rows.append((f, t, 0, -1.0, 1.0, 0.0, hi, 0.0))
+    for (gi, hpos, slope, icept) in spec.pw_cuts:
+        rows.append((n + gi, 0, n + g + hpos, -slope, 0.0, 0.0, icept, 1.0))
+    tab = np.asarray(rows, dtype=np.float64).reshape(-1, 8)
+
+    def i64(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+    fix = np.asarray(spec.fix_p, dtype=np.float64).reshape(-1, 2)
+    return DcOpfArrays(
+        b_dense=b_dense, rhs=_f64(np.asarray(spec.rhs), dev),
+        gen_bus=i64(np.asarray(spec.gen_bus)),
+        gen_on=torch.as_tensor(gen_on, device=dev),
+        off_idx=i64(np.flatnonzero(~gen_on)), fix_idx=i64(fix[:, 0]),
+        fix_val=_f64(fix[:, 1], dev),
+        quad=_f64(spec.obj_quad, dev), lin=_f64(spec.obj_lin, dev),
+        const=float(spec.obj_const),
+        i1=i64(tab[:, 0]), i2=i64(tab[:, 1]), i3=i64(tab[:, 2]),
+        a=_f64(tab[:, 3], dev), b=_f64(tab[:, 4], dev),
+        off=_f64(tab[:, 5], dev), c0=_f64(tab[:, 6], dev),
+        e=_f64(tab[:, 7], dev),
+        n=n, g=g, n_h=n_h, slack=int(spec.slack),
+        slack_angle=float(spec.slack_angle))

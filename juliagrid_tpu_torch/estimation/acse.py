@@ -807,20 +807,29 @@ def solve(analysis: AcStateEstimation):
 def state_estimation(analysis, iteration: int = 40, tolerance: float = 1e-8,
                      power: bool = False, current: bool = False,
                      damping: bool = False, verbose: int | None = None):
-    """Reference stateEstimation!, dispatched on the analysis type:
-    Gauss-Newton, DC and PMU analyses."""
+    """Reference stateEstimation!, dispatched on the analysis type and its
+    method: Gauss-Newton, DC and PMU WLS, and the three LAV kinds. (The
+    JAX package sends DC and PMU LAV analyses to the WLS solvers.)"""
     from .dcse import DcStateEstimation, dc_se_solve
     from .pmuse import PmuStateEstimation, pmu_se_solve
     if isinstance(analysis, DcStateEstimation):
+        if analysis.method.name == "dc_lav":
+            from .lav import dc_lav_solve
+            return dc_lav_solve(analysis, iteration=iteration, power=power)
         return dc_se_solve(analysis, power=power)
     if isinstance(analysis, PmuStateEstimation):
+        if analysis.method.name == "pmu_lav":
+            from .lav import pmu_lav_solve
+            return pmu_lav_solve(analysis, iteration=iteration, power=power,
+                                 current=current)
         return pmu_se_solve(analysis, power=power, current=current)
     if analysis.method.name == "lav":
-        raise NotImplementedError(
-            "LAV state estimation is not ported yet (ROADMAP item 12)")
+        from .lav import lav_solve
+        return lav_solve(analysis, iteration=iteration, power=power,
+                         current=current)
     if not isinstance(analysis, AcStateEstimation):
         raise NotImplementedError(
-            f"state_estimation runs Gauss-Newton, DC and PMU analyses; "
+            f"state_estimation runs Gauss-Newton, DC, PMU and LAV analyses; "
             f"{type(analysis).__name__} is not ported")
     method = analysis.method
     with method.timings.span("refresh"), default_timings.span("se.refresh"):

@@ -41,162 +41,169 @@ def load_power_system(system: PowerSystem, path: str) -> None:
     import h5py
 
     with h5py.File(path, "r") as fh:
-        n = int(fh.attrs["number of buses"])
-        m = int(fh.attrs["number of branches"])
-        g = int(fh.attrs["number of generators"])
-        optimal = bool(fh.attrs.get("optimal", 1)) \
-            and system.bus.layout.optimal
+        load_tables(system, fh)
 
-        bus = system.bus
-        bus.number = n
-        for lbl in _labels(fh["bus/label"]):
-            bus.label.add(lbl)
-        if "bus/layout/label" in fh:
-            bus.label.counter = int(fh["bus/layout/label"][()])
-        bus.layout.type = Vec("int8", _expand(fh["bus/layout/type"], n,
-                                              np.int8))
-        bus.layout.area = Vec("int64", _expand(fh["bus/layout/area"], n,
-                                               np.int64))
-        bus.layout.loss_zone = Vec("int64", _expand(
-            fh["bus/layout/lossZone"], n, np.int64))
-        bus.demand.active = Vec("float64", _expand(fh["bus/demand/active"], n))
-        bus.demand.reactive = Vec("float64", _expand(
-            fh["bus/demand/reactive"], n))
-        bus.shunt.conductance = Vec("float64", _expand(
-            fh["bus/shunt/conductance"], n))
-        bus.shunt.susceptance = Vec("float64", _expand(
-            fh["bus/shunt/susceptance"], n))
-        bus.voltage.magnitude = Vec("float64", _expand(
-            fh["bus/voltage/magnitude"], n))
-        bus.voltage.angle = Vec("float64", _expand(fh["bus/voltage/angle"], n))
-        if optimal and "bus/voltage/minMagnitude" in fh:
-            bus.voltage.min_magnitude = Vec("float64", _expand(
-                fh["bus/voltage/minMagnitude"], n))
-            bus.voltage.max_magnitude = Vec("float64", _expand(
-                fh["bus/voltage/maxMagnitude"], n))
-        types = bus.layout.type.array[:n]
-        slack = np.flatnonzero(types == 3)
-        # reference load.jl:155-160 keeps the FIRST type-3 bus as slack
-        bus.layout.slack = int(slack[0]) if len(slack) else 0
-        bus.supply.active = Vec("float64", np.zeros(n))
-        bus.supply.reactive = Vec("float64", np.zeros(n))
 
-        system.base.power.value = float(fh["base/power"][()])
-        system.base.voltage.value = Vec("float64", _expand(
-            fh["base/voltage"], n))
+def load_tables(system: PowerSystem, fh) -> None:
+    """Fill ``system`` from an open case: an ``h5py.File``, or anything
+    that answers the same ``attrs``, ``in``, ``[path]`` and ``[()]``
+    (``system/snapshot.py``'s numpy-only reader)."""
+    n = int(fh.attrs["number of buses"])
+    m = int(fh.attrs["number of branches"])
+    g = int(fh.attrs["number of generators"])
+    optimal = bool(fh.attrs.get("optimal", 1)) \
+        and system.bus.layout.optimal
 
-        branch = system.branch
-        branch.number = m
-        for lbl in _labels(fh["branch/label"]):
-            branch.label.add(lbl)
-        branch.layout.from_bus = Vec("int64", _expand(
-            fh["branch/layout/from"], m, np.int64) - 1)
-        branch.layout.to_bus = Vec("int64", _expand(
-            fh["branch/layout/to"], m, np.int64) - 1)
-        branch.layout.status = Vec("int8", _expand(
-            fh["branch/layout/status"], m, np.int8))
-        branch.layout.inservice = int(
-            (branch.layout.status.array[:m] == 1).sum())
-        prm = branch.parameter
-        prm.resistance = Vec("float64", _expand(
-            fh["branch/parameter/resistance"], m))
-        prm.reactance = Vec("float64", _expand(
-            fh["branch/parameter/reactance"], m))
-        prm.conductance = Vec("float64", _expand(
-            fh["branch/parameter/conductance"], m))
-        prm.susceptance = Vec("float64", _expand(
-            fh["branch/parameter/susceptance"], m))
-        prm.turns_ratio = Vec("float64", _expand(
-            fh["branch/parameter/turnsRatio"], m))
-        prm.shift_angle = Vec("float64", _expand(
-            fh["branch/parameter/shiftAngle"], m))
-        if optimal and "branch/flow/minFromBus" in fh:
-            branch.flow.min_from_bus = Vec("float64", _expand(
-                fh["branch/flow/minFromBus"], m))
-            branch.flow.max_from_bus = Vec("float64", _expand(
-                fh["branch/flow/maxFromBus"], m))
-            branch.flow.min_to_bus = Vec("float64", _expand(
-                fh["branch/flow/minToBus"], m))
-            branch.flow.max_to_bus = Vec("float64", _expand(
-                fh["branch/flow/maxToBus"], m))
-            branch.flow.type = Vec("int8", _expand(
-                fh["branch/flow/type"], m, np.int8))
-            branch.voltage.min_diff_angle = Vec("float64", _expand(
-                fh["branch/voltage/minDiffAngle"], m))
-            branch.voltage.max_diff_angle = Vec("float64", _expand(
-                fh["branch/voltage/maxDiffAngle"], m))
+    bus = system.bus
+    bus.number = n
+    for lbl in _labels(fh["bus/label"]):
+        bus.label.add(lbl)
+    if "bus/layout/label" in fh:
+        bus.label.counter = int(fh["bus/layout/label"][()])
+    bus.layout.type = Vec("int8", _expand(fh["bus/layout/type"], n,
+                                          np.int8))
+    bus.layout.area = Vec("int64", _expand(fh["bus/layout/area"], n,
+                                           np.int64))
+    bus.layout.loss_zone = Vec("int64", _expand(
+        fh["bus/layout/lossZone"], n, np.int64))
+    bus.demand.active = Vec("float64", _expand(fh["bus/demand/active"], n))
+    bus.demand.reactive = Vec("float64", _expand(
+        fh["bus/demand/reactive"], n))
+    bus.shunt.conductance = Vec("float64", _expand(
+        fh["bus/shunt/conductance"], n))
+    bus.shunt.susceptance = Vec("float64", _expand(
+        fh["bus/shunt/susceptance"], n))
+    bus.voltage.magnitude = Vec("float64", _expand(
+        fh["bus/voltage/magnitude"], n))
+    bus.voltage.angle = Vec("float64", _expand(fh["bus/voltage/angle"], n))
+    if optimal and "bus/voltage/minMagnitude" in fh:
+        bus.voltage.min_magnitude = Vec("float64", _expand(
+            fh["bus/voltage/minMagnitude"], n))
+        bus.voltage.max_magnitude = Vec("float64", _expand(
+            fh["bus/voltage/maxMagnitude"], n))
+    types = bus.layout.type.array[:n]
+    slack = np.flatnonzero(types == 3)
+    # reference load.jl:155-160 keeps the FIRST type-3 bus as slack
+    bus.layout.slack = int(slack[0]) if len(slack) else 0
+    bus.supply.active = Vec("float64", np.zeros(n))
+    bus.supply.reactive = Vec("float64", np.zeros(n))
 
-        gen = system.generator
-        gen.number = g
-        for lbl in _labels(fh["generator/label"]):
-            gen.label.add(lbl)
-        gen.layout.bus = Vec("int64", _expand(
-            fh["generator/layout/bus"], g, np.int64) - 1)
-        gen.layout.status = Vec("int8", _expand(
-            fh["generator/layout/status"], g, np.int8))
-        gen.output.active = Vec("float64", _expand(
-            fh["generator/output/active"], g))
-        gen.output.reactive = Vec("float64", _expand(
-            fh["generator/output/reactive"], g))
-        gen.voltage.magnitude = Vec("float64", _expand(
-            fh["generator/voltage/magnitude"], g))
-        cap = gen.capability
-        for attr, name in (
-                ("min_active", "minActive"), ("max_active", "maxActive"),
-                ("min_reactive", "minReactive"),
-                ("max_reactive", "maxReactive"),
-                ("low_active", "lowActive"), ("up_active", "upActive"),
-                ("min_low_reactive", "minLowReactive"),
-                ("max_low_reactive", "maxLowReactive"),
-                ("min_up_reactive", "minUpReactive"),
-                ("max_up_reactive", "maxUpReactive")):
-            key = f"generator/capability/{name}"
-            if key in fh:
-                setattr(cap, attr, Vec("float64", _expand(fh[key], g)))
+    system.base.power.value = float(fh["base/power"][()])
+    system.base.voltage.value = Vec("float64", _expand(
+        fh["base/voltage"], n))
 
-        for i in range(g):
-            if gen.layout.status[i] == 1:
-                b = int(gen.layout.bus[i])
-                system.add_gen_in_bus(b, i)
-                bus.supply.active[b] += gen.output.active[i]
-                bus.supply.reactive[b] += gen.output.reactive[i]
-                gen.layout.inservice += 1
+    branch = system.branch
+    branch.number = m
+    for lbl in _labels(fh["branch/label"]):
+        branch.label.add(lbl)
+    branch.layout.from_bus = Vec("int64", _expand(
+        fh["branch/layout/from"], m, np.int64) - 1)
+    branch.layout.to_bus = Vec("int64", _expand(
+        fh["branch/layout/to"], m, np.int64) - 1)
+    branch.layout.status = Vec("int8", _expand(
+        fh["branch/layout/status"], m, np.int8))
+    branch.layout.inservice = int(
+        (branch.layout.status.array[:m] == 1).sum())
+    prm = branch.parameter
+    prm.resistance = Vec("float64", _expand(
+        fh["branch/parameter/resistance"], m))
+    prm.reactance = Vec("float64", _expand(
+        fh["branch/parameter/reactance"], m))
+    prm.conductance = Vec("float64", _expand(
+        fh["branch/parameter/conductance"], m))
+    prm.susceptance = Vec("float64", _expand(
+        fh["branch/parameter/susceptance"], m))
+    prm.turns_ratio = Vec("float64", _expand(
+        fh["branch/parameter/turnsRatio"], m))
+    prm.shift_angle = Vec("float64", _expand(
+        fh["branch/parameter/shiftAngle"], m))
+    if optimal and "branch/flow/minFromBus" in fh:
+        branch.flow.min_from_bus = Vec("float64", _expand(
+            fh["branch/flow/minFromBus"], m))
+        branch.flow.max_from_bus = Vec("float64", _expand(
+            fh["branch/flow/maxFromBus"], m))
+        branch.flow.min_to_bus = Vec("float64", _expand(
+            fh["branch/flow/minToBus"], m))
+        branch.flow.max_to_bus = Vec("float64", _expand(
+            fh["branch/flow/maxToBus"], m))
+        branch.flow.type = Vec("int8", _expand(
+            fh["branch/flow/type"], m, np.int8))
+        branch.voltage.min_diff_angle = Vec("float64", _expand(
+            fh["branch/voltage/minDiffAngle"], m))
+        branch.voltage.max_diff_angle = Vec("float64", _expand(
+            fh["branch/voltage/maxDiffAngle"], m))
 
-        if optimal:
-            gen.cost.active.model = Vec("int8", _expand(
-                fh["generator/cost/active/model"], g, np.int8)) \
-                if "generator/cost/active/model" in fh \
-                else Vec("int8", np.zeros(g, dtype=np.int8))
-            gen.cost.reactive.model = Vec("int8", _expand(
-                fh["generator/cost/reactive/model"], g, np.int8)) \
-                if "generator/cost/reactive/model" in fh \
-                else Vec("int8", np.zeros(g, dtype=np.int8))
-            for kind, store in (("active", gen.cost.active),
-                                ("reactive", gen.cost.reactive)):
-                pkey = f"generator/cost/{kind}/polynomial"
-                if pkey in fh and fh[pkey].size:
-                    rows = np.atleast_2d(np.asarray(fh[pkey]))
-                    for r in rows:
-                        if len(r) < 2:
-                            continue
-                        gi = int(r[0]) - 1
-                        nco = int(r[1])
-                        if nco > 0:
-                            store.polynomial[gi] = np.asarray(r[2:2 + nco])
-                wkey = f"generator/cost/{kind}/piecewise"
-                if wkey in fh and fh[wkey].size:
-                    rows = np.atleast_2d(np.asarray(fh[wkey]))
-                    if rows.shape[1] != 3:
-                        rows = rows.T
-                    by_gen: dict = {}
-                    for r in rows:
-                        by_gen.setdefault(int(r[0]) - 1, []).append(
-                            (r[1], r[2]))
-                    for gi, pts in by_gen.items():
-                        store.piecewise[gi] = np.asarray(pts)
-        else:
-            gen.cost.active.model = Vec("int8", np.zeros(g, dtype=np.int8))
-            gen.cost.reactive.model = Vec("int8", np.zeros(g, dtype=np.int8))
+    gen = system.generator
+    gen.number = g
+    for lbl in _labels(fh["generator/label"]):
+        gen.label.add(lbl)
+    gen.layout.bus = Vec("int64", _expand(
+        fh["generator/layout/bus"], g, np.int64) - 1)
+    gen.layout.status = Vec("int8", _expand(
+        fh["generator/layout/status"], g, np.int8))
+    gen.output.active = Vec("float64", _expand(
+        fh["generator/output/active"], g))
+    gen.output.reactive = Vec("float64", _expand(
+        fh["generator/output/reactive"], g))
+    gen.voltage.magnitude = Vec("float64", _expand(
+        fh["generator/voltage/magnitude"], g))
+    cap = gen.capability
+    for attr, name in (
+            ("min_active", "minActive"), ("max_active", "maxActive"),
+            ("min_reactive", "minReactive"),
+            ("max_reactive", "maxReactive"),
+            ("low_active", "lowActive"), ("up_active", "upActive"),
+            ("min_low_reactive", "minLowReactive"),
+            ("max_low_reactive", "maxLowReactive"),
+            ("min_up_reactive", "minUpReactive"),
+            ("max_up_reactive", "maxUpReactive")):
+        key = f"generator/capability/{name}"
+        if key in fh:
+            setattr(cap, attr, Vec("float64", _expand(fh[key], g)))
+
+    for i in range(g):
+        if gen.layout.status[i] == 1:
+            b = int(gen.layout.bus[i])
+            system.add_gen_in_bus(b, i)
+            bus.supply.active[b] += gen.output.active[i]
+            bus.supply.reactive[b] += gen.output.reactive[i]
+            gen.layout.inservice += 1
+
+    if optimal:
+        gen.cost.active.model = Vec("int8", _expand(
+            fh["generator/cost/active/model"], g, np.int8)) \
+            if "generator/cost/active/model" in fh \
+            else Vec("int8", np.zeros(g, dtype=np.int8))
+        gen.cost.reactive.model = Vec("int8", _expand(
+            fh["generator/cost/reactive/model"], g, np.int8)) \
+            if "generator/cost/reactive/model" in fh \
+            else Vec("int8", np.zeros(g, dtype=np.int8))
+        for kind, store in (("active", gen.cost.active),
+                            ("reactive", gen.cost.reactive)):
+            pkey = f"generator/cost/{kind}/polynomial"
+            if pkey in fh and fh[pkey].size:
+                rows = np.atleast_2d(np.asarray(fh[pkey]))
+                for r in rows:
+                    if len(r) < 2:
+                        continue
+                    gi = int(r[0]) - 1
+                    nco = int(r[1])
+                    if nco > 0:
+                        store.polynomial[gi] = np.asarray(r[2:2 + nco])
+            wkey = f"generator/cost/{kind}/piecewise"
+            if wkey in fh and fh[wkey].size:
+                rows = np.atleast_2d(np.asarray(fh[wkey]))
+                if rows.shape[1] != 3:
+                    rows = rows.T
+                by_gen: dict = {}
+                for r in rows:
+                    by_gen.setdefault(int(r[0]) - 1, []).append(
+                        (r[1], r[2]))
+                for gi, pts in by_gen.items():
+                    store.piecewise[gi] = np.asarray(pts)
+    else:
+        gen.cost.active.model = Vec("int8", np.zeros(g, dtype=np.int8))
+        gen.cost.reactive.model = Vec("int8", np.zeros(g, dtype=np.int8))
 
 
 def _compress(arr):

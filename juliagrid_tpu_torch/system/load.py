@@ -2,7 +2,8 @@
 
 Equivalent of the reference ``powerSystem`` entry points
 (JuliaGrid src/powerSystem/load.jl:36-103): dispatch on file
-extension (.m / .raw / .h5), or build an empty system for manual
+extension (.m / .raw / .h5, and .npz for the numpy-only snapshot of an
+HDF5 case, ``system/snapshot.py``), or build an empty system for manual
 construction with the add_* builders.
 """
 
@@ -30,6 +31,9 @@ def power_system(path: str | None = None, optimal: bool = True) -> PowerSystem:
     elif ext in (".h5", ".hdf5"):
         from .hdf5io import load_power_system
         load_power_system(system, path)
+    elif ext == ".npz":
+        from .snapshot import load_snapshot
+        load_snapshot(system, path)
     else:
         raise ValueError(f"the file extension {ext!r} is not supported")
     return system

@@ -130,6 +130,46 @@ def test_fdpf_dc_oracles_and_dc_post_match_jax(data_path, case):
                               getattr(tout, part).active), part
 
 
+def _tables(obj, path="system"):
+    """(path, value) of every table of a power system: each Vec's live
+    array, each label list and cost dict, each scalar."""
+    from juliagrid_tpu_torch.utils.labels import LabelRegistry
+    from juliagrid_tpu_torch.utils.vec import Vec
+    if isinstance(obj, Vec):
+        yield path, obj.array
+    elif isinstance(obj, LabelRegistry):
+        yield path, obj.labels()
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            if f.name != "model":
+                yield from _tables(getattr(obj, f.name), f"{path}.{f.name}")
+    elif isinstance(obj, dict):
+        for key in sorted(obj, key=repr):
+            yield from _tables(obj[key], f"{path}[{key!r}]")
+    else:
+        yield path, obj
+
+
+@pytest.mark.parametrize("case", ["case1354pegase", "case_ACTIVSg10k"])
+def test_npz_snapshot_round_trip(data_path, case, tmp_path):
+    """The committed numpy-only snapshot, and one written anew from the
+    HDF5 case, load into the same tables as the HDF5 case itself."""
+    from juliagrid_tpu_torch.system.snapshot import h5_to_npz
+    fresh = tmp_path / f"{case}.npz"
+    h5_to_npz(str(data_path / f"{case}.h5"), str(fresh))
+    ref = dict(_tables(jgt.power_system(str(data_path / f"{case}.h5"))))
+    assert len(ref) > 100
+    for path in (data_path / f"{case}.npz", fresh):
+        got = dict(_tables(jgt.power_system(str(path))))
+        assert got.keys() == ref.keys()
+        for key, val in ref.items():
+            if isinstance(val, np.ndarray):
+                assert got[key].dtype == val.dtype, key
+                assert np.array_equal(got[key], val, equal_nan=True), key
+            else:
+                assert got[key] == val, key
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port — the power-flow methods, the
     state estimators, bad data, observability and the kernels among them —
@@ -146,7 +186,8 @@ def test_port_imports_no_jax():
         " 'powerflow.gauss_seidel', 'powerflow.limits', 'postprocessing.dc',"
         " 'kernels.gs_sweep', 'oracle.sparse_ref', 'estimation.dcse',"
         " 'estimation.pmuse', 'estimation.baddata', 'estimation.takahashi',"
-        " 'estimation.observability'):\n"
+        " 'estimation.observability', 'opf.ipm', 'opf.dcopf', 'opf.edit',"
+        " 'estimation.lav', 'system.snapshot'):\n"
         "    assert 'juliagrid_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'juliagrid_tpu', 'h5py')]\n"

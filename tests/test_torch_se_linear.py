@@ -176,20 +176,25 @@ def test_arrays_from_numpy_round_trip(data_path, kind):
 
 
 def test_dispatch_and_lav_refusal(data_path):
-    """``state_estimation`` runs DC and PMU analyses through their solves;
-    a LAV analysis raises, naming ROADMAP item 12; and a CUDA request
-    without a card raises."""
+    """``state_estimation`` runs DC and PMU analyses through their solves
+    and a DC LAV analysis through its interior point (ROADMAP item 12b);
+    an analysis of no ported kind raises; and a CUDA request without a
+    card raises."""
     _, tmon, _ = _sets(data_path, "case14test.m", "dc")
     se = jgt.dc_state_estimation(tmon, device="cpu")
     assert jgt.state_estimation(se) is se and se.method.converged
     assert isinstance(se.method.jacobian, torch.Tensor)
+    lav = jgt.dc_lav_state_estimation(tmon, device="cpu")
+    assert jgt.state_estimation(lav) is lav and lav.method.converged
+    np.testing.assert_allclose(lav.voltage.angle, se.voltage.angle,
+                               atol=1e-6)
     _, tmon, _ = _sets(data_path, "case14test.m", "pmu")
     se = jgt.pmu_state_estimation(tmon, device="cpu")
     assert jgt.state_estimation(se, current=True) is se
     assert se.current is not None
-    lav = types.SimpleNamespace(method=types.SimpleNamespace(name="lav"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        jgt.state_estimation(lav)
+    other = types.SimpleNamespace(method=types.SimpleNamespace(name="wls"))
+    with pytest.raises(NotImplementedError, match="is not ported"):
+        jgt.state_estimation(other)
     if not torch.cuda.is_available():
         for build in (jgt.dc_state_estimation, jgt.pmu_state_estimation):
             with pytest.raises(RuntimeError, match="no CUDA device"):
