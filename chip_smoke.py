@@ -7,7 +7,11 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels K1 (``nr_fill``), K3 (``se_fill``), K4
 (``gs_sweep``) and K5 (``schur_gather``) from the sources in the checkout
-and holds each against its plain PyTorch version. It drives the
+and holds each against its plain PyTorch version; each K3 and K5 call
+(phases 5, 13, 15) is captured once in a CUDA graph to show that it puts
+one kernel and no memset or memcpy on the card, and is timed with its
+device time alone (queued behind a sleep kernel) and its host path. It
+drives the
 Newton-Raphson main path — ``power_system`` -> ``newton_raphson`` ->
 ``power_flow`` — on a 10,000-bus grid, checked against the independent
 scipy oracle, a 1024-scenario case118 fleet and a case14 fleet with one
@@ -37,12 +41,14 @@ loop and a scipy loop on ``oracle_wls_se`` remove the same two devices; and
 the 1,369-bus set with three planted errors, where the dense and Takahashi
 ``residual_test`` agree and ``lnr_removal`` removes the three. Then the
 bordered-block-diagonal scale path: K1's routed mode and K5
-(``schur_gather``) against their plain versions, K5 also against one
-``index_put_``, at the 10k and 25k layouts (phase 13); ``newton_raphson_bbd``
+(``schur_gather``) against their plain versions, K5 also bit for bit
+against ``schur_gather_lists`` and timed beside one ``index_put_``, at the
+10k and 25k layouts (phase 13); ``newton_raphson_bbd``
 -> ``power_flow_bbd`` on the 10k grid against phase 3's dense solve and on
 the 24,964-bus ``synthetic_grid(158, 158)`` against ``oracle_nr``, and
 ``fast_newton_raphson_bbd`` BX/XB on both against ``oracle_fdpf`` (phase
-14); K3's routed mode against its plain version, ``gauss_newton_bbd`` ->
+14); K3's routed mode against its plain version, K5 as the estimator
+calls it (no base, sign 1) at the three SE borders, ``gauss_newton_bbd`` ->
 ``se_bbd_solve`` on the 1,369-bus set against the dense estimate (and in
 chunks of blocks against one pass), and the 10k and 25k zero-noise sets
 reproducing the phase-14 states (phase 15). Then the interior point
@@ -256,6 +262,57 @@ def queued_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps):
+    """Host µs of one call of ``fn``: the calls are enqueued behind a
+    sleep kernel, so that none of them waits for the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(500_000 * reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def graph_nodes(fn):
+    """The types of the work one call of ``fn`` puts on the card: the
+    call is captured in a CUDA graph and its nodes are read through
+    ``libcuda`` (``CUgraphNodeType``: 0 a kernel, 1 a memcpy, 2 a
+    memset)."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    del graph
+    return kinds
+
+
+def check_one_launch(label, fn):
+    """``fn`` must put one kernel on the card and no memset or memcpy."""
+    kinds = graph_nodes(fn)
+    check(kinds == [0],
+          f"{label}: one call puts graph nodes of types {kinds} on the card "
+          f"(0 a kernel, 1 a memcpy, 2 a memset); one kernel and nothing "
+          f"else was expected")
 
 
 def wall_s(fn):
@@ -653,18 +710,35 @@ def compare_k3(label, arr, net, vm, va, mean):
           f"{label}: K3 disagrees with se_fill_ref, rel {worst_rel:.3e} "
           f"at {where}")
     check(pattern, f"{label}: K3 Jacobian pattern differs from se_fill_ref")
+    lean = k3.se_fill(arr, net, vm, va, mean, jacobian=False)
+    check(torch.equal(lean.h, got.h) and torch.equal(lean.r, got.r),
+          f"{label}: K3 without the Jacobian gives other h or r than with "
+          f"it")
     b, n = vm.shape
     least = bound(tensor_bytes(arr.desc.idx, arr.desc.coef, arr.status,
                                net.row_ptr, net.cols, net.yg, net.yb,
                                net.diag, vm, va, mean, *got),
                   b * mean.shape[1] * K3_OPS_PER_ROW)
-    del got, ref
+    del got, ref, lean
     ms = cuda_ms(lambda: k3.se_fill(arr, net, vm, va, mean), reps=20)
+    dev_ms = queued_ms(lambda: k3.se_fill(arr, net, vm, va, mean), reps=20)
+    host = host_us(lambda: k3.se_fill(arr, net, vm, va, mean), reps=20)
+    lean_ms, lean_dev = (
+        f(lambda: k3.se_fill(arr, net, vm, va, mean, jacobian=False),
+          reps=20) for f in (cuda_ms, queued_ms))
     plain_ms = cuda_ms(lambda: k3.se_fill_ref(arr, net, vm, va, mean), reps=5)
+    for mode in ("", " without the Jacobian"):
+        check_one_launch(f"{label} K3{mode}", lambda: k3.se_fill(
+            arr, net, vm, va, mean, jacobian=not mode))
     print(f"phase 5 {label} B={b} n={n} m={mean.shape[1]}: max abs diff "
-          f"{worst_abs!r}, max rel diff {worst_rel!r}, pattern equal; "
-          f"K3 {ms!r} ms, se_fill_ref {plain_ms!r} ms per call (jacobian); "
-          f"bound {least[0]!r} ms by {least[1]}")
+          f"{worst_abs!r}, max rel diff {worst_rel!r}, pattern equal, h and "
+          f"r without the Jacobian equal; one kernel a call and no memset or "
+          f"memcpy, with and without the Jacobian (CUDA graph nodes); K3 "
+          f"{ms!r} ms per call (device {dev_ms!r} ms queued, host {host!r} "
+          f"us), without the "
+          f"Jacobian {lean_ms!r} ms (device {lean_dev!r} ms); se_fill_ref "
+          f"{plain_ms!r} ms per call (jacobian); bound {least[0]!r} ms by "
+          f"{least[1]}")
     return worst_abs, ms, plain_ms, least
 
 
@@ -1718,21 +1792,30 @@ def compare_k1_routed(label, arr, rng):
     return worst_abs, ms, plain_ms, least
 
 
-def k5_bound(route):
+def k5_sources(route):
+    """The real contributions and parts of ``route``: each block's real
+    border slots squared, and once more for the right-hand side."""
+    real = (route.bsel < route.nb).sum(dim=1)
+    return int((real * real).sum() + real.sum())
+
+
+def k5_bound(route, base=True):
     """K5's least time on ``route``: it reads each real contribution and
-    part once (not the pad slots, nor its own gather tables: bsel alone
-    says where each goes), the border block and right-hand side, and
-    writes the border system."""
-    sources = route.mat_src.numel() + route.rhs_src.numel()
+    part once (not the pad slots, nor its own tables: bsel alone says
+    where each goes), the border block and right-hand side where the call
+    has them (``base``), and writes the border system."""
+    sources = k5_sources(route)
     border = 8 * (route.nb * route.nb + route.nb)
-    return bound(8 * sources + tensor_bytes(route.bsel) + 2 * border,
-                 2 * sources)
+    return bound(8 * sources + tensor_bytes(route.bsel)
+                 + (2 if base else 1) * border, 2 * sources)
 
 
-def compare_k5(label, route):
-    """Phase 13: K5 against schur_gather_ref and one index_put_ on random
-    contributions of the layout's shapes (sign -1 and a border base, as the
-    BBD NR calls it)."""
+def compare_k5(label, route, base=True, phase=13):
+    """K5 against schur_gather_ref, bit for bit against schur_gather_lists
+    and against one index_put_ on random contributions of the layout's
+    shapes, called as its solver calls it: sign -1 and a border base in
+    the BBD NR (phase 13), sign 1 and no base in the BBD SE (phase 15,
+    ``base=False``)."""
     k, width = route.bsel.shape
     nb = route.nb
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1742,29 +1825,43 @@ def compare_k5(label, route):
                            device="cuda")
 
     contrib, parts = randn(k, width, width), randn(k, width)
-    a_bb, r_bb = randn(nb, nb), randn(nb)
-    got = k5.schur_gather(route, contrib, parts, a_bb, r_bb, -1.0)
-    ref = k5.schur_gather_ref(route, contrib, parts, a_bb, r_bb, -1.0)
+    args = ((contrib, parts, randn(nb, nb), randn(nb), -1.0) if base
+            else (contrib, parts, None, None, 1.0))
+    got = k5.schur_gather(route, *args)
+    ref = k5.schur_gather_ref(route, *args)
+    lists = k5.schur_gather_lists(route, *args)
     torch.cuda.synchronize()
     worst_abs, worst_rel = rel_err(got, ref)
     check(worst_rel <= K5_REL_TOL,
           f"{label}: K5 disagrees with schur_gather_ref, rel {worst_rel:.3e}")
-    sources = route.mat_src.numel() + route.rhs_src.numel()
-    least = k5_bound(route)
-    del got, ref
-    ms = cuda_ms(lambda: k5.schur_gather(route, contrib, parts, a_bb, r_bb,
-                                         -1.0), reps=20)
-    plain_ms = cuda_ms(lambda: k5.schur_gather_ref(route, contrib, parts,
-                                                   a_bb, r_bb, -1.0), reps=5)
+    check(all(torch.equal(a, b) for a, b in zip(got, lists)),
+          f"{label}: K5 is not bit for bit schur_gather_lists, max abs diff "
+          f"{rel_err(got, lists)[0]!r}")
+    sources = k5_sources(route)
+    least = k5_bound(route, base)
+    del got, ref, lists
+
+    def call():
+        return k5.schur_gather(route, *args)
+
+    ms = cuda_ms(call, reps=20)
+    dev_ms = queued_ms(call, reps=20)
+    host = host_us(call, reps=20)
+    plain_ms = cuda_ms(lambda: k5.schur_gather_ref(route, *args), reps=5)
     s_pad = contrib.new_zeros((nb + 1, nb + 1))
     index = (route.bsel[:, :, None].expand(-1, -1, width),
              route.bsel[:, None, :].expand(-1, width, -1))
     library_ms = cuda_ms(lambda: s_pad.index_put_(index, contrib,
                                                   accumulate=True), reps=20)
-    print(f"phase 13 {label} K5: k={k}, L={width}, nb={nb}, {sources} "
-          f"sources into {route.mat_dst.numel()} + {route.rhs_dst.numel()} "
-          f"destinations; max abs diff {worst_abs!r}, max rel diff "
-          f"{worst_rel!r}; K5 {ms!r} ms, plain {plain_ms!r} ms, index_put_ "
+    check_one_launch(f"{label} K5", call)
+    print(f"phase {phase} {label} K5: k={k}, L={width}, nb={nb}, "
+          f"{'border base, sign -1' if base else 'no base, sign 1'}, "
+          f"{'merge' if not route.by_rows else 'row'} kernel, {sources} "
+          f"sources, {route.slot_blk.numel()} list entries; max abs diff "
+          f"{worst_abs!r}, max rel diff {worst_rel!r}, bit for bit "
+          f"schur_gather_lists; one kernel a call and no memset or memcpy "
+          f"(CUDA graph nodes); K5 {ms!r} ms per call (device {dev_ms!r} ms "
+          f"queued, host {host!r} us), plain {plain_ms!r} ms, index_put_ "
           f"{library_ms!r} ms per call; bound {least[0]!r} ms by {least[1]}")
     return worst_abs, ms, plain_ms, least, library_ms
 
@@ -1941,15 +2038,23 @@ def compare_k3_routed(label, sb, lay, vm, va):
                   arr.mean.numel() * K3_OPS_PER_ROW)
     gb = got.jac.numel() * 8 / 1e9
     del got, ref
-    ms = cuda_ms(lambda: k3.se_fill_routed(arr, sb.net, route, vm, va,
-                                           scale), reps=10)
+
+    def call():
+        return k3.se_fill_routed(arr, sb.net, route, vm, va, scale)
+
+    ms = cuda_ms(call, reps=10)
+    dev_ms = queued_ms(call, reps=10)
+    host = host_us(call, reps=10)
     plain_ms = cuda_ms(lambda: k3.se_fill_routed_ref(arr, sb.net, route, vm,
                                                      va, scale), reps=3)
+    check_one_launch(f"{label} K3 routed", call)
     print(f"phase 15 {label} K3 routed: m={arr.mean.numel()}, k={lay.k}, "
           f"mr={lay.mr}, width {2 * lay.ni + 2 * lay.lb}, H {gb!r} GB; max "
           f"abs diff {worst_abs!r}, max rel diff {worst_rel!r}, pattern "
-          f"equal; K3 routed {ms!r} ms, plain {plain_ms!r} ms per call; "
-          f"bound {least[0]!r} ms by {least[1]}")
+          f"equal; one kernel a call and no memset or memcpy (CUDA graph "
+          f"nodes); K3 routed {ms!r} ms per call (device {dev_ms!r} ms "
+          f"queued, host {host!r} us), plain {plain_ms!r} ms per call; bound "
+          f"{least[0]!r} ms by {least[1]}")
     return worst_abs, ms, plain_ms, least
 
 
@@ -2032,16 +2137,6 @@ def zero_noise_run(label, nr, rng):
                       perturbed(nr.system, vm, va, rng))
 
 
-def print_k5_bound(label, route):
-    """Phase 15: K5's bound at an SE layout (its time per increment is in
-    the stage split)."""
-    k, width = route.bsel.shape
-    least = k5_bound(route)
-    print(f"phase 15 {label} BBD SE K5: k={k}, L={width}, nb={route.nb}, "
-          f"{route.mat_src.numel() + route.rhs_src.numel()} sources; bound "
-          f"{least[0]!r} ms by {least[1]}")
-
-
 def phase15(nr_bbd):
     rng = np.random.default_rng(SEED)
     # the 1,369-bus set of phase 6 (no correlated pairs) against the dense
@@ -2055,7 +2150,8 @@ def phase15(nr_bbd):
         label, mon, SE_BBD_BLOCKS,
         (dense.voltage.magnitude, dense.voltage.angle,
          dense.method.iteration), BBD_DENSE_TOL)
-    print_k5_bound(label, se._bbd.schur)
+    k5_err = compare_k5(f"{label} BBD SE", se._bbd.schur, base=False,
+                        phase=15)[0]
     k3r = compare_k3_routed(label, se._bbd, se._bbd_layout, *se._state())
     # the gain stage over chunks of blocks, as where the card's memory asks
     # for it, gives the increment of one pass
@@ -2074,7 +2170,8 @@ def phase15(nr_bbd):
     # the zero-noise sets from the phase-14 BBD NR solutions
     for label, nr in zip(("10k", "25k"), nr_bbd):
         se, counts = zero_noise_run(label, nr, rng)
-        print_k5_bound(label, se._bbd.schur)
+        k5_err = max(k5_err, compare_k5(f"{label} BBD SE", se._bbd.schur,
+                                        base=False, phase=15)[0])
         launches = [a + b for a, b in zip(launches, counts)]
         if label == "25k":
             vm, va = (torch.tensor(x, device="cuda") for x in perturbed(
@@ -2083,7 +2180,7 @@ def phase15(nr_bbd):
                                         va)
         del se
     err = max(k3r[0], k3r_25k[0])
-    return (err, *k3r_25k[1:]), launches
+    return (err, *k3r_25k[1:]), launches, k5_err
 
 
 # --------------------------------------------------------------------------
@@ -2467,8 +2564,10 @@ def main():
     (k1r_err, *k1r_times), (k5_err, *k5_times) = phase13()
     k5_library_ms = k5_times.pop()
     nr_bbd, (k1r_launches, k5_launches) = phase14(dense_10k)
-    (k3r_err, *k3r_times), (k3r_launches, k5_se) = phase15(nr_bbd)
+    (k3r_err, *k3r_times), (k3r_launches, k5_se), k5_se_err = phase15(
+        nr_bbd)
     k5_launches += k5_se
+    k5_err = max(k5_err, k5_se_err)
     k3_launches += phase16()
     print(card)
     # no single PyTorch call computes K1's, K3's or K4's function, or the

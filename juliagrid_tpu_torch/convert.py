@@ -33,7 +33,8 @@ from .estimation.dcse import DcSeArrays
 from .estimation.pmuse import PmuSeArrays
 from .kernels.nr_fill import NrRoute, check_route
 from .kernels.schur_gather import schur_route
-from .kernels.se_fill import SeFillTable, SeRoute, se_fill_table
+from .kernels.se_fill import (SeFillTable, SeRoute, row_classes,
+                               se_fill_table, slot_rows)
 from .ops import linalg
 from .powerflow.ac import AcArrays, check_entry_list
 from .powerflow.dc import DcArrays
@@ -174,6 +175,7 @@ def se_arrays_from_numpy(host, device=None) -> SeArrays:
     (``se_fill_table``) before it reaches K3."""
     dev = resolve_device(device)
     idx, coef = se_fill_table(host)
+    order, closed = row_classes(idx)
 
     def i64(a):
         return torch.tensor(np.asarray(a, dtype=np.int64), device=dev)
@@ -195,7 +197,8 @@ def se_arrays_from_numpy(host, device=None) -> SeArrays:
         pair_off=f64(host.pair_off), slack=int(host.slack), branch=branch,
         desc=SeFillTable(
             idx=torch.tensor(idx, device=dev),
-            coef=torch.tensor(coef, device=dev)),
+            coef=torch.tensor(coef, device=dev),
+            order=torch.tensor(order, device=dev), closed=closed),
         **index)
 
 
@@ -295,10 +298,11 @@ def se_bbd_arrays_from_numpy(*, base, net, ent_rows, hi_sel, hi_blk, hi_row,
     ``base`` is an ``SeArrays`` on the device or a host mirror of one;
     ``net`` an ``AcArrays`` on the device or a mapping of its numpy fields.
 
-    From the row routing come K3's row maps (block and slot of each row),
-    from the bus routing and ``lb_gidx`` its column map (each block's
-    angle column of each of its buses), and from ``lb_gidx`` K5's gather
-    tables. The JAX package's per-block padded entry tables (``pb_*``)
+    From the row routing come K3's row maps (block and slot of each row,
+    and their inverse, the row on each slot of each block), from the bus
+    routing and ``lb_gidx`` its column map (each block's
+    angle column of each of its buses), and from ``lb_gidx`` K5's per-slot
+    lists. The JAX package's per-block padded entry tables (``pb_*``)
     serve its per-block streaming only and are not taken."""
     from .estimation.acse_bbd import SeBbdArrays, _SeBbdLayout
     dev = resolve_device(device)
@@ -324,6 +328,7 @@ def se_bbd_arrays_from_numpy(*, base, net, ent_rows, hi_sel, hi_blk, hi_row,
     row_slot[rows_idx[blk, slot]] = slot
     if np.any(row_block < 0):
         raise ValueError("a measurement row belongs to no block")
+    slot_row = slot_rows(row_block, row_slot, k, layout.mr)
 
     colmap = np.full((k, n), -1, dtype=np.int64)
     interior = np.flatnonzero(bus_block >= 0)
@@ -340,7 +345,8 @@ def se_bbd_arrays_from_numpy(*, base, net, ent_rows, hi_sel, hi_blk, hi_row,
         return torch.tensor(np.asarray(a, dtype=np.int32), device=dev)
 
     route = SeRoute(
-        row_block=i32(row_block), row_slot=i32(row_slot), colmap=i32(colmap),
+        row_block=i32(row_block), row_slot=i32(row_slot),
+        slot_row=i32(slot_row), colmap=i32(colmap),
         ent_rows=i64(ent_rows), hi_sel=i64(hi_sel), hi_blk=i64(hi_blk),
         hi_row=i64(hi_row), hi_col=i64(hi_col), hb_sel=i64(hb_sel),
         hb_blk=i64(hb_blk), hb_row=i64(hb_row), hb_col=i64(hb_col),

@@ -1,9 +1,9 @@
 """Build the port's CUDA sources into shared libraries loaded with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher that takes
-raw device pointers (``tensor.data_ptr()``) and a stream
-(``torch.cuda.current_stream().cuda_stream``), so the build needs neither
-PyTorch's headers nor ninja: one ``nvcc`` call of a few seconds per source.
+raw device pointers (``tensor.data_ptr()``, or a ctypes struct of them) and
+a stream (``launch_context``), so the build needs neither PyTorch's headers
+nor ninja: one ``nvcc`` call of a few seconds per source.
 
 The library is built at first use into ``build/juliagrid_tpu_torch/`` at the
 root of the checkout. Its file name carries a hash of the source and the
@@ -13,6 +13,7 @@ processes share one build.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -20,6 +21,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "juliagrid_tpu_torch"
@@ -76,3 +79,14 @@ def load_library(name: str) -> ctypes.CDLL:
                     f"{name}:\n{res.stdout}{res.stderr}")
             os.replace(tmp, so)
     return ctypes.CDLL(str(so))
+
+
+def launch_context(device: torch.device):
+    """``(context, stream)`` for a launch on ``device``: the context makes
+    ``device`` current (nothing to do when it already is) and ``stream`` is
+    the raw handle of its current stream."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    ctx = (contextlib.nullcontext() if index == current
+           else torch.cuda.device(index))
+    return ctx, torch._C._cuda_getCurrentRawStream(index)

@@ -9,20 +9,35 @@
 // scatter-add into a zeroed H; here one launch does all 21 row types for
 // B >= 1 scenarios of one measurement set.
 //
-// Mapping: one warp per (scenario, measurement row), driven by a per-row
-// descriptor table (structure of arrays, built once on the host):
-// idx[0][row] the row's type code, idx[1][row] its bus or from-bus,
-// idx[2][row] its to-bus, and coef[0..4][row] the PiModel coefficients
-// a, b, c, d and the shift angle phi. Voltmeter, PMU and branch rows are
-// closed-form: lane 0 evaluates h and writes the row's 1-4 Jacobian
-// entries. An injection row (types 6, 9) walks its bus's CSR segment of
-// the Y-bus entry list 32 entries at a time: each lane accumulates its
-// part of P and Q and writes the off-diagonal pair (dP/dtheta_j, dP/dV_j,
-// or the Q pair) at cols[k] and n + cols[k]; a warp shuffle sums P and Q,
-// and lane 0 writes h and the diagonal pair. The entry list is unique per
-// (row, col) and a branch row's two buses differ (both checked on the
-// host), so every element of H has one writer: no atomics, and the result
-// does not depend on scheduling.
+// Mapping, with the Jacobian: one warp per (scenario, measurement row),
+// driven by a per-row descriptor table (structure of arrays, built once on
+// the host): idx[0][row] the row's type code, idx[1][row] its bus or
+// from-bus, idx[2][row] its to-bus, and coef[0..4][row] the PiModel
+// coefficients a, b, c, d and the shift angle phi. Voltmeter, PMU and
+// branch rows are closed-form: lane 0 evaluates h and writes the row's 1-4
+// Jacobian entries. An injection row (types 6, 9) walks its bus's CSR
+// segment of the Y-bus entry list 32 entries at a time: each lane
+// accumulates its part of P and Q and writes the off-diagonal pair
+// (dP/dtheta_j, dP/dV_j, or the Q pair) at cols[k] and n + cols[k]; a warp
+// shuffle sums P and Q, and lane 0 writes h and the diagonal pair. The
+// entry list is unique per (row, col) and a branch row's two buses differ
+// (both checked on the host), so every element of H has one writer after
+// the zeroing: no atomics, and the result does not depend on scheduling.
+//
+// H crosses device memory once, with no separate memset. A thread block
+// owns 1-8 consecutive rows of H (about 16 KB), which lie one after another
+// in memory: all its threads first zero them as one region with 16-byte
+// stores, neighbouring threads on neighbouring addresses, and after a
+// barrier each warp writes its row's values into lines still in L2. The
+// zeroing stores of a block are contiguous, as a memset's are;
+// scripts/k3_k5_pair.py times each call beside a PyTorch zero_() of H.
+//
+// Without the Jacobian there is nothing to zero, and a warp per closed-form
+// row would idle 31 lanes: the host sorts the rows by class once
+// (order[]: closed-form rows, then injection rows), and one launch gives a
+// thread to each (scenario, closed-form row) and a warp to each (scenario,
+// injection row). Every row still writes h and r at its own index, with
+// the same lane grouping and so the same bits as with the Jacobian.
 //
 // Masks: every value is multiplied by the row's status (build_h's
 // H * status), and the slack column (the slack bus's angle) is left at
@@ -39,24 +54,53 @@
 // Routed mode (se_fill_routed_launch) replaces the per-block H of the BBD
 // estimator, juliagrid_tpu/estimation/acse_bbd.py:256-302 (h_entries routed
 // into H_int and H_bdr by _gains_block, with its status and slack masks):
-// the same row evaluation (fill_row), one scenario, but each row writes
-// row row_slot[r] of block row_block[r]'s [mr, 2ni + 2lb] matrix, its
-// columns mapped per block (interior slots, then local border slots), each
-// value times the row's status and the square root of its weight. The host
-// partition gives every row's variables to one block, and the column map
-// is one-to-one inside a block, so every element still has one writer.
+// the same row evaluation (fill_row), one scenario, each row written into
+// its block's [mr, 2ni + 2lb] matrix, its columns mapped per block
+// (interior slots, then local border slots), each value times the row's
+// status and the square root of its weight. A warp owns one (block, slot)
+// row of the per-block matrices: slot_row[block mr + slot], the host-built
+// inverse of the row -> (block, slot) map, names its measurement row, or
+// -1 for a pad slot. Inside the launched block range the thread block
+// zeroes its rows as one region and each warp then fills its row; outside
+// it the warp only computes h and r (every measurement row lies on one
+// slot). The host partition gives every
+// row's variables to one block, and the column map is one-to-one inside a
+// block, so every element still has one writer.
 //
-// Bound: with the Jacobian, the launcher zeroes B m 2n doubles first
-// (cudaMemsetAsync), a write at full memory bandwidth: 2.2 GB for case118
-// x1024, 10.9 GB for 32 scenarios of a 1,369-bus grid, about 0.7 and
-// 3.3 ms at 3.35 TB/s. The fill itself writes at most 2 + 2 deg(bus)
-// doubles per row. Without the Jacobian the launch reads the state and
-// the entry list once and is bound by launch latency. Offsets into H are
-// 64-bit.
+// Bound: with the Jacobian, writing B m 2n doubles once at full memory
+// bandwidth: 2.2 GB for case118 x1024, 10.9 GB for 32 scenarios of a
+// 1,369-bus grid, about 0.7 and 3.3 ms at 3.35 TB/s; the values are 1-4
+// doubles a row (2 + 2 deg(bus) for an injection row) inside that. Without
+// the Jacobian the launch reads the state and the entry list once and is
+// bound by launch latency. Offsets into H are 64-bit.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+// The tables of one measurement set on one network (and, for the routed
+// mode, one partition), built once on the host (se_fill.py::_Tables). At
+// file scope, so that the extern "C" launchers that take it keep their
+// external linkage.
+struct SeTables {
+  const int* idx;       // [3, m] type code, bus or from-bus, to-bus
+  const double* coef;   // [5, m] a, b, c, d, phi
+  const int* order;     // [m] closed-form rows, then injection rows
+  const int* row_ptr;   // [n + 1] Y-bus CSR
+  const int* cols;      // [nnz]
+  const double* yg;     // [nnz]
+  const double* yb;     // [nnz]
+  const int* diag;      // [n]
+  const int* slot_row;  // [k mr] routed: measurement row of a slot, or -1
+  const int* colmap;    // [k, n] routed: angle column of bus j in block b
+  int n;
+  int m;
+  int closed;           // closed-form rows, at the head of order
+  int ni;               // routed layout: interior slots,
+  int lb;               // local border slots,
+  int mr;               // row slots of a block,
+  int k;                // blocks
+};
 
 namespace {
 
@@ -317,88 +361,150 @@ __device__ __forceinline__ void fill_row(
   r[out] = mean[out] - hs;
 }
 
-__global__ void __launch_bounds__(kThreads)
-se_fill_kernel(const int* __restrict__ idx,
-               const double* __restrict__ coef,
-               const double* __restrict__ status,
-               int slack,
-               const int* __restrict__ row_ptr,
-               const int* __restrict__ cols,
-               const double* __restrict__ yg,
-               const double* __restrict__ yb,
-               const int* __restrict__ diag,
-               const double* __restrict__ vm,
-               const double* __restrict__ va,
-               const double* __restrict__ mean,
-               double* __restrict__ h,
-               double* __restrict__ r,
-               double* __restrict__ jac,
-               int n, int m, int batch) {
-  const int64_t warp =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  // blockDim.x is a multiple of 32, so a warp leaves here as a whole and
-  // the full-mask shuffles below see all 32 lanes.
-  if (warp >= static_cast<int64_t>(m) * batch) return;
-  const int b = static_cast<int>(warp / m);
-  const int row = static_cast<int>(warp % m);
+// A thread block owns `rows` (1-8) consecutive rows of H, one a warp,
+// which lie one after another in memory: the whole block first zeroes them
+// as one region with 16-byte stores, neighbouring threads on neighbouring
+// addresses; after a barrier each warp writes its row's values. The
+// launcher sizes the region to about kRegion bytes, so that the lines the
+// values land in are still in L2 when they come.
+constexpr int kRowsPerBlock = kThreads / kWarp;
+constexpr int64_t kRegion = 16 * 1024;
 
-  const double st = status[row];
-  const int64_t out = static_cast<int64_t>(b) * m + row;
-  double* hrow = jac == nullptr
-                     ? nullptr
-                     : jac + out * 2 * static_cast<int64_t>(n);
-  auto put = [&](int col, double v) {
-    if (hrow != nullptr && col != slack) hrow[col] = v * st;
-  };
-  fill_row(row, m, lane, idx, coef, st, row_ptr, cols, yg, yb, diag,
-           vm + static_cast<int64_t>(b) * n, va + static_cast<int64_t>(b) * n,
-           n, mean, h, r, out, put);
+// Rows of `len` doubles a thread block owns.
+int rows_per_block(int64_t len) {
+  const int64_t rows = kRegion / (8 * len);
+  return static_cast<int>(rows < 1 ? 1 : rows > kRowsPerBlock
+                                            ? kRowsPerBlock : rows);
 }
 
-// Routed mode, one scenario: warp `row` writes row row_slot[row] of block
-// row_block[row] when that block lies in [block_lo, block_hi). Column of
-// bus j in block b: a = colmap[b n + j], the angle's local column (an
-// interior slot, or 2ni + a local border slot); the magnitude's is a + ni
-// for an interior bus, a + lb for a border bus. Values are scaled by the
-// row's status and by scale[row] (the square root of its weight).
+// Zero `len` doubles at `base` (16-byte aligned, `len` even) with the
+// threads of the block, then wait for the block. Every thread calls it.
+__device__ __forceinline__ void zero_region(double* base, int64_t len) {
+  double2* p = reinterpret_cast<double2*>(base);
+  const double2 z = make_double2(0.0, 0.0);
+  for (int64_t c = threadIdx.x; c < len / 2; c += kThreads) p[c] = z;
+  __syncthreads();
+}
+
+// The jacobian-free put: values are not stored.
+struct NoPut {
+  __device__ void operator()(int, double) const {}
+};
+
 __global__ void __launch_bounds__(kThreads)
-se_fill_routed_kernel(const int* __restrict__ idx,
-                      const double* __restrict__ coef,
-                      const double* __restrict__ status,
-                      int slack,
-                      const int* __restrict__ row_ptr,
-                      const int* __restrict__ cols,
-                      const double* __restrict__ yg,
-                      const double* __restrict__ yb,
-                      const int* __restrict__ diag,
-                      const double* __restrict__ vm,
+se_fill_kernel(SeTables t, const double* __restrict__ status, int slack,
+               const double* __restrict__ vm, const double* __restrict__ va,
+               const double* __restrict__ mean, double* __restrict__ h,
+               double* __restrict__ r, double* __restrict__ jac, int batch,
+               int rows) {
+  const int m = t.m;
+  const int n = t.n;
+  const int64_t units = static_cast<int64_t>(m) * batch;
+  const int64_t len = 2 * static_cast<int64_t>(n);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * rows;
+  const int w = threadIdx.x / kWarp;
+  const int64_t unit = first + w;  // b m + row
+  const int lane = threadIdx.x % kWarp;
+  zero_region(jac + first * len,
+              min(static_cast<int64_t>(rows), units - first) * len);
+  // blockDim.x is a multiple of 32, so a warp leaves here as a whole and
+  // the full-mask shuffles below see all 32 lanes.
+  if (w >= rows || unit >= units) return;
+  const int b = static_cast<int>(unit / m);
+  const int row = static_cast<int>(unit % m);
+  const double st = status[row];
+  double* hrow = jac + unit * len;
+  auto put = [&](int col, double v) {
+    if (col != slack) hrow[col] = v * st;
+  };
+  fill_row(row, m, lane, t.idx, t.coef, st, t.row_ptr, t.cols, t.yg, t.yb,
+           t.diag, vm + static_cast<int64_t>(b) * n,
+           va + static_cast<int64_t>(b) * n, n, mean, h, r, unit, put);
+}
+
+// h and r alone. Blocks [0, closed_blocks) give a thread to each (scenario,
+// closed-form row), the rest a warp to each (scenario, injection row); the
+// rows come from order[] (closed-form rows first).
+__global__ void __launch_bounds__(kThreads)
+se_values_kernel(SeTables t, const double* __restrict__ status,
+                 const double* __restrict__ vm, const double* __restrict__ va,
+                 const double* __restrict__ mean, double* __restrict__ h,
+                 double* __restrict__ r, int batch, int closed_blocks) {
+  const int m = t.m;
+  const int n = t.n;
+  const int closed = t.closed;
+  int64_t unit;
+  int lane;
+  int rows;
+  int first;
+  if (static_cast<int>(blockIdx.x) < closed_blocks) {
+    unit = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    lane = 0;
+    rows = closed;
+    first = 0;
+  } else {
+    unit = (static_cast<int64_t>(blockIdx.x - closed_blocks) * blockDim.x
+            + threadIdx.x) / kWarp;
+    lane = threadIdx.x % kWarp;
+    rows = m - closed;
+    first = closed;
+  }
+  // a closed-form block's threads leave one by one (that path has no
+  // shuffle); an injection block's warps leave whole
+  if (rows == 0 || unit >= static_cast<int64_t>(rows) * batch) return;
+  const int b = static_cast<int>(unit / rows);
+  const int row = t.order[first + static_cast<int>(unit % rows)];
+  const int64_t out = static_cast<int64_t>(b) * m + row;
+  fill_row(row, m, lane, t.idx, t.coef, status[row], t.row_ptr, t.cols, t.yg,
+           t.yb, t.diag, vm + static_cast<int64_t>(b) * n,
+           va + static_cast<int64_t>(b) * n, n, mean, h, r, out, NoPut{});
+}
+
+// Routed mode, one scenario: warp w owns row w % mr of block w / mr, and a
+// thread block kRowsPerBlock such rows; those of the launched block range
+// lie one after another in `hblk`, and the thread block zeroes them as one
+// region. The warp's measurement row is slot_row[w] (-1: a pad slot).
+// Column of bus j in block b: a = colmap[b n + j], the angle's local column
+// (an interior slot, or 2ni + a local border slot); the magnitude's is
+// a + ni for an interior bus, a + lb for a border bus. Values are scaled
+// by the row's status and by scale[row] (the square root of its weight).
+__global__ void __launch_bounds__(kThreads)
+se_fill_routed_kernel(SeTables t, const double* __restrict__ status,
+                      int slack, const double* __restrict__ vm,
                       const double* __restrict__ va,
                       const double* __restrict__ mean,
-                      double* __restrict__ h,
-                      double* __restrict__ r,
-                      const int* __restrict__ row_block,
-                      const int* __restrict__ row_slot,
-                      const int* __restrict__ colmap,
+                      double* __restrict__ h, double* __restrict__ r,
                       const double* __restrict__ scale,
-                      double* __restrict__ hblk,
-                      int n, int m, int ni, int lb, int mr, int block_lo,
-                      int block_hi) {
-  const int64_t warp =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (warp >= m) return;
-  const int row = static_cast<int>(warp);
-  const double st = status[row];
-  const int blk = row_block[row];
+                      double* __restrict__ hblk, int block_lo,
+                      int block_hi, int rows) {
+  const int n = t.n;
+  const int ni = t.ni;
+  const int lb = t.lb;
+  const int mr = t.mr;
+  const int64_t units = static_cast<int64_t>(t.k) * mr;
   const int64_t width = 2 * static_cast<int64_t>(ni) + 2 * lb;
-  double* hrow = nullptr;
-  const int* cmap = nullptr;
-  if (hblk != nullptr && blk >= block_lo && blk < block_hi) {
-    hrow = hblk + (static_cast<int64_t>(blk - block_lo) * mr + row_slot[row])
-                      * width;
-    cmap = colmap + static_cast<int64_t>(blk) * n;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * rows;
+  const int w = threadIdx.x / kWarp;
+  const int64_t unit = first + w;
+  const int lane = threadIdx.x % kWarp;
+  // this thread block's units inside the launched block range
+  const int64_t lo = static_cast<int64_t>(block_lo) * mr;
+  int64_t in_lo = 0;
+  int64_t in_hi = 0;
+  if (hblk != nullptr) {
+    in_lo = max(first, lo);
+    in_hi = max(in_lo, min(min(first + rows, units),
+                           static_cast<int64_t>(block_hi) * mr));
   }
+  zero_region(hblk == nullptr ? nullptr : hblk + (in_lo - lo) * width,
+              (in_hi - in_lo) * width);
+  if (w >= rows || unit >= units) return;
+  const int row = t.slot_row[unit];
+  if (row < 0) return;  // a pad slot (warp-uniform)
+  double* hrow =
+      unit >= in_lo && unit < in_hi ? hblk + (unit - lo) * width : nullptr;
+  const int* cmap = t.colmap + (unit / mr) * n;
+  const double st = status[row];
   const double rs = scale[row];
   auto put = [&](int col, double v) {
     if (hrow == nullptr || col == slack) return;
@@ -407,73 +513,76 @@ se_fill_routed_kernel(const int* __restrict__ idx,
     if (a < 0) return;  // not a variable of this block (host-checked)
     hrow[mag ? a + (a < ni ? ni : lb) : a] = v * st * rs;
   };
-  fill_row(row, m, lane, idx, coef, st, row_ptr, cols, yg, yb, diag, vm, va,
-           n, mean, h, r, row, put);
+  fill_row(row, t.m, lane, t.idx, t.coef, st, t.row_ptr, t.cols, t.yg, t.yb,
+           t.diag, vm, va, n, mean, h, r, row, put);
+}
+
+int64_t blocks_of(int64_t threads) {
+  return (threads + kThreads - 1) / kThreads;
 }
 
 }  // namespace
 
-// Launch K3 on `stream`. All arrays are device pointers: the descriptor
-// table idx[3][m] (int) and coef[5][m], status[m], the Y-bus entry list
-// (row_ptr[n + 1], cols/yg/yb[nnz], diag[n]), the row-major [batch, n]
-// state, the [batch, m] means and outputs h and r, and `jac`, a
-// [batch, m, 2n] buffer or null to skip the Jacobian. `slack` is the
-// column to leave at zero, or -1. Returns a cudaError_t code.
-extern "C" int se_fill_launch(const int* idx, const double* coef,
-                              const double* status, int slack,
-                              const int* row_ptr, const int* cols,
-                              const double* yg, const double* yb,
-                              const int* diag, const double* vm,
-                              const double* va, const double* mean,
-                              double* h, double* r, double* jac, int n,
-                              int m, int batch, void* stream) {
-  if (n <= 0 || m <= 0 || batch <= 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (jac != nullptr) {
-    const size_t bytes = static_cast<size_t>(batch) * m * 2 *
-                         static_cast<size_t>(n) * sizeof(double);
-    const cudaError_t err = cudaMemsetAsync(jac, 0, bytes, s);
-    if (err != cudaSuccess) return err;
+// Launch K3 on `stream`. `t` holds the measurement set's and the network's
+// tables (device pointers): the descriptor table idx[3][m] (int) and
+// coef[5][m], the class order[m], the Y-bus entry list (row_ptr[n + 1],
+// cols/yg/yb[nnz], diag[n]). status[m], the row-major [batch, n] state and
+// the [batch, m] means are inputs; h and r ([batch, m]) outputs, and `jac`
+// a [batch, m, 2n] buffer that the launch fills whole, or null to skip the
+// Jacobian. `slack` is the column to leave at zero, or -1. Returns a
+// cudaError_t code.
+extern "C" int se_fill_launch(const SeTables* t, const double* status,
+                              int slack, const double* vm, const double* va,
+                              const double* mean, double* h, double* r,
+                              double* jac, int batch, void* stream) {
+  if (t == nullptr || t->n <= 0 || t->m <= 0 || batch <= 0) {
+    return cudaErrorInvalidValue;
   }
-  const int64_t threads = static_cast<int64_t>(m) * batch * kWarp;
-  const int64_t blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  se_fill_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      idx, coef, status, slack, row_ptr, cols, yg, yb, diag, vm, va, mean, h,
-      r, jac, n, m, batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int64_t blocks;
+  if (jac != nullptr) {
+    const int rows = rows_per_block(2 * static_cast<int64_t>(t->n));
+    const int64_t units = static_cast<int64_t>(t->m) * batch;
+    blocks = (units + rows - 1) / rows;
+    if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+    se_fill_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        *t, status, slack, vm, va, mean, h, r, jac, batch, rows);
+  } else {
+    const int64_t closed = blocks_of(static_cast<int64_t>(t->closed) * batch);
+    blocks = closed + blocks_of(static_cast<int64_t>(t->m - t->closed) *
+                                batch * kWarp);
+    if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+    se_values_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        *t, status, vm, va, mean, h, r, batch, static_cast<int>(closed));
+  }
   return cudaGetLastError();
 }
 
 // Launch K3's routed mode for one state on `stream`: h and r ([m]) as
-// above, and, unless `hblk` is null, zero the [block_hi - block_lo, mr,
-// 2ni + 2lb] per-block matrices `hblk` and fill the rows of those blocks.
-// row_block/row_slot are [m], colmap [k, n]. Returns a cudaError_t code.
-extern "C" int se_fill_routed_launch(
-    const int* idx, const double* coef, const double* status, int slack,
-    const int* row_ptr, const int* cols, const double* yg, const double* yb,
-    const int* diag, const double* vm, const double* va, const double* mean,
-    double* h, double* r, const int* row_block, const int* row_slot,
-    const int* colmap, const double* scale, double* hblk, int n, int m,
-    int ni, int lb, int mr, int block_lo, int block_hi, void* stream) {
-  if (n <= 0 || m <= 0 || ni <= 0 || lb <= 0 || mr <= 0 ||
-      block_hi < block_lo) {
+// above, and, unless `hblk` is null, the [block_hi - block_lo, mr, 2ni +
+// 2lb] per-block matrices `hblk`, filled whole. `t` also holds slot_row[k
+// mr] and colmap[k, n]. Returns a cudaError_t code.
+extern "C" int se_fill_routed_launch(const SeTables* t, const double* status,
+                                     int slack, const double* vm,
+                                     const double* va, const double* mean,
+                                     double* h, double* r,
+                                     const double* scale, double* hblk,
+                                     int block_lo, int block_hi,
+                                     void* stream) {
+  if (t == nullptr || t->n <= 0 || t->m <= 0 || t->ni <= 0 || t->lb <= 0 ||
+      t->mr <= 0 || t->k <= 0 || block_lo < 0 || block_hi < block_lo ||
+      block_hi > t->k) {
     return cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hblk != nullptr) {
-    const size_t bytes = static_cast<size_t>(block_hi - block_lo) * mr *
-                         (2 * static_cast<size_t>(ni) + 2 * lb) *
-                         sizeof(double);
-    const cudaError_t err = cudaMemsetAsync(hblk, 0, bytes, s);
-    if (err != cudaSuccess) return err;
-  }
-  const int64_t threads = static_cast<int64_t>(m) * kWarp;
-  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  const int rows =
+      rows_per_block(2 * static_cast<int64_t>(t->ni) + 2 * t->lb);
+  const int64_t blocks =
+      (static_cast<int64_t>(t->k) * t->mr + rows - 1) / rows;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  se_fill_routed_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      idx, coef, status, slack, row_ptr, cols, yg, yb, diag, vm, va, mean, h,
-      r, row_block, row_slot, colmap, scale, hblk, n, m, ni, lb, mr,
-      block_lo, block_hi);
+  se_fill_routed_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      *t, status, slack, vm, va, mean, h, r, scale, hblk, block_lo,
+      block_hi, rows);
   return cudaGetLastError();
 }
 

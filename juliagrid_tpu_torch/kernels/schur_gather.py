@@ -10,13 +10,16 @@ sentinel ``nb``), on top of a base (the masked border block, or zero) and
 times a sign. The CUDA source, its mapping and what bounds it are described
 in ``csrc/schur_gather.cu``.
 
-The kernel gathers from a CSR of sources per destination (``SchurRoute``)
-that ``schur_route`` builds once on the host from ``bsel``. ``schur_gather``
-dispatches on the device of its tensors: a CUDA tensor goes to the kernel
-(and the call raises if the kernel does not build or launch), a CPU tensor
-to ``schur_gather_ref``, the JAX package's padded scatter-add written with
-``index_put_(..., accumulate=True)``. ``schur_gather.launches`` counts
-kernel launches.
+The kernel gathers through per-border-slot lists (``SchurRoute``) that
+``schur_route`` builds once on the host from ``bsel``: for each border
+slot, the blocks that reach it and its local slot in each, in ascending
+block order. ``schur_gather`` dispatches on the device of its tensors: a
+CUDA tensor goes to the kernel (and the call raises if the kernel does not
+build or launch), a CPU tensor to ``schur_gather_ref``, the JAX package's
+padded scatter-add written with ``index_put_(..., accumulate=True)``.
+``schur_gather.launches`` counts kernel launches. ``schur_gather_lists``
+walks the lists in plain PyTorch in the kernel's order, so that it gives
+the kernel's bits.
 """
 
 from __future__ import annotations
@@ -27,39 +30,35 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import _build
 
 
 class SchurRoute(NamedTuple):
-    """K5's gather tables (int32) and the map they were built from."""
+    """K5's per-border-slot lists (int32) and the map they were built
+    from (the kernel reads both)."""
 
-    mat_dst: torch.Tensor  # i32[dm] flat destinations in [nb, nb], ascending
-    mat_ptr: torch.Tensor  # i32[dm + 1] CSR offsets into mat_src
-    mat_src: torch.Tensor  # i32[sm] flat sources in [k, L, L]
-    rhs_dst: torch.Tensor  # i32[dr] destinations in [nb], ascending
-    rhs_ptr: torch.Tensor  # i32[dr + 1]
-    rhs_src: torch.Tensor  # i32[sr] flat sources in [k, L]
-    bsel: torch.Tensor     # i64[k, L] local slot -> border slot (pad nb)
-    nb: int                # border size
-
-
-def _csr(dst: np.ndarray, src: np.ndarray):
-    """Sources grouped by destination, keeping their given (block) order
-    inside a group: ``(dst_unique, ptr, src)`` as int32."""
-    order = np.argsort(dst, kind="stable")
-    dst, src = dst[order], src[order]
-    uniq, start = np.unique(dst, return_index=True)
-    ptr = np.append(start, len(dst))
-    return (uniq.astype(np.int32), ptr.astype(np.int32),
-            src.astype(np.int32))
+    slot_ptr: torch.Tensor  # i32[nb + 1] list offsets
+    slot_blk: torch.Tensor  # i32[S] block of each entry, ascending in a list
+    slot_loc: torch.Tensor  # i32[S] the border slot's local slot there
+    bsel: torch.Tensor      # i64[k, L] local slot -> border slot (pad nb)
+    nb: int                 # border size
+    by_rows: bool           # which of K5's two kernels serves the route
 
 
 def schur_route_host(bsel, nb: int) -> dict:
-    """Numpy tables of ``SchurRoute`` from the ``[k, L]`` map ``bsel``:
-    for every border position any block reaches, its sources in ascending
-    block order. Pad slots (``bsel == nb``) are left out. Raises if a flat
-    index would not fit int32."""
+    """Numpy lists of ``SchurRoute`` from the ``[k, L]`` map ``bsel``: for
+    every border slot, the ``(block, local slot)`` pairs that reach it in
+    ascending block order. Pad slots (``bsel == nb``) are left out. Raises
+    if a flat index into the border or the contributions would not fit
+    int32, or if a block names one border slot twice.
+
+    ``by_rows`` picks the kernel: the row kernel, which streams each
+    block's contribution rows, where the real contributions (each block's
+    real slots squared) are at least as many as the border's elements (the
+    estimators' borders); else the merge kernel (see
+    csrc/schur_gather.cu)."""
     bsel = np.asarray(bsel, dtype=np.int64)
     k, width = bsel.shape
     if nb * nb >= 2**31 or k * width * width >= 2**31:
@@ -67,23 +66,22 @@ def schur_route_host(bsel, nb: int) -> dict:
                          "large for K5's int32 tables")
     valid = (bsel >= 0) & (bsel < nb)
     b_idx, l_idx = np.nonzero(valid)        # block-major: blocks ascending
-    rhs = _csr(bsel[b_idx, l_idx], b_idx * width + l_idx)
-    dsts, srcs = [], []
-    for b in range(k):
-        slots = np.flatnonzero(valid[b])
-        glob = bsel[b, slots]
-        dsts.append((glob[:, None] * nb + glob[None, :]).ravel())
-        srcs.append(((b * width + slots[:, None]) * width
-                     + slots[None, :]).ravel())
-    mat = _csr(np.concatenate(dsts), np.concatenate(srcs))
-    return dict(mat_dst=mat[0], mat_ptr=mat[1], mat_src=mat[2],
-                rhs_dst=rhs[0], rhs_ptr=rhs[1], rhs_src=rhs[2], bsel=bsel)
+    glob = bsel[b_idx, l_idx]
+    if len(np.unique(b_idx * nb + glob)) != len(glob):
+        raise ValueError("a block names one border slot twice")
+    order = np.argsort(glob, kind="stable")
+    ptr = np.searchsorted(glob[order], np.arange(nb + 1))
+    real = valid.sum(axis=1)
+    return dict(slot_ptr=ptr.astype(np.int32),
+                slot_blk=b_idx[order].astype(np.int32),
+                slot_loc=l_idx[order].astype(np.int32), bsel=bsel,
+                by_rows=bool((real * real).sum() >= nb * nb))
 
 
 def schur_route(bsel, nb: int, device) -> SchurRoute:
     """``SchurRoute`` on ``device`` from the numpy map ``bsel``."""
     host = schur_route_host(bsel, nb)
-    return SchurRoute(nb=int(nb), **{
+    return SchurRoute(nb=int(nb), by_rows=host.pop("by_rows"), **{
         name: torch.tensor(a, device=device) for name, a in host.items()})
 
 
@@ -124,44 +122,69 @@ def schur_gather(route: SchurRoute, contrib, parts, a_bb=None, r_bb=None,
 schur_gather.launches = 0
 
 
+class _Tables(ctypes.Structure):
+    """``SchurTables`` of csrc/schur_gather.cu."""
+
+    _fields_ = [("slot_ptr", ctypes.c_void_p), ("slot_blk", ctypes.c_void_p),
+                ("slot_loc", ctypes.c_void_p), ("bsel", ctypes.c_void_p),
+                ("nb", ctypes.c_int), ("k", ctypes.c_int),
+                ("width", ctypes.c_int), ("by_rows", ctypes.c_int)]
+
+
+#: each route's ``_Tables``, built at its first launch (keyed by its
+#: ``slot_ptr``, so that an entry goes with its route)
+_TABLES = WeakIdKeyDictionary()
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("schur_gather")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr = ctypes.c_void_p
     lib.schur_gather_launch.argtypes = (
-        [ptr] * 3 + [i32] + [ptr] * 3 + [i32] + [ptr] * 4
-        + [ctypes.c_double, ptr, ptr, i32, ptr])
-    lib.schur_gather_launch.restype = i32
-    lib.schur_gather_error_string.argtypes = [i32]
+        [ptr] * 5 + [ctypes.c_double] + [ptr] * 3)
+    lib.schur_gather_launch.restype = ctypes.c_int
+    lib.schur_gather_error_string.argtypes = [ctypes.c_int]
     lib.schur_gather_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _tables(route: SchurRoute) -> int:
+    """The address of ``route``'s ``_Tables``, checked and built once."""
+    tables = _TABLES.get(route.slot_ptr)
+    if tables is None:
+        for name, dtype in (("slot_ptr", torch.int32),
+                            ("slot_blk", torch.int32),
+                            ("slot_loc", torch.int32),
+                            ("bsel", torch.int64)):
+            t = getattr(route, name)
+            if t.dtype != dtype or not t.is_contiguous():
+                raise TypeError(f"SchurRoute.{name} must be contiguous "
+                                f"{dtype}")
+        k, width = route.bsel.shape
+        tables = _Tables(route.slot_ptr.data_ptr(),
+                         route.slot_blk.data_ptr(),
+                         route.slot_loc.data_ptr(), route.bsel.data_ptr(),
+                         route.nb, k, width, route.by_rows)
+        _TABLES[route.slot_ptr] = tables
+    return ctypes.addressof(tables)
+
+
 def _launch(route: SchurRoute, contrib, parts, a_bb, r_bb, scale: float):
-    for name in ("mat_dst", "mat_ptr", "mat_src", "rhs_dst", "rhs_ptr",
-                 "rhs_src"):
-        t = getattr(route, name)
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise TypeError(f"SchurRoute.{name} must be contiguous int32")
     contrib, parts = contrib.contiguous(), parts.contiguous()
     a_bb = None if a_bb is None else a_bb.contiguous()
     r_bb = None if r_bb is None else r_bb.contiguous()
     nb = route.nb
-    dev = contrib.device
-    schur = torch.empty((nb, nb), dtype=torch.float64, device=dev)
-    rhs = torch.empty(nb, dtype=torch.float64, device=dev)
+    out = torch.empty(nb * nb + nb, dtype=torch.float64,
+                      device=contrib.device)
+    schur, rhs = out[:nb * nb].view(nb, nb), out[nb * nb:]
     lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    ctx, stream = _build.launch_context(contrib.device)
+    with ctx:
         err = lib.schur_gather_launch(
-            route.mat_dst.data_ptr(), route.mat_ptr.data_ptr(),
-            route.mat_src.data_ptr(), route.mat_dst.numel(),
-            route.rhs_dst.data_ptr(), route.rhs_ptr.data_ptr(),
-            route.rhs_src.data_ptr(), route.rhs_dst.numel(),
-            contrib.data_ptr(), parts.data_ptr(),
+            _tables(route), contrib.data_ptr(), parts.data_ptr(),
             None if a_bb is None else a_bb.data_ptr(),
-            None if r_bb is None else r_bb.data_ptr(), float(scale),
-            schur.data_ptr(), rhs.data_ptr(), nb, stream)
+            None if r_bb is None else r_bb.data_ptr(), scale,
+            schur.data_ptr(), rhs.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("schur_gather launch failed: "
                            + lib.schur_gather_error_string(err).decode())
@@ -188,3 +211,49 @@ def schur_gather_ref(route: SchurRoute, contrib, parts, a_bb=None,
     rhs = scale * r_pad[:nb]
     return (schur if a_bb is None else a_bb + schur,
             rhs if r_bb is None else r_bb + rhs)
+
+
+def schur_gather_lists(route: SchurRoute, contrib, parts, a_bb=None,
+                       r_bb=None, scale: float = 1.0):
+    """K5's function computed as the kernel computes it, in plain PyTorch:
+    element (i, j) sums ``contrib[b, l_i, l_j]`` over the blocks on both
+    slots' lists in ascending block order, starting from 0.0, then adds
+    ``scale *`` the sum to the base; elements no block reaches keep the
+    base (or zero). Gives the kernel's bits, so the card's check can hold
+    it to them."""
+    nb = route.nb
+    k, width = route.bsel.shape
+    ptr = route.slot_ptr.long()
+    blk, loc = route.slot_blk.long(), route.slot_loc.long()
+    # the lists padded to their longest, and each block's local slot of
+    # each border slot (-1: not on its border)
+    count = ptr[1:] - ptr[:-1]
+    longest = int(count.max()) if nb else 0
+    pos = torch.arange(longest, device=ptr.device)
+    on = pos[None, :] < count[:, None]
+    at = (ptr[:-1, None] + pos[None, :]).clamp(max=max(len(blk) - 1, 0))
+    local = torch.full((k + 1, nb), -1, dtype=torch.long, device=ptr.device)
+    slot = torch.repeat_interleave(torch.arange(nb, device=ptr.device), count)
+    local[blk, slot] = loc
+    acc = contrib.new_zeros((nb, nb))
+    hit = torch.zeros((nb, nb), dtype=torch.bool, device=ptr.device)
+    acc_r = parts.new_zeros(nb)
+    for p in range(longest):
+        # entry p of each row's list, against the columns' local slots in
+        # the same block: ascending blocks, as the kernel's merge
+        b_i = torch.where(on[:, p], blk[at[:, p]], k)
+        l_i = loc[at[:, p]]
+        l_j = local[b_i]                                   # [nb, nb]
+        both = on[:, p, None] & (l_j >= 0)
+        val = contrib[b_i.clamp(max=k - 1)[:, None], l_i[:, None],
+                      l_j.clamp(min=0)]
+        acc = torch.where(both, acc + val, acc)
+        hit |= both
+        # the right-hand side walks each slot's own list
+        acc_r = torch.where(on[:, p], acc_r + parts[b_i.clamp(max=k - 1),
+                                                    l_i], acc_r)
+    base_s = a_bb if a_bb is not None else contrib.new_zeros((nb, nb))
+    base_r = r_bb if r_bb is not None else parts.new_zeros(nb)
+    schur = torch.where(hit, base_s + scale * acc, base_s)
+    rhs = torch.where(count > 0, base_r + scale * acc_r, base_r)
+    return schur, rhs

@@ -10,7 +10,12 @@ what bounds it are described in ``csrc/se_fill.cu``.
 
 The kernel reads a per-row descriptor table (``SeFillTable``) that
 ``se_fill_table`` builds once on the host from the row groups of an
-``SeArrays``. ``se_fill`` dispatches on the device of its tensors: a CUDA
+``SeArrays``, with the rows' class order (``row_classes``: closed-form rows,
+then injection rows) that the launch without the Jacobian maps by. A call
+is one launch: H is zeroed inside the kernel, and the table pointers are
+gathered into one ``_Tables`` struct at the first launch on a measurement
+set (or partition), not per call. ``se_fill`` dispatches on the device of
+its tensors: a CUDA
 tensor goes to the kernel (and the call raises if the kernel does not build
 or launch), a CPU tensor to ``se_fill_ref``, the plain PyTorch
 transcription of the jnp code. ``se_fill.launches`` counts kernel launches.
@@ -19,7 +24,9 @@ transcription of the jnp code. ``se_fill.launches`` counts kernel launches.
 (``estimation/acse_bbd.py``): one state, and instead of the dense H one
 ``[mr, 2ni + 2lb]`` matrix per block of the partition (its rows, its
 interior columns, its local border columns), scaled by W½, written through
-the row and column maps of an ``SeRoute``. It dispatches the same way, to
+the row and column maps of an ``SeRoute`` (its ``slot_row``, the row on
+each slot of each block, is what the kernel walks). It dispatches the same
+way, to
 ``se_fill_routed_ref`` on the CPU, and counts its own launches in
 ``se_fill_routed.launches``.
 """
@@ -32,6 +39,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..ops.equations import BRANCH_GROUPS
 from . import _build
@@ -45,8 +53,10 @@ class SeFillTable(NamedTuple):
     """K3's per-row descriptor table (structure of arrays, one column per
     measurement row)."""
 
-    idx: torch.Tensor   # i32[3, m]: type code, bus or from-bus, to-bus (-1)
-    coef: torch.Tensor  # f64[5, m]: PiModel a, b, c, d and shift angle phi
+    idx: torch.Tensor    # i32[3, m]: type code, bus or from-bus, to-bus (-1)
+    coef: torch.Tensor   # f64[5, m]: PiModel a, b, c, d and shift angle phi
+    order: torch.Tensor  # i32[m]: closed-form rows, then injection rows
+    closed: int          # closed-form rows (the head of order)
 
 
 class SeRoute(NamedTuple):
@@ -56,6 +66,7 @@ class SeRoute(NamedTuple):
 
     row_block: torch.Tensor  # i32[m] block of each measurement row
     row_slot: torch.Tensor   # i32[m] row slot inside its block
+    slot_row: torch.Tensor   # i32[k mr] the inverse: row of a slot, -1 pad
     colmap: torch.Tensor     # i32[k, n] angle column of bus j in block b
     ent_rows: torch.Tensor   # i64[E] measurement row of each H entry
     hi_sel: torch.Tensor     # i64 entries on interior columns ...
@@ -121,6 +132,33 @@ def se_fill_table(host) -> tuple[np.ndarray, np.ndarray]:
     return idx, coef
 
 
+def row_classes(idx) -> tuple[np.ndarray, int]:
+    """``(order, closed)``: the rows of the descriptor table ``idx`` with
+    the closed-form rows first and the injection rows (types 6, 9) after,
+    each class in ascending row order, and the count of closed-form rows.
+    Without the Jacobian K3 gives a closed-form row a thread and an
+    injection row a warp."""
+    inj = np.isin(np.asarray(idx)[0], (P_INJ, Q_INJ))
+    order = np.concatenate([np.flatnonzero(~inj), np.flatnonzero(inj)])
+    return order.astype(np.int32), int(np.count_nonzero(~inj))
+
+
+def slot_rows(row_block, row_slot, k: int, mr: int) -> np.ndarray:
+    """The ``[k mr]`` inverse of the row -> (block, slot) map: the
+    measurement row on each slot of each block, -1 on a pad slot. Raises
+    unless every row has a slot of its own."""
+    row_block = np.asarray(row_block, dtype=np.int64)
+    row_slot = np.asarray(row_slot, dtype=np.int64)
+    flat = row_block * mr + row_slot
+    if (np.any(row_block < 0) or np.any(row_block >= k)
+            or np.any(row_slot < 0) or np.any(row_slot >= mr)
+            or len(np.unique(flat)) != len(flat)):
+        raise ValueError("every measurement row needs a slot of its own")
+    out = np.full(k * mr, -1, dtype=np.int32)
+    out[flat] = np.arange(len(flat))
+    return out
+
+
 def _check_inputs(arr, net, vm, va, mean):
     n = net.row_ptr.numel() - 1
     m = arr.mean.shape[0]
@@ -161,56 +199,88 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("se_fill")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.se_fill_launch.argtypes = (
-        [ptr] * 3 + [i32] + [ptr] * 11 + [i32] * 3 + [ptr])
+        [ptr] * 2 + [i32] + [ptr] * 6 + [i32, ptr])
     lib.se_fill_launch.restype = i32
     lib.se_fill_routed_launch.argtypes = (
-        [ptr] * 3 + [i32] + [ptr] * 15 + [i32] * 7 + [ptr])
+        [ptr] * 2 + [i32] + [ptr] * 7 + [i32] * 2 + [ptr])
     lib.se_fill_routed_launch.restype = i32
     lib.se_fill_error_string.argtypes = [i32]
     lib.se_fill_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_tables(arr, net) -> None:
-    table = arr.desc
-    for name, t, dtype in (("desc.idx", table.idx, torch.int32),
-                           ("desc.coef", table.coef, torch.float64),
-                           ("status", arr.status, torch.float64),
-                           ("net.row_ptr", net.row_ptr, torch.int32),
-                           ("net.cols", net.cols, torch.int32),
-                           ("net.yg", net.yg, torch.float64),
-                           ("net.yb", net.yb, torch.float64),
-                           ("net.diag", net.diag, torch.int32)):
-        if t.dtype != dtype or not t.is_contiguous():
-            raise TypeError(f"{name} must be contiguous {dtype}")
+class _Tables(ctypes.Structure):
+    """``SeTables`` of csrc/se_fill.cu."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "idx", "coef", "order", "row_ptr", "cols", "yg", "yb", "diag",
+        "slot_row", "colmap")]
+        + [(name, ctypes.c_int) for name in (
+            "n", "m", "closed", "ni", "lb", "mr", "k")])
+
+
+#: the ``_Tables`` of each measurement set (keyed by its ``desc.idx``) or
+#: partition (keyed by its ``SeRoute.slot_row``), with the tensors they
+#: point into; built at the first launch, and again if the network changes
+_DENSE = WeakIdKeyDictionary()
+_ROUTED = WeakIdKeyDictionary()
+
+
+def _tables(cache, key_name: str, key, tensors: dict, **ints) -> int:
+    """The address of the ``_Tables`` of ``key`` (its field ``key_name``)
+    and ``tensors``, checked and built once for as long as the same
+    tensors come with ``key``. The entry holds ``tensors`` but not
+    ``key``, so that it goes when ``key`` does."""
+    held = tuple(tensors.values())
+    entry = cache.get(key)
+    if entry is None or any(a is not b for a, b in zip(entry[1], held)):
+        for name, t in ((key_name, key), *tensors.items()):
+            want = torch.float64 if t.is_floating_point() else torch.int32
+            if t.dtype != want or not t.is_contiguous():
+                raise TypeError(f"{name} must be contiguous {want}")
+        ptrs = {name: t.data_ptr() for name, t in tensors.items()}
+        entry = (_Tables(**{key_name: key.data_ptr()}, **ptrs, **ints), held)
+        cache[key] = entry
+    return ctypes.addressof(entry[0])
+
+
+def _net_tensors(net) -> dict:
+    return dict(row_ptr=net.row_ptr, cols=net.cols, yg=net.yg, yb=net.yb,
+                diag=net.diag)
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + _library().se_fill_error_string(err).decode())
 
 
 def _launch(arr, net, vm, va, mean, jacobian: bool,
             mask_slack: bool) -> SeFill:
-    _check_tables(arr, net)
     table = arr.desc
-    vm, va, mean = (t.contiguous() for t in (vm, va, mean))
     batch, n = vm.shape
     m = mean.shape[1]
-    lib = _library()
+    tables = _tables(_DENSE, "idx", table.idx,
+                     dict(coef=table.coef, order=table.order,
+                          **_net_tensors(net)),
+                     n=n, m=m, closed=table.closed)
+    if arr.status.dtype != torch.float64 or not arr.status.is_contiguous():
+        raise TypeError("status must be contiguous float64")
+    vm, va, mean = vm.contiguous(), va.contiguous(), mean.contiguous()
     out = torch.empty((2, batch, m), dtype=torch.float64, device=vm.device)
-    h, r = out.unbind(0)
     jac = (torch.empty((batch, m, 2 * n), dtype=torch.float64,
                        device=vm.device) if jacobian else None)
-    with torch.cuda.device(vm.device):
-        stream = torch.cuda.current_stream(vm.device).cuda_stream
-        err = lib.se_fill_launch(
-            table.idx.data_ptr(), table.coef.data_ptr(),
-            arr.status.data_ptr(), int(arr.slack) if mask_slack else -1,
-            net.row_ptr.data_ptr(), net.cols.data_ptr(), net.yg.data_ptr(),
-            net.yb.data_ptr(), net.diag.data_ptr(), vm.data_ptr(),
-            va.data_ptr(), mean.data_ptr(), h.data_ptr(), r.data_ptr(),
-            None if jac is None else jac.data_ptr(), n, m, batch, stream)
-    if err != 0:
-        raise RuntimeError("se_fill launch failed: "
-                           + lib.se_fill_error_string(err).decode())
+    ctx, stream = _build.launch_context(vm.device)
+    with ctx:
+        err = _library().se_fill_launch(
+            tables, arr.status.data_ptr(),
+            int(arr.slack) if mask_slack else -1, vm.data_ptr(),
+            va.data_ptr(), mean.data_ptr(), out.data_ptr(),
+            out.data_ptr() + 8 * batch * m,
+            None if jac is None else jac.data_ptr(), batch, stream)
+    _check(err, "se_fill")
     se_fill.launches += 1
-    return SeFill(h, r, jac)
+    return SeFill(out[0], out[1], jac)
 
 
 def se_fill_routed(arr, net, route: SeRoute, vm, va, scale,
@@ -240,37 +310,35 @@ se_fill_routed.launches = 0
 
 def _launch_routed(arr, net, route: SeRoute, vm, va, scale, block_lo: int,
                    block_hi: int) -> SeFill:
-    _check_tables(arr, net)
-    for name in ("row_block", "row_slot", "colmap"):
-        t = getattr(route, name)
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise TypeError(f"SeRoute.{name} must be contiguous int32")
+    table = arr.desc
+    n, m = vm.shape[0], arr.mean.shape[0]
+    k = route.colmap.shape[0]
+    if route.slot_row.numel() != k * route.mr:
+        raise ValueError("SeRoute.slot_row must have k mr entries")
+    tables = _tables(_ROUTED, "slot_row", route.slot_row,
+                     dict(idx=table.idx, coef=table.coef, order=table.order,
+                          **_net_tensors(net), colmap=route.colmap),
+                     n=n, m=m, closed=table.closed, ni=route.ni, lb=route.lb,
+                     mr=route.mr, k=k)
+    for name, t in (("status", arr.status), ("mean", arr.mean)):
+        if t.dtype != torch.float64 or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous float64")
     vm, va, scale = vm.contiguous(), va.contiguous(), scale.contiguous()
-    mean = arr.mean.contiguous()
-    n, m = vm.shape[0], mean.shape[0]
     width = 2 * route.ni + 2 * route.lb
-    lib = _library()
     out = torch.empty((2, m), dtype=torch.float64, device=vm.device)
-    h, r = out.unbind(0)
     jac = torch.empty((block_hi - block_lo, route.mr, width),
                       dtype=torch.float64, device=vm.device)
-    with torch.cuda.device(vm.device):
-        stream = torch.cuda.current_stream(vm.device).cuda_stream
-        err = lib.se_fill_routed_launch(
-            arr.desc.idx.data_ptr(), arr.desc.coef.data_ptr(),
-            arr.status.data_ptr(), int(arr.slack), net.row_ptr.data_ptr(),
-            net.cols.data_ptr(), net.yg.data_ptr(), net.yb.data_ptr(),
-            net.diag.data_ptr(), vm.data_ptr(), va.data_ptr(),
-            mean.data_ptr(), h.data_ptr(), r.data_ptr(),
-            route.row_block.data_ptr(), route.row_slot.data_ptr(),
-            route.colmap.data_ptr(), scale.data_ptr(),
-            jac.data_ptr() if jac.numel() else None, n, m, route.ni,
-            route.lb, route.mr, block_lo, block_hi, stream)
-    if err != 0:
-        raise RuntimeError("se_fill routed launch failed: "
-                           + lib.se_fill_error_string(err).decode())
+    ctx, stream = _build.launch_context(vm.device)
+    with ctx:
+        err = _library().se_fill_routed_launch(
+            tables, arr.status.data_ptr(), int(arr.slack), vm.data_ptr(),
+            va.data_ptr(), arr.mean.data_ptr(), out.data_ptr(),
+            out.data_ptr() + 8 * m, scale.data_ptr(),
+            jac.data_ptr() if jac.numel() else None, block_lo, block_hi,
+            stream)
+    _check(err, "se_fill routed")
     se_fill_routed.launches += 1
-    return SeFill(h, r, jac)
+    return SeFill(out[0], out[1], jac)
 
 
 def se_fill_routed_ref(arr, net, route: SeRoute, vm, va, scale,

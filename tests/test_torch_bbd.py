@@ -1,7 +1,7 @@
 """The port's BBD substrate against the JAX package's: the host
 partitioners (copies, bit for bit), the Schur solves (``ops/bbd.py``) on
 ``tests/test_bbd.py``'s 8x12 DC system, and K5 ``schur_gather``'s plain
-version and gather tables against the JAX padded scatter-add. The CUDA
+version and per-slot lists against the JAX padded scatter-add. The CUDA
 kernel itself is held to its plain version on the card by
 ``chip_smoke.py``."""
 
@@ -18,6 +18,7 @@ from juliagrid_tpu.ops import linalg as jax_linalg
 from juliagrid_tpu.ops.partition import nd_partition as jax_nd_partition
 from juliagrid_tpu.utils.synthetic import synthetic_grid as jax_grid
 from juliagrid_tpu_torch.kernels.schur_gather import (schur_gather,
+                                                      schur_gather_lists,
                                                       schur_gather_ref,
                                                       schur_route,
                                                       schur_route_host)
@@ -271,39 +272,129 @@ def test_schur_gather_ref_matches_jax_scatter(scale):
     np.testing.assert_allclose(rhs.numpy(), want_r, rtol=0, atol=1e-14)
 
 
+def _walk_lists(host, contrib, parts, a_bb, r_bb, scale):
+    """K5's per-slot lists walked as the kernel walks them: element (i, j)
+    merges the two ascending lists and sums the common blocks'
+    contributions in ascending block order from 0.0, then base + scale *
+    sum; the right-hand side sums each slot's own list."""
+    ptr, blk, loc = host["slot_ptr"], host["slot_blk"], host["slot_loc"]
+    nb = len(ptr) - 1
+    schur, rhs = a_bb.copy(), r_bb.copy()
+    for j in range(nb):
+        q0, q1 = ptr[j], ptr[j + 1]
+        for i in range(nb):
+            p, pe, q = ptr[i], ptr[i + 1], q0
+            acc, reached = 0.0, False
+            while p < pe and q < q1:
+                if blk[p] == blk[q]:
+                    acc += contrib[blk[p], loc[p], loc[q]]
+                    reached = True
+                    p, q = p + 1, q + 1
+                elif blk[p] < blk[q]:
+                    p += 1
+                else:
+                    q += 1
+            if reached:
+                schur[i, j] = schur[i, j] + scale * acc
+        if q1 > q0:
+            rhs[j] = rhs[j] + scale * sum(parts[blk[q], loc[q]]
+                                          for q in range(q0, q1))
+    return schur, rhs
+
+
 @pytest.mark.parametrize("seed", [1, 2])
 def test_schur_route_gather_equals_ref(seed):
-    """K5's tables, walked as the kernel walks them (one destination at a
-    time, its sources in ascending block order, base + scale * sum),
-    reproduce the plain version; pad slots are never named."""
+    """K5's per-slot lists, walked as the kernel walks them (one element at
+    a time, the two lists merged in ascending block order, base + scale *
+    sum), reproduce the plain version; pad slots are never named and each
+    list is ascending."""
     bsel, contrib, parts, a_bb, r_bb = _schur_case(seed)
     nb = a_bb.shape[0]
     host = schur_route_host(bsel, nb)
     k, width = bsel.shape
-    for name in ("mat_dst", "mat_ptr", "mat_src", "rhs_dst", "rhs_ptr",
-                 "rhs_src"):
+    for name in ("slot_ptr", "slot_blk", "slot_loc"):
         assert host[name].dtype == np.int32
-    assert np.all(np.diff(host["mat_dst"]) > 0)
-    assert host["mat_dst"].max() < nb * nb and host["rhs_dst"].max() < nb
-
-    def walk(dst, ptr, src, vals, base):
-        out = base.copy().ravel()
-        for t, d in enumerate(dst):
-            srcs = src[ptr[t]:ptr[t + 1]]
-            blocks = srcs // (width * width if vals.ndim == 3 else width)
-            assert np.all(np.diff(blocks) > 0)
-            out[d] = out.ravel()[d] - vals.ravel()[srcs].sum()
-        return out.reshape(base.shape)
-
-    schur = walk(host["mat_dst"], host["mat_ptr"], host["mat_src"], contrib,
-                 a_bb)
-    rhs = walk(host["rhs_dst"], host["rhs_ptr"], host["rhs_src"], parts,
-               r_bb)
+    ptr, blk, loc = host["slot_ptr"], host["slot_blk"], host["slot_loc"]
+    assert ptr[0] == 0 and ptr[-1] == np.count_nonzero(bsel < nb)
+    for g in range(nb):
+        lst = slice(ptr[g], ptr[g + 1])
+        assert np.all(np.diff(blk[lst]) > 0)
+        assert np.all(bsel[blk[lst], loc[lst]] == g)
+    schur, rhs = _walk_lists(host, contrib, parts, a_bb, r_bb, -1.0)
     ref = schur_gather_ref(schur_route(bsel, nb, "cpu"),
                            torch.tensor(contrib), torch.tensor(parts),
                            torch.tensor(a_bb), torch.tensor(r_bb), -1.0)
     np.testing.assert_allclose(schur, ref[0].numpy(), rtol=0, atol=1e-14)
     np.testing.assert_allclose(rhs, ref[1].numpy(), rtol=0, atol=1e-14)
+
+
+@pytest.mark.parametrize("scale", [-1.0, 1.0, 0.3])
+@pytest.mark.parametrize("base", [True, False])
+@pytest.mark.parametrize("seed", [1, 2, 4])
+def test_schur_gather_lists_is_the_list_walk(seed, base, scale):
+    """``schur_gather_lists``, the check K5 is held to bit for bit on the
+    card, is the kernel's list walk bit for bit, and the plain version
+    within rounding (with and without a base, at any scale)."""
+    bsel, contrib, parts, a_bb, r_bb = _schur_case(seed)
+    nb = a_bb.shape[0]
+    if not base:
+        a_bb, r_bb = np.zeros_like(a_bb), np.zeros_like(r_bb)
+    route = schur_route(bsel, nb, "cpu")
+    args = (torch.tensor(contrib), torch.tensor(parts),
+            torch.tensor(a_bb) if base else None,
+            torch.tensor(r_bb) if base else None, scale)
+    got = schur_gather_lists(route, *args)
+    walk = _walk_lists(schur_route_host(bsel, nb), contrib, parts, a_bb,
+                       r_bb, scale)
+    assert np.array_equal(got[0].numpy(), walk[0])
+    assert np.array_equal(got[1].numpy(), walk[1])
+    ref = schur_gather_ref(route, *args)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-14)
+
+
+def test_schur_gather_lists_on_the_10k_layout():
+    """The 10k grid's NR border at k = 16 (the layout phase 13 holds K5 to
+    on the card): lists of at most a few blocks, no pad slot listed, and
+    the list walk equal to the plain version."""
+    arr, lay = jgt.powerflow.newton_bbd.compile_nr_bbd(
+        synthetic_grid(100, 100), 16, "cpu")
+    route = arr.schur
+    k, width = route.bsel.shape
+    nb = route.nb
+    assert (k, width, nb) == (16, 202, 1220)
+    count = (route.slot_ptr[1:] - route.slot_ptr[:-1]).numpy()
+    assert count.sum() == int((route.bsel < nb).sum())
+    assert 1 <= count.max() <= 4
+    assert not route.by_rows                # the output outweighs the rest
+    gen = torch.Generator().manual_seed(5)
+    contrib = torch.randn((k, width, width), generator=gen,
+                          dtype=torch.float64)
+    parts = torch.randn((k, width), generator=gen, dtype=torch.float64)
+    a_bb = torch.randn((nb, nb), generator=gen, dtype=torch.float64)
+    r_bb = torch.randn(nb, generator=gen, dtype=torch.float64)
+    got = schur_gather_lists(route, contrib, parts, a_bb, r_bb, -1.0)
+    ref = schur_gather_ref(route, contrib, parts, a_bb, r_bb, -1.0)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-13)
+
+
+def test_by_rows_weighs_contributions_against_the_border():
+    """K5 streams contribution rows when the real contributions are at
+    least as many as the border's elements, and merges lists otherwise."""
+    few = np.array([[0, 1, 4], [2, 3, 4]])            # 2 x 2^2 < 4^2
+    many = np.array([[0, 1, 2, 3], [0, 1, 2, 3]])     # 2 x 4^2 >= 4^2
+    assert not schur_route(few, 4, "cpu").by_rows
+    assert schur_route(many, 4, "cpu").by_rows
+    assert not schur_route_host(few, 4)["by_rows"]
+
+
+def test_schur_route_refuses_a_slot_named_twice():
+    """One block naming one border slot at two local slots would need two
+    contributions summed into one element from one list entry: refused."""
+    bsel = np.array([[0, 1, 3], [1, 1, 3]])
+    with pytest.raises(ValueError, match="twice"):
+        schur_route_host(bsel, 3)
 
 
 def test_schur_gather_checks_inputs():

@@ -132,6 +132,33 @@ def test_routed_twin_matches_gains_block(data_path, case, k, every):
                           torch.tensor(va), tsb.base.w.sqrt(), 2, k + 1)
 
 
+@pytest.mark.parametrize("case,k,every", [("case14test.m", 2, 5),
+                                          ("case118.m", 4, 10)])
+def test_routed_slot_rows_invert_the_row_map(data_path, case, k, every):
+    """K3's routed mode gives a warp to each (block, slot) row: the
+    host-built inverse names every measurement row on exactly one slot,
+    the slot of its block that the row map gives it, and -1 on the pad
+    slots, as the JAX package's rows_idx and row_mask say."""
+    (jsys, jmon), _ = _both(data_path, case, every)
+    sb, lay, tsb, tlay = _carried(jsys, jmon, k)
+    route = tsb.route
+    slot_row = route.slot_row.numpy()
+    assert route.slot_row.dtype == torch.int32
+    assert slot_row.shape == (tlay.k * tlay.mr,)
+    m = tsb.base.mean.numel()
+    real = slot_row[slot_row >= 0]
+    assert np.array_equal(np.sort(real), np.arange(m))
+    flat = route.row_block.numpy().astype(np.int64) * tlay.mr \
+        + route.row_slot.numpy()
+    assert np.array_equal(slot_row[flat], np.arange(m))
+    want = np.where(np.asarray(sb.row_mask) != 0, np.asarray(sb.rows_idx),
+                    -1).ravel()
+    assert np.array_equal(slot_row, want)
+    with pytest.raises(ValueError, match="slot of its own"):
+        k3.slot_rows(np.zeros(2, dtype=np.int64), np.zeros(2, dtype=np.int64),
+                     tlay.k, tlay.mr)
+
+
 def test_se_bbd_matches_jax_and_dense_118(data_path):
     """test_se_bbd_matches_dense_118: the dense path's and the JAX BBD's
     iteration count, states within 1e-10 of both; and the port's loop on

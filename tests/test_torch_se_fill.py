@@ -1,9 +1,9 @@
 """K3 ``se_fill``: its plain PyTorch version against the JAX package's
 ``h_entries``/``build_h`` (and ``gn_increment``'s masks) on identical
 measurement sets carried across with ``se_arrays_from_numpy``; the
-descriptor table, the wrapper's CPU dispatch, input checks and build. The
-CUDA kernel itself is held to the plain version on the card by
-``chip_smoke.py``.
+descriptor table and its class order, the wrapper's CPU dispatch, input
+checks and build. The CUDA kernel itself is held to the plain version on
+the card by ``chip_smoke.py``.
 
 Tolerance: 1e-12 relative to max(1, |value|) — the same arithmetic in
 another summation order (the injection rows' segment sums)."""
@@ -21,8 +21,8 @@ from juliagrid_tpu_torch.convert import (ac_arrays_from_numpy,
                                          se_arrays_from_numpy)
 from juliagrid_tpu_torch.estimation import acse as torch_acse
 from juliagrid_tpu_torch.kernels import _build
-from juliagrid_tpu_torch.kernels.se_fill import (se_fill, se_fill_ref,
-                                                 se_fill_table)
+from juliagrid_tpu_torch.kernels.se_fill import (row_classes, se_fill,
+                                                 se_fill_ref, se_fill_table)
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 ALL_TYPES = set(range(1, 22))
@@ -174,6 +174,35 @@ def test_descriptor_table_follows_the_row_types(carried):
                               np.stack([grp.a, grp.b, grp.c, grp.d, grp.phi]))
     bus_rows = np.concatenate([c["host"].vm_rows, c["host"].p_rows])
     assert np.all(idx[2, bus_rows] == -1)
+
+
+def test_row_classes_are_a_bijection_that_keeps_rows(carried):
+    """Without the Jacobian K3 gives a thread to each closed-form row and a
+    warp to each injection row, taking rows from the class order: a
+    permutation with every closed-form row first, each class ascending,
+    and each unit writing h and r at its own row index, so the values come
+    out where the row-ordered launch puts them."""
+    c = carried
+    idx, _ = se_fill_table(c["host"])
+    order, closed = row_classes(idx)
+    m = idx.shape[1]
+    assert order.dtype == np.int32
+    assert np.array_equal(np.sort(order), np.arange(m))
+    inj = np.isin(idx[0], (6, 9))
+    assert closed == np.count_nonzero(~inj) and 0 < closed < m
+    assert not inj[order[:closed]].any() and inj[order[closed:]].all()
+    assert np.all(np.diff(order[:closed]) > 0)
+    assert np.all(np.diff(order[closed:]) > 0)
+    assert np.array_equal(c["tarr"].desc.order.numpy(), order)
+    assert c["tarr"].desc.closed == closed
+    # the units in class order, each writing its own row
+    vm, va = (torch.from_numpy(x) for x in _states(c, 2, seed=4))
+    mean = c["tarr"].mean.expand(2, -1)
+    ref = se_fill_ref(c["tarr"], c["tnet"], vm, va, mean, jacobian=False)
+    h, r = torch.full_like(ref.h, np.nan), torch.full_like(ref.r, np.nan)
+    rows = torch.from_numpy(order).long()
+    h[:, rows], r[:, rows] = ref.h[:, rows], ref.r[:, rows]
+    assert torch.equal(h, ref.h) and torch.equal(r, ref.r)
 
 
 def test_descriptor_table_refuses_a_row_with_two_writers(carried):
