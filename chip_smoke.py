@@ -6,11 +6,12 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels K1 (``nr_fill``), K3 (``se_fill``), K4
-(``gs_sweep``) and K5 (``schur_gather``) from the sources in the checkout
-and holds each against its plain PyTorch version; each K3 and K5 call
-(phases 5, 13, 15) is captured once in a CUDA graph to show that it puts
-one kernel and no memset or memcpy on the card, and is timed with its
-device time alone (queued behind a sleep kernel) and its host path. It
+(``gs_sweep``), K5 (``schur_gather``) and K6 (``opf_fill``) from the
+sources in the checkout and holds each against its plain PyTorch version;
+each K3, K5 and K6 call (phases 5, 13, 15, 17) is captured once in a CUDA
+graph to show that it puts one kernel and no memset or memcpy on the card,
+and is timed with its device time alone (queued behind a sleep kernel) and
+its host path. It
 drives the
 Newton-Raphson main path — ``power_system`` -> ``newton_raphson`` ->
 ``power_flow`` — on a 10,000-bus grid, checked against the independent
@@ -63,8 +64,17 @@ CPU run (objective and feasibility: one cost for all its generators leaves
 the dispatch free) and, with the anchor's costs, against HiGHS; DC, PMU
 and AC LAV (``state_estimation`` on the ``*_lav_*``
 analyses; AC through K3) reproducing the case14test power flow, and bench
-config 4's case118 AC LAV against the CPU run. Every phase prints its lines
-and times; any failure exits non-zero. The 10k and 25k NR/SE grids are
+config 4's case118 AC LAV against the CPU run. Then the AC optimal power
+flow (phase 17): K6 against its plain version (case14optimal with every
+flow-limit class, case118 and case1354pegase; random points, the flat
+start where the √ rows of shunt-free lines sit below their clamp, a
+solve's iterates and optimum), ``ac_optimal_power_flow`` -> ``power_flow`` on
+case14optimal and case30test against the port's CPU run, case118 against
+MATPOWER's published optimum, and the main path: case1354pegase at full
+size with its own costs, checked against MATPOWER's published optimum and
+for balance (from the raw Y bus) and every limit, with the per-iteration
+split and K6's times beside a memset-and-fill split. Every phase prints its
+lines and times; any failure exits non-zero. The 10k and 25k NR/SE grids are
 ``synthetic_grid``s; phase 16 loads ACTIVSg10k and case1354pegase from
 their numpy-only ``.npz`` snapshots (the card's machine has no h5py).
 
@@ -98,7 +108,8 @@ from juliagrid_tpu_torch import (add_ammeter, add_pmu, add_varmeter,
                                  state_estimation, update_voltmeter,
                                  update_wattmeter)
 from juliagrid_tpu_torch import newton_raphson_bbd, power_flow_bbd
-from juliagrid_tpu_torch import (ac_lav_state_estimation, cost,
+from juliagrid_tpu_torch import (ac_lav_state_estimation,
+                                 ac_optimal_power_flow, cost,
                                  dc_lav_state_estimation,
                                  dc_optimal_power_flow,
                                  pmu_lav_state_estimation)
@@ -122,6 +133,7 @@ from juliagrid_tpu_torch.estimation.pmuse import (_pmuse_host,
 from juliagrid_tpu_torch.estimation.takahashi import projection_diag_sparse
 from juliagrid_tpu_torch.kernels import gs_sweep as k4
 from juliagrid_tpu_torch.kernels import nr_fill as k1
+from juliagrid_tpu_torch.kernels import opf_fill as k6
 from juliagrid_tpu_torch.kernels import schur_gather as k5
 from juliagrid_tpu_torch.kernels import se_fill as k3
 from juliagrid_tpu_torch.ops import linalg
@@ -140,7 +152,7 @@ from juliagrid_tpu_torch.powerflow.gauss_seidel import (_gs_solve, _to_rect,
 from juliagrid_tpu_torch.powerflow.newton_bbd import _blocks, compile_nr_bbd
 from juliagrid_tpu_torch.report.log import suppress
 from juliagrid_tpu_torch.system.builders import (add_branch, add_bus,
-                                                 add_generator)
+                                                 add_generator, update_branch)
 from juliagrid_tpu_torch.utils.profiling import device_stages
 from juliagrid_tpu_torch.utils.synthetic import synthetic_grid
 
@@ -209,6 +221,18 @@ FEAS_LIMIT_TOL = 1e-7      # ... capability, flow and angle limits
 PEGASE_OBJ_RTOL, PEGASE_PG_TOL = 1e-7, 1e-6  # pegase vs CPU / HiGHS
 LAV_DC_TOL, LAV_PMU_TOL, LAV_AC_TOL = 1e-6, 1e-6, 1e-5  # vs the power flow
 LAV_CARD_CPU_TOL = 1e-7    # config 4's AC LAV, card vs CPU
+#: K6: |kernel - plain| <= tol * max(1, max |plain row|). An entry of H is
+#: a sum of dual-weighted terms that cancel (at pegase a diagonal entry of
+#: 378 sums terms of ~1e5; entry-relative 1.3e-11 there, 1.8e-10 at a
+#: case118 entry that cancels to ~1e-10), so its rounding is relative to the
+#: row's scale; the entry-relative difference is printed beside it
+K6_REL_TOL = 1e-12
+AC_OPF_CARD_CPU_TOL = 1e-8  # case14optimal/case30test AC OPF, card vs CPU
+PEGASE_AC_OBJ = 74069.35   # MATPOWER's published case1354pegase AC optimum
+PEGASE_AC_OBJ_TOL = 0.05   # $/h
+CASE118_AC_OBJ, CASE118_AC_RTOL = 129660.69, 2e-4  # tests/test_opf_anchor.py
+AC_FEAS_BALANCE_TOL = 1e-8  # pegase AC OPF: bus balance (p.u., raw Y bus)
+AC_FEAS_LIMIT_TOL = 1e-7    # ... voltage, capability, flow and angle limits
 #: published peaks of the card (NVIDIA data sheet, H100 SXM, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 67e12
@@ -222,6 +246,9 @@ F64_FLOP_PER_S = 67e12
 K1_OPS_PER_ENTRY = 22
 K3_OPS_PER_ROW = 120
 K4_OPS_PER_ENTRY, K4_OPS_PER_BUS = 8, 40
+#: K6: per Y-bus entry and end (a sine, a cosine, the six weighted second
+#: derivatives) and per flow row and end (its 4x4 Hessian by the chain rule)
+K6_OPS_PER_ENTRY, K6_OPS_PER_FLOW = 40, 700
 
 
 class SmokeFailure(RuntimeError):
@@ -443,13 +470,14 @@ def phase0():
     card = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        for build in [pool.submit(k._library) for k in (k1, k3, k4, k5)]:
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        for build in [pool.submit(k._library)
+                      for k in (k1, k3, k4, k5, k6)]:
             build.result()
     build_s = time.perf_counter() - t0
     print(f"phase 0 device: {torch.cuda.get_device_name(0)} ({card}), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"K1, K3, K4 and K5 build+load {build_s!r} s")
+          f"K1, K3, K4, K5 and K6 build+load {build_s!r} s")
     return card
 
 
@@ -2537,6 +2565,357 @@ def phase16():
     return lav_runs()
 
 
+# ---- phase 17: the AC optimal power flow and K6 ---------------------------
+
+def with_flow_class(system, cls):
+    """Every branch's flow limit read as class ``cls`` (1 P, 2 |S|, 3
+    |S|², 4 |I|, 5 |I|²)."""
+    for k in range(system.branch.number):
+        update_branch(system, system.branch.label.label(k), type=cls)
+    return system
+
+
+def k6_points(spec, x0, rng, count=2):
+    """``count`` random points around ``x0`` with random duals, and the
+    flat start (θ = 0, V = 1), where the current and power of every
+    shunt-free line are 0 exactly: its √ rows sit below the clamp."""
+    n = spec.n
+    points = []
+    for _ in range(count + 1):
+        x = np.array(x0, dtype=np.float64)
+        if len(points) < count:
+            x[:n] += 0.1 * rng.standard_normal(n)
+            x[n:2 * n] *= 1.0 + 0.05 * rng.standard_normal(n)
+            x[2 * n:] += 0.1 * rng.standard_normal(x.size - 2 * n)
+        else:
+            x[:n], x[n:2 * n] = 0.0, 1.0
+        points.append((x, rng.standard_normal(spec.m_e),
+                       rng.standard_normal(spec.m_i)))
+    return points
+
+
+def k6_zero_rows(spec, x):
+    """Flow rows of a √ class (2, 4) whose S² or I² is below the clamp at
+    ``x``."""
+    from juliagrid_tpu_torch.opf.acopf import flow_values
+    arr = spec.arrays
+    if not arr.fl_fb.numel():
+        return 0
+    n = spec.n
+    xt = torch.as_tensor(x, device=arr.rows.device)
+    sq = arr._replace(fl_cls=torch.where(arr.fl_cls == 2, 3, torch.where(
+        arr.fl_cls == 4, 5, arr.fl_cls)))
+    val = flow_values(sq, xt[:n], xt[n:2 * n])
+    root = (arr.fl_cls == 2) | (arr.fl_cls == 4)
+    return int(((val < 1e-24) & root).sum())
+
+
+def compare_k6(label, arr, points):
+    """K6 against opf_fill_ref at each (x, y, z): both Jacobians and the
+    Hessian. Returns the worst abs, row-relative (checked) and
+    entry-relative differences."""
+    worst_abs = worst_rel = worst_entry = 0.0
+    where = ""
+    for x, y, z in points:
+        dev = arr.rows.device
+        xt, yt, zt = (torch.as_tensor(a, device=dev) for a in (x, y, z))
+        got, ref = k6.opf_fill(arr, xt), k6.opf_fill_ref(arr, xt)
+        pairs = [("J_E", got.jac_eq, ref.jac_eq),
+                 ("J_I", got.jac_ineq, ref.jac_ineq),
+                 ("H", k6.opf_fill(arr, xt, yt, zt).hess,
+                  k6.opf_fill_ref(arr, xt, yt, zt).hess)]
+        for name, a, b in pairs:
+            if not b.numel():
+                continue
+            diff = (a - b).abs()
+            worst_abs = max(worst_abs, diff.max().item())
+            worst_entry = max(worst_entry,
+                              (diff / b.abs().clamp(min=1.0)).max().item())
+            rel = diff / b.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+            k = int(rel.argmax())
+            if rel.view(-1)[k].item() > worst_rel:
+                worst_rel = rel.view(-1)[k].item()
+                where = (f"{name}[{k // b.shape[1]}, {k % b.shape[1]}]: "
+                         f"{a.view(-1)[k].item()!r} against "
+                         f"{b.view(-1)[k].item()!r}")
+        del got, ref, pairs
+    torch.cuda.synchronize()
+    check(worst_rel <= K6_REL_TOL,
+          f"{label}: K6 disagrees with opf_fill_ref, rel {worst_rel:.3e} of "
+          f"the row at {where}")
+    return worst_abs, worst_rel, worst_entry
+
+
+def k6_bound(arr, x, outputs, duals=()):
+    """K6's least time: its tables, the Y-bus values, the point (and the
+    duals) read once, the outputs written once; the operations (a few tens
+    a Y-bus entry, ~700 a flow row's Hessian) are far below the bytes."""
+    nbytes = tensor_bytes(*(t for t in arr.fill if torch.is_tensor(t)),
+                          arr.yg, arr.yb, x, *duals, *outputs)
+    ops = K6_OPS_PER_ENTRY * 2 * arr.rows.numel() \
+        + K6_OPS_PER_FLOW * 2 * arr.fl_fb.numel()
+    return bound(nbytes, ops)
+
+
+def k6_times(label, arr, x, y, z):
+    """K6 at the main path's point: ms of each mode (CUDA events), its
+    device time alone and host µs, the memset-and-fill split, the plain
+    version, one kernel node a call, the bounds. Returns (ms, plain_ms,
+    (bound_ms, bound_by)) of the pair an iteration takes (one Jacobian
+    and one Hessian launch)."""
+    jac = lambda: k6.opf_fill(arr, x)  # noqa: E731
+    hes = lambda: k6.opf_fill(arr, x, y, z)  # noqa: E731
+    out = {}
+    for mode, fn, split, plain in (
+            ("Jacobian", jac, lambda: k6._launch(arr, x, zeroed=True),
+             lambda: k6.opf_fill_ref(arr, x)),
+            ("Hessian", hes, lambda: k6._launch(arr, x, y, z, zeroed=True),
+             lambda: k6.opf_fill_ref(arr, x, y, z))):
+        check_one_launch(f"{label} K6 {mode}", fn)
+        outputs = [t for t in fn() if t is not None]
+        least = k6_bound(arr, x, outputs, (y, z) if mode == "Hessian" else ())
+        del outputs
+        # memset-and-fill and the one launch in turns
+        ms = [cuda_ms(f, reps=20) for f in (fn, split, split, fn)]
+        out[mode] = (0.5 * (ms[0] + ms[3]), queued_ms(fn, reps=20),
+                     host_us(fn, reps=20), 0.5 * (ms[1] + ms[2]),
+                     cuda_ms(plain, reps=3), least)
+        o = out[mode]
+        print(f"phase 17 {label} K6 {mode} mode: {o[0]!r} ms per call "
+              f"(CUDA events; runs {ms[0]!r}, {ms[3]!r}), device {o[1]!r} "
+              f"ms queued, host {o[2]!r} us; one kernel node a call, no "
+              f"memset or memcpy (CUDA graph); memset (torch.zeros) + "
+              f"fill {o[3]!r} ms (runs {ms[1]!r}, {ms[2]!r}); opf_fill_ref "
+              f"{o[4]!r} ms; bound {least[0]!r} ms by {least[1]}, share "
+              f"{least[0] / o[0]!r}")
+    pair = [sum(out[m][i] for m in out) for i in (0, 4)]
+    least = sum(out[m][5][0] for m in out)
+    return pair[0], pair[1], (least, "bytes")
+
+
+def ac_opf_run(system, device, stages=False, iterates=None):
+    """``ac_optimal_power_flow`` -> ``power_flow(power=True)`` on
+    ``device``: the analysis, its wall (s), with ``stages`` the card's time
+    by the interior point's stages and the peak device memory (bytes).
+    With a list ``iterates``, every fifth (x, y, z) the solve hands the
+    Hessian goes into it (host copies)."""
+    analysis = ac_optimal_power_flow(system, device=device)
+    if iterates is not None:
+        analysis._refresh_spec()
+        spec = analysis._spec
+        hess = spec.hess
+
+        def recording(x, y, z):
+            if spec.n_hess % 5 == 0:
+                iterates.append(tuple(t.cpu().numpy() for t in (x, y, z)))
+            spec.n_hess += 1
+            return hess(x, y, z)
+
+        spec.n_hess = 0
+        spec.hess = recording
+    if device == "cpu":
+        t0 = time.perf_counter()
+        power_flow(analysis, power=True)
+        return analysis, time.perf_counter() - t0, None, None
+    torch.cuda.reset_peak_memory_stats()
+    if stages:
+        with device_stages() as split:
+            wall, _ = wall_s(lambda: power_flow(analysis, power=True))
+    else:
+        split = None
+        wall, _ = wall_s(lambda: power_flow(analysis, power=True))
+    return analysis, wall, split, torch.cuda.max_memory_allocated()
+
+
+def ac_feasibility(system, analysis):
+    """Worst bus-balance residual (p.u., from the raw Y bus) and worst
+    violation of the voltage, capability, flow and angle limits of an AC
+    OPF solution, in numpy from the system's data."""
+    n, bus, gen, br = (system.bus.number, system.bus, system.generator,
+                       system.branch)
+    g, m = gen.number, br.number
+    vm = np.asarray(analysis.voltage.magnitude)
+    va = np.asarray(analysis.voltage.angle)
+    v = vm * np.exp(1j * va)
+    s_inj = v * np.conj(system.model.ac.nodal @ v)
+    pg = np.asarray(analysis.power.generator.active)
+    qg = np.asarray(analysis.power.generator.reactive)
+    on_g = gen.layout.status.array[:g] == 1
+    supply = np.zeros(n, dtype=complex)
+    np.add.at(supply, gen.layout.bus.array[:g][on_g], (pg + 1j * qg)[on_g])
+    mismatch = supply - (bus.demand.active.array[:n]
+                         + 1j * bus.demand.reactive.array[:n]) - s_inj
+    balance = float(max(np.abs(mismatch.real).max(),
+                        np.abs(mismatch.imag).max()))
+
+    def over(val, lo, hi):
+        lo = np.where(np.isfinite(lo), lo, -np.inf)
+        hi = np.where(np.isfinite(hi), hi, np.inf)
+        worst = np.maximum(lo - val, val - hi)
+        return float(worst.max()) if worst.size else -np.inf
+
+    volt = over(vm, bus.voltage.min_magnitude.array[:n],
+                bus.voltage.max_magnitude.array[:n])
+    cap = gen.capability
+    power = max(over(pg[on_g], cap.min_active.array[:g][on_g],
+                     cap.max_active.array[:g][on_g]),
+                over(qg[on_g], cap.min_reactive.array[:g][on_g],
+                     cap.max_reactive.array[:g][on_g]))
+    on = br.layout.status.array[:m] == 1
+    f = br.layout.from_bus.array[:m]
+    t = br.layout.to_bus.array[:m]
+    ac = system.model.ac
+    i_f = ac.nodal_from_from * v[f] + ac.nodal_from_to * v[t]
+    i_t = ac.nodal_to_from * v[f] + ac.nodal_to_to * v[t]
+    ftype = (np.asarray(br.flow.type.array[:m]) if len(br.flow.type)
+             else np.full(m, 3))
+    flow, n_flow = -np.inf, 0
+    for cur, vend, lo, hi in (
+            (i_f, v[f], br.flow.min_from_bus.array[:m],
+             br.flow.max_from_bus.array[:m]),
+            (i_t, v[t], br.flow.min_to_bus.array[:m],
+             br.flow.max_to_bus.array[:m])):
+        s = vend * np.conj(cur)
+        val = np.select([ftype == 1, ftype == 2, ftype == 3, ftype == 4],
+                        [s.real, np.abs(s), np.abs(s) ** 2, np.abs(cur)],
+                        np.abs(cur) ** 2)
+        sq = np.where((ftype == 3) | (ftype == 5), 2, 1)
+        lo = np.where(ftype != 1, np.maximum(lo, 0.0), lo)
+        hi = np.where(ftype != 1, np.maximum(hi, 0.0), hi)
+        used = on & ~((lo == 0.0) & (hi == 0.0)) & ~(np.isinf(lo)
+                                                     & np.isinf(hi))
+        lo_c = np.where((ftype != 1) & (lo == 0.0), -np.inf, lo ** sq)
+        flow = max(flow, over(val[used], lo_c[used], (hi ** sq)[used]))
+        n_flow += int(used.sum())
+    two_pi = 2 * np.pi
+    alo = (br.voltage.min_diff_angle.array[:m]
+           if len(br.voltage.min_diff_angle) else np.full(m, -two_pi))
+    ahi = (br.voltage.max_diff_angle.array[:m]
+           if len(br.voltage.max_diff_angle) else np.full(m, two_pi))
+    angle = over((va[f] - va[t])[on], alo[on], ahi[on])
+    return balance, volt, power, flow, angle, n_flow
+
+
+def ac_opf_small():
+    """case14optimal and case30test card vs CPU; case118 against MATPOWER's
+    published optimum. Returns the case118 analysis."""
+    for case in ("case14optimal", "case30test"):
+        card, wall, split, _ = ac_opf_run(case_system(case), "cuda",
+                                          stages=True)
+        cpu, t_cpu, _, _ = ac_opf_run(case_system(case), "cpu")
+        dstate = max(float(np.abs(card.voltage.magnitude
+                                  - cpu.voltage.magnitude).max()),
+                     float(np.abs(card.voltage.angle
+                                  - cpu.voltage.angle).max()),
+                     float(np.abs(card.power.generator.active
+                                  - cpu.power.generator.active).max()),
+                     float(np.abs(card.power.generator.reactive
+                                  - cpu.power.generator.reactive).max()))
+        it, it_cpu = card.method.iteration, cpu.method.iteration
+        check(card.method.converged and cpu.method.converged
+              and it == it_cpu and dstate <= AC_OPF_CARD_CPU_TOL,
+              f"{case} AC OPF: card vs CPU iterations {it}/{it_cpu}, states "
+              f"{dstate:.3e}, converged {card.method.converged}/"
+              f"{cpu.method.converged}")
+        print(f"phase 17 {opf_line(case + ' AC OPF', card, wall)}; CPU "
+              f"{it_cpu} iterations in {t_cpu!r} s; card vs CPU states (V, "
+              f"θ, Pg, Qg) {dstate!r}; per iteration (CUDA events): "
+              f"{stage_ms(split, it)}")
+    system = case_system("case118")
+    iterates = []
+    card, wall, split, _ = ac_opf_run(system, "cuda", stages=True,
+                                      iterates=iterates)
+    res = card.method.result
+    drel = abs(res.objective - CASE118_AC_OBJ) / CASE118_AC_OBJ
+    check(res.status in ("optimal", "acceptable")
+          and drel <= CASE118_AC_RTOL,
+          f"case118 AC OPF: status {res.status}, objective {res.objective}"
+          f" against MATPOWER's {CASE118_AC_OBJ} (rel {drel:.3e})")
+    print(f"phase 17 {opf_line('case118 AC OPF', card, wall)}; against "
+          f"MATPOWER's {CASE118_AC_OBJ} rel {drel!r}; per iteration (CUDA "
+          f"events): {stage_ms(split, res.iterations)}")
+    return card, iterates
+
+
+def phase17():
+    """K6 against its plain version (case14optimal with every flow class,
+    case118, pegase; random points, the flat start, a solve's iterates and
+    its optimum),
+    then the AC OPF: case14optimal/case30test card vs CPU, case118 vs
+    MATPOWER, and the main path, case1354pegase at full size with its own
+    costs through ``power_flow(power=True)``. Returns K6's worst abs error,
+    its times and its launches on the main path."""
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    for cls in (1, 2, 3, 4, 5):
+        system = with_flow_class(case_system("case14optimal"), cls)
+        spec = ac_optimal_power_flow(system, device="cuda")._spec
+        x0 = spec.start(system)
+        points = k6_points(spec, x0, rng)
+        err, rel, entry = compare_k6(f"case14optimal class {cls}",
+                                     spec.arrays, points)
+        worst = max(worst, err)
+        print(f"phase 17 case14optimal, flow class {cls} ({len(spec.flows)}"
+              f" flow rows, {k6_zero_rows(spec, points[-1][0])} √ rows "
+              f"below the clamp at the flat start): K6 vs opf_fill_ref at "
+              f"{len(points)} points, max abs diff {err!r}, max rel diff "
+              f"{rel!r} of the row ({entry!r} of the entry)")
+
+    case118, iterates = ac_opf_small()
+    spec, res = case118._spec, case118.method.result
+    points = k6_points(spec, spec.start(case118.system), rng)
+    points += iterates + [(res.x, res.y, res.z)]
+    err, rel, entry = compare_k6("case118", spec.arrays, points)
+    worst = max(worst, err)
+    print(f"phase 17 case118: K6 vs opf_fill_ref at {len(points)} points "
+          f"({len(iterates)} iterates of the solve and its optimum last), "
+          f"max abs diff {err!r}, max rel "
+          f"diff {rel!r} of the row ({entry!r} of the entry)")
+
+    # the main path: pegase at full size, its own costs
+    system = power_system(str(DATA / OPF_PEGASE))
+    k6.opf_fill.launches = 0
+    card, wall, split, peak = ac_opf_run(system, "cuda", stages=True)
+    launches = k6.opf_fill.launches
+    res, spec = card.method.result, card._spec
+    balance, volt, power, flow, angle, n_flow = ac_feasibility(system, card)
+    dobj = abs(res.objective - PEGASE_AC_OBJ)
+    check(res.status in ("optimal", "acceptable")
+          and dobj <= PEGASE_AC_OBJ_TOL and balance <= AC_FEAS_BALANCE_TOL
+          and max(volt, power, flow, angle) <= AC_FEAS_LIMIT_TOL
+          and launches > 0,
+          f"{OPF_PEGASE} AC OPF: status {res.status}, objective "
+          f"{res.objective!r} (|d| {dobj:.3e} from {PEGASE_AC_OBJ}), balance"
+          f" {balance:.3e}, limits V {volt:.3e} PQ {power:.3e} flow "
+          f"{flow:.3e} angle {angle:.3e}, K6 launches {launches}")
+    it = res.iterations
+    label = OPF_PEGASE + " AC OPF (own costs)"
+    print(f"phase 17 {opf_line(label, card, wall)}; n_x {spec.n_x}, m_E "
+          f"{spec.m_e}, m_I {spec.m_i}, KKT order {spec.n_x + spec.m_e}, "
+          f"{len(spec.flows)} flow rows; objective {dobj!r} from MATPOWER's "
+          f"{PEGASE_AC_OBJ}; optimal with KKT <= 1e-8: "
+          f"{res.status == 'optimal' and res.kkt_error <= 1e-8}; worst "
+          f"balance {balance!r} p.u. (raw Y bus), limits: V {volt!r}, Pg/Qg "
+          f"{power!r}, flow {flow!r} ({n_flow} limited ends), angle "
+          f"{angle!r}; K6 launches {launches} ({launches / it!r} an "
+          f"iteration); peak {peak / 1e9!r} GB; per iteration (CUDA "
+          f"events): {stage_ms(split, it)}")
+
+    points = k6_points(spec, spec.start(system), rng, count=1)
+    points.append((res.x, res.y, res.z))
+    err, rel, entry = compare_k6(OPF_PEGASE, spec.arrays, points)
+    worst = max(worst, err)
+    print(f"phase 17 {OPF_PEGASE}: K6 vs opf_fill_ref at {len(points)} "
+          f"points ({k6_zero_rows(spec, points[-2][0])} √ rows below the "
+          f"clamp at the flat start; the last point the solve's optimum), "
+          f"max abs diff {err!r}, max rel diff {rel!r} of the row ({entry!r}"
+          f" of the entry)")
+    dev = spec.arrays.rows.device
+    x, y, z = (torch.as_tensor(a, device=dev) for a in (res.x, res.y, res.z))
+    times = k6_times(OPF_PEGASE, spec.arrays, x, y, z)
+    return worst, times, launches
+
+
 def kernel_entry(name, replaces, launches, err, times, source=None,
                  library_ms=None):
     ms, plain_ms, (bound_ms, bound_by) = times
@@ -2569,9 +2948,12 @@ def main():
     k5_launches += k5_se
     k5_err = max(k5_err, k5_se_err)
     k3_launches += phase16()
+    k6_err, k6_times, k6_launches = phase17()
     print(card)
-    # no single PyTorch call computes K1's, K3's or K4's function, or the
-    # routed modes': library_ms is null; K5's is one index_put_
+    # no single PyTorch call computes K1's, K3's, K4's or K6's function, or
+    # the routed modes': library_ms is null; K5's is one index_put_. K6's
+    # times are those of one Jacobian and one Hessian launch, the pair an
+    # interior-point iteration takes
     print(json.dumps({"kernels": [
         kernel_entry("nr_fill", "juliagrid_tpu/powerflow/ac.py:92",
                      k1_launches, k1_err, k1_times),
@@ -2588,7 +2970,9 @@ def main():
         kernel_entry("schur_gather",
                      "juliagrid_tpu/powerflow/newton_bbd.py:341",
                      k5_launches, k5_err, k5_times,
-                     library_ms=k5_library_ms)]}))
+                     library_ms=k5_library_ms),
+        kernel_entry("opf_fill", "juliagrid_tpu/opf/acopf.py:693",
+                     k6_launches, k6_err, k6_times)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,8 +18,11 @@ bordered-block-diagonal path (``newton_raphson_bbd``,
 straight into the blocks of a partition, the interiors factor in one
 batched f64 LU, and a fifth kernel (``kernels/csrc/schur_gather.cu``)
 gathers the border system. The in-house interior point (``opf/ipm.py``,
-derivatives from ``torch.func``, an f64 LU of the KKT system) solves the DC
-optimal power flow and the LAV estimators (the AC kind through K3). The
+an f64 LU of the KKT system) solves the DC optimal power flow (derivatives
+scattered from its constant data), the AC optimal power flow (Jacobians and
+Lagrangian Hessian from a sixth kernel, ``kernels/csrc/opf_fill.cu``) and
+the LAV estimators (the AC kind through K3, its Hessian from
+``torch.func``). The
 numpy host layer (parsers, data
 model, measurements, post-processing, observability and PMU placement) is a
 copy of the JAX package's, so the port imports no JAX.
@@ -59,7 +62,8 @@ from .powerflow.driver import power_flow
 from .powerflow.limits import adjust_angle, reactive_limit
 
 # optimal power flow
-from .opf import dc_optimal_power_flow, solve_opf
+from .opf import (ac_optimal_power_flow, dc_optimal_power_flow,
+                  solve_opf)
 from .system.builders import cost
 
 # state estimation

@@ -422,3 +422,69 @@ def dcopf_arrays_from_numpy(spec, device=None, b_dense=None):
         e=_f64(tab[:, 7], dev),
         n=n, g=g, n_h=n_h, slack=int(spec.slack),
         slack_angle=float(spec.slack_angle))
+
+
+def acopf_arrays_from_numpy(spec, device=None):
+    """``AcOpfArrays`` on ``device`` (default ``config.device``), with K6's
+    tables checked and in ``fill``, from the lists of an AC OPF spec: the
+    port's ``opf/acopf._AcSpec`` or the JAX package's (same fields; its
+    ``rows``, ``cols`` and ``gen_bus`` go through ``np.asarray``)."""
+    from .kernels.opf_fill import (check_fill_table, flow_admittances,
+                                   opf_fill_table, opf_fill_table_tensors)
+    from .opf.acopf import AcOpfArrays
+
+    dev = resolve_device(device)
+    n, g = int(spec.n), int(spec.g)
+    rows = np.asarray(spec.rows, dtype=np.int64)
+    cols = np.asarray(spec.cols, dtype=np.int64)
+    tab = opf_fill_table(spec)
+    check_fill_table(tab, rows, cols)
+
+    def i64(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+    def f64(a):
+        return _f64(np.asarray(a, dtype=np.float64), dev)
+
+    gen_on = np.asarray(spec.gen_on, dtype=bool)
+    poly = tuple(
+        (i64((2 * n if kind == "p" else 2 * n + g) + np.asarray(idx)),
+         f64(np.asarray(co).reshape(len(idx), -1)))
+        for (kind, _deg), idx, co in zip(spec.poly_keys, spec.poly_idx,
+                                         spec.poly_co))
+    pwp, pwq = spec.pwp, spec.pwq
+    return AcOpfArrays(
+        rows=i64(rows), cols=i64(cols), yg=f64(spec.yg), yb=f64(spec.yb),
+        pd=f64(spec.pd), qd=f64(spec.qd),
+        gen_bus=i64(np.asarray(spec.gen_bus)),
+        gen_on=torch.as_tensor(gen_on, device=dev),
+        off_idx=i64(np.flatnonzero(~gen_on)),
+        fixv_i=i64(spec.fixv_i), fixv_b=f64(spec.fixv_b),
+        fixp_i=i64(spec.fixp_i), fixp_b=f64(spec.fixp_b),
+        fixq_i=i64(spec.fixq_i), fixq_b=f64(spec.fixq_b),
+        vlo_i=i64(spec.vlo_i), vlo_b=f64(spec.vlo_b),
+        vhi_i=i64(spec.vhi_i), vhi_b=f64(spec.vhi_b),
+        plo_i=i64(spec.plo_i), plo_b=f64(spec.plo_b),
+        phi_i=i64(spec.phi_i), phi_b=f64(spec.phi_b),
+        qlo_i=i64(spec.qlo_i), qlo_b=f64(spec.qlo_b),
+        qhi_i=i64(spec.qhi_i), qhi_b=f64(spec.qhi_b),
+        cc_i=i64(spec.cc_i), cc_aq=f64(spec.cc_aq), cc_ap=f64(spec.cc_ap),
+        cc_b=f64(spec.cc_b),
+        fl_fb=i64(spec.fl_fb), fl_tb=i64(spec.fl_tb),
+        fl_from=torch.as_tensor(np.asarray(spec.fl_from, dtype=bool),
+                                device=dev),
+        fl_cls=i64(spec.fl_cls), fl_y=f64(flow_admittances(spec)),
+        fl_lo=f64(spec.fl_lo), fl_hi=f64(spec.fl_hi),
+        fl_lo_sel=i64(np.flatnonzero(np.asarray(spec.fl_has_lo, dtype=bool))),
+        fl_hi_sel=i64(np.flatnonzero(np.asarray(spec.fl_has_hi, dtype=bool))),
+        an_f=i64(spec.an_f), an_t=i64(spec.an_t), an_lo=f64(spec.an_lo),
+        an_hi=f64(spec.an_hi),
+        pwp_gi=i64(pwp[0]), pwp_hpos=i64(pwp[1]), pwp_slope=f64(pwp[2]),
+        pwp_icept=f64(pwp[3]),
+        pwq_gi=i64(pwq[0]), pwq_hpos=i64(pwq[1]), pwq_slope=f64(pwq[2]),
+        pwq_icept=f64(pwq[3]),
+        poly=poly, fill=opf_fill_table_tensors(tab, spec, dev),
+        obj_const=float(spec.obj_const),
+        slack_angle=float(spec.slack_angle), n=n, g=g,
+        n_hp=int(spec.n_hp), n_hq=int(spec.n_hq), n_x=int(spec.n_x),
+        m_e=int(spec.m_e), m_i=int(spec.m_i), slack=int(spec.slack))

@@ -28,10 +28,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "juliagrid_tpu_torch"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
-#: flags of one source on top of NVCC_FLAGS. K3 and K4 are built without
-#: fused multiply-add contraction so that they round as their plain
-#: versions do (see csrc/se_fill.cu and csrc/gs_sweep.cu).
-SOURCE_FLAGS = {"se_fill": ("-fmad=false",), "gs_sweep": ("-fmad=false",)}
+#: flags of one source on top of NVCC_FLAGS. K3, K4 and K6 are built
+#: without fused multiply-add contraction so that they round as their plain
+#: versions do (see csrc/se_fill.cu, csrc/gs_sweep.cu and csrc/opf_fill.cu).
+SOURCE_FLAGS = {"se_fill": ("-fmad=false",), "gs_sweep": ("-fmad=false",),
+                "opf_fill": ("-fmad=false",)}
 
 
 def nvcc_flags(name: str) -> tuple:

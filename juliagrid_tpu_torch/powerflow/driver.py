@@ -1,9 +1,9 @@
 """Power-flow driver (reference powerFlow!, acPowerFlow.jl:1389-1433 and
 dcPowerFlow.jl:159-178).
 
-Dispatches on the analysis: a DC OPF analysis runs the interior point
-(``opf.solve_opf``); a DC analysis is one masked solve (``dc.dc_solve``); an
-AC analysis runs its method's loop on the device with
+Dispatches on the analysis: an AC or DC OPF analysis runs the interior
+point (``opf.solve_opf``); a DC analysis is one masked solve
+(``dc.dc_solve``); an AC analysis runs its method's loop on the device with
 one scalar-pair readback per iteration (``ac._nr_solve``,
 ``fast_decoupled._fnr_solve``, ``gauss_seidel._gs_solve``). Iteration
 semantics match the reference exactly: the count equals the number of
@@ -27,14 +27,21 @@ def power_flow(analysis, iteration: int = 20, tolerance: float = 1e-8,
                power: bool = False, current: bool = False,
                verbose: int | None = None):
     """Solve a power-flow analysis to convergence."""
+    from ..opf.acopf import AcOptimalPowerFlow
     from ..opf.dcopf import DcOptimalPowerFlow
-    if isinstance(analysis, DcOptimalPowerFlow):
+    if isinstance(analysis, (AcOptimalPowerFlow, DcOptimalPowerFlow)):
         # reference powerFlow! also wraps OPF analyses
         from ..opf import solve_opf
         solve_opf(analysis, verbose=verbose or 0)
-        if power:
+        if power and isinstance(analysis, AcOptimalPowerFlow):
+            from ..postprocessing.ac import power as ac_power
+            ac_power(analysis)
+        elif power:
             from ..postprocessing.dc import power as dc_power
             dc_power(analysis)
+        if current and isinstance(analysis, AcOptimalPowerFlow):
+            from ..postprocessing.ac import current as ac_current
+            ac_current(analysis)
         return analysis
     if isinstance(analysis, DcPowerFlow):
         dc_solve(analysis, verbose=verbose)
@@ -45,8 +52,8 @@ def power_flow(analysis, iteration: int = 20, tolerance: float = 1e-8,
     if not isinstance(analysis, AcPowerFlow):
         raise NotImplementedError(
             "power_flow runs Newton-Raphson, fast decoupled, Gauss-Seidel, "
-            f"DC and DC OPF analyses; {type(analysis).__name__} is not "
-            "ported yet (ROADMAP item 12c: AC optimal power flow)")
+            f"DC, DC OPF and AC OPF analyses; {type(analysis).__name__} is "
+            "none of them")
 
     verbose = config.verbose if verbose is None else verbose
     method = analysis.method

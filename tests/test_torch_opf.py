@@ -313,7 +313,7 @@ def test_power_flow_and_solve_opf(data_path):
     demand = system.bus.demand.active.array[:system.bus.number]
     np.testing.assert_allclose(p.supply.active - demand, p.injection.active,
                                atol=1e-8)
-    with pytest.raises(TypeError, match="12c"):
+    with pytest.raises(TypeError, match="AC or DC optimal power flow"):
         solve_opf(jgt.newton_raphson(system, device="cpu"))
 
 
@@ -494,10 +494,16 @@ def test_dual_tags_aligned(data_path):
 
 
 def test_ac_analysis_edit_names_item_12c(data_path):
+    """Item 12c (the AC OPF) is ported: a live edit takes an AC OPF
+    analysis, and refuses an analysis that is no OPF."""
     system = jgt.power_system(str(data_path / "case14test.m"))
-    with pytest.raises(NotImplementedError, match="12c"):
+    with pytest.raises(ValueError, match="AC or DC optimal power flow"):
         update_demand(jgt.newton_raphson(system, device="cpu"),
                       system.bus.label.label(1), active=0.1)
+    ac = jgt.ac_optimal_power_flow(system, device="cpu")
+    update_demand(ac, system.bus.label.label(1), active=0.1)
+    assert ac._carry_duals
+    assert float(ac._spec.arrays.pd[1]) == system.bus.demand.active[1]
 
 
 # ---------------------------------------------------------------------------
