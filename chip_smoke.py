@@ -6,8 +6,9 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels K1 (``nr_fill``), K3 (``se_fill``), K4
-(``gs_sweep``), K5 (``schur_gather``) and K6 (``opf_fill``) from the
-sources in the checkout and holds each against its plain PyTorch version;
+(``gs_sweep``), K5 (``schur_gather``), K6 (``opf_fill``) and K7
+(``kkt_fill``) from the sources in the checkout and holds each against its
+plain PyTorch version;
 each K3, K5 and K6 call (phases 5, 13, 15, 17) is captured once in a CUDA
 graph to show that it puts one kernel and no memset or memcpy on the card,
 and is timed with its device time alone (queued behind a sleep kernel) and
@@ -73,7 +74,16 @@ case14optimal and case30test against the port's CPU run, case118 against
 MATPOWER's published optimum, and the main path: case1354pegase at full
 size with its own costs, checked against MATPOWER's published optimum and
 for balance (from the raw Y bus) and every limit, with the per-iteration
-split and K6's times beside a memset-and-fill split. Every phase prints its
+split and K6's times beside a memset-and-fill split. Then the structured
+(BBD) KKT of the AC OPF (phase 18): K7 against its plain version at
+case118, case1354pegase and the 10,000-bus cell, timed; the BBD KKT
+against the dense KKT on the 900-bus ``synthetic_grid(30, 30, opf=True)``
+(one step's dx, and both solves end to end); and the main path, the
+JAX package's 10k AC OPF record ``synthetic_grid(100, 100, opf=True)``
+through ``power_flow(power=True)`` with ``kkt_blocks`` unset, checked for
+balance from the raw Y bus, every limit and every taken step's linear
+residual, with the per-iteration split, then re-solved after a live cost
+edit on the cached structure. Every phase prints its
 lines and times; any failure exits non-zero. The 10k and 25k NR/SE grids are
 ``synthetic_grid``s; phase 16 loads ACTIVSg10k and case1354pegase from
 their numpy-only ``.npz`` snapshots (the card's machine has no h5py).
@@ -132,10 +142,14 @@ from juliagrid_tpu_torch.estimation.pmuse import (_pmuse_host,
                                                   _pmuse_normal_equations)
 from juliagrid_tpu_torch.estimation.takahashi import projection_diag_sparse
 from juliagrid_tpu_torch.kernels import gs_sweep as k4
+from juliagrid_tpu_torch.kernels import kkt_fill as k7
 from juliagrid_tpu_torch.kernels import nr_fill as k1
 from juliagrid_tpu_torch.kernels import opf_fill as k6
 from juliagrid_tpu_torch.kernels import schur_gather as k5
 from juliagrid_tpu_torch.kernels import se_fill as k3
+from juliagrid_tpu_torch.opf import acopf as ac_mod
+from juliagrid_tpu_torch.opf import ipm, kkt_bbd
+from juliagrid_tpu_torch.opf.edit import update_cost
 from juliagrid_tpu_torch.ops import linalg
 from juliagrid_tpu_torch.oracle import (oracle_dc, oracle_fdpf, oracle_nr,
                                         oracle_wls_se)
@@ -233,6 +247,19 @@ PEGASE_AC_OBJ_TOL = 0.05   # $/h
 CASE118_AC_OBJ, CASE118_AC_RTOL = 129660.69, 2e-4  # tests/test_opf_anchor.py
 AC_FEAS_BALANCE_TOL = 1e-8  # pegase AC OPF: bus balance (p.u., raw Y bus)
 AC_FEAS_LIMIT_TOL = 1e-7    # ... voltage, capability, flow and angle limits
+KKT_GRID = (100, 100)      # the 10k AC OPF: benchmarks/opf_scale.py's grid
+KKT_REF_ITERATIONS = 23    # the reference's 10k solve (BENCH_NOTES.md)
+KKT_SMALL_GRID, KKT_SMALL_BLOCKS = (30, 30), 8  # BBD against dense
+#: K7: |kernel - plain| <= tol * max(1, the row's scale): a COO value
+#: against its KKT row's largest value, a block element against its block
+#: row's largest (the flow rows' closed forms against autodiff, the bus
+#: sums in another order)
+K7_REL_TOL = 1e-12
+BBD_DENSE_STEP_TOL = 1e-8  # one step's dx, BBD vs dense, of its scale
+BBD_DENSE_OBJ_RTOL = 1e-8  # the 30x30 AC OPF end to end, BBD vs dense
+BBD_DENSE_STATE_TOL = 1e-6  # ... V and θ
+KKT_BALANCE_TOL = 1e-6     # 10k AC OPF: bus balance (p.u., raw Y bus)
+KKT_LIN_RES_TOL = 1e-8     # ... lin_res of every step the δ loop takes
 #: published peaks of the card (NVIDIA data sheet, H100 SXM, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 67e12
@@ -249,6 +276,9 @@ K4_OPS_PER_ENTRY, K4_OPS_PER_BUS = 8, 40
 #: K6: per Y-bus entry and end (a sine, a cosine, the six weighted second
 #: derivatives) and per flow row and end (its 4x4 Hessian by the chain rule)
 K6_OPS_PER_ENTRY, K6_OPS_PER_FLOW = 40, 700
+#: K7: per COO value (its share of an item's closed forms, the max, the
+#: two scales and the sum) and per flow row (its 4x4 Hessian and gradient)
+K7_OPS_PER_ENTRY, K7_OPS_PER_FLOW = 20, 1000
 
 
 class SmokeFailure(RuntimeError):
@@ -470,14 +500,14 @@ def phase0():
     card = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         for build in [pool.submit(k._library)
-                      for k in (k1, k3, k4, k5, k6)]:
+                      for k in (k1, k3, k4, k5, k6, k7)]:
             build.result()
     build_s = time.perf_counter() - t0
     print(f"phase 0 device: {torch.cuda.get_device_name(0)} ({card}), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"K1, K3, K4, K5 and K6 build+load {build_s!r} s")
+          f"K1, K3, K4, K5, K6 and K7 build+load {build_s!r} s")
     return card
 
 
@@ -2792,7 +2822,10 @@ def ac_feasibility(system, analysis):
            if len(br.voltage.min_diff_angle) else np.full(m, -two_pi))
     ahi = (br.voltage.max_diff_angle.array[:m]
            if len(br.voltage.max_diff_angle) else np.full(m, two_pi))
-    angle = over((va[f] - va[t])[on], alo[on], ahi[on])
+    # the rows the model keeps: a pair of 0 or ±2π limits means no limit
+    kept = on & ((np.isfinite(alo) & (alo != 0.0) & (alo != -two_pi))
+                 | (np.isfinite(ahi) & (ahi != 0.0) & (ahi != two_pi)))
+    angle = over((va[f] - va[t])[kept], alo[kept], ahi[kept])
     return balance, volt, power, flow, angle, n_flow
 
 
@@ -2916,6 +2949,317 @@ def phase17():
     return worst, times, launches
 
 
+# ---- phase 18: the structured (BBD) KKT of the AC OPF and K7 ---------------
+
+def k7_point(spec, x0, rng):
+    """A random interior point near the start ``x0`` (inside the boxes: the
+    start sits 1% inside them, V moves 0.2%), duals y, z and slacks s > 0,
+    Σ = z / s, and random objective and row scales."""
+    n = spec.n
+    x = np.array(x0, dtype=np.float64)
+    x[:n] += 0.05 * rng.standard_normal(n)
+    x[n:2 * n] *= 1.0 + 0.002 * rng.standard_normal(n)
+    z = rng.uniform(1e-2, 1e2, spec.m_i)
+    s = rng.uniform(1e-2, 1e2, spec.m_i)
+    return (x, rng.standard_normal(spec.m_e), z, z / s,
+            1e-6, float(rng.uniform(0.2, 1.0)),
+            rng.uniform(0.3, 1.0, spec.m_e), rng.uniform(0.3, 1.0, spec.m_i))
+
+
+def k7_args(kkt, point):
+    dev = kkt.spec.arrays.rows.device
+    x, y, z, sigma, delta, sf, ge, gi = point
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (kkt.table, kkt.spec.arrays, t(x), t(y), t(z), t(sigma), delta,
+            sf, t(ge), t(gi))
+
+
+def compare_k7(label, kkt, point):
+    """K7 against kkt_fill_ref: every COO value within K7_REL_TOL of its
+    KKT row's scale (its largest value), d, and every element of the four
+    blocks within K7_REL_TOL of its block row's scale. Returns the worst
+    abs and row-relative differences."""
+    args = k7_args(kkt, point)
+    got, ref = k7.kkt_fill(*args), k7.kkt_fill_ref(*args)
+    rows = kkt.table.rows.long()
+    rmax = torch.zeros(kkt.n_aug, dtype=torch.float64, device=rows.device)
+    rmax = rmax.scatter_reduce(0, rows, ref.vals.abs(), "amax")
+    pairs = [("vals", got.vals, ref.vals, rmax[rows].clamp(min=1.0)),
+             ("d", got.d, ref.d, ref.d.abs().clamp(min=1.0))]
+    for name in ("a_ii", "a_ib", "a_bi", "a_bb"):
+        b = getattr(ref, name)
+        pairs.append((name, getattr(got, name), b,
+                      b.abs().amax(dim=-1, keepdim=True).clamp(min=1.0)))
+    worst_abs = worst_rel = 0.0
+    where = ""
+    for name, a, b, scale in pairs:
+        diff = (a - b).abs()
+        worst_abs = max(worst_abs, diff.max().item())
+        rel = (diff / scale).reshape(-1)
+        k = int(rel.argmax())
+        if rel[k].item() > worst_rel or not torch.isfinite(rel[k]):
+            worst_rel = rel[k].item()
+            where = (f"{name}[{k}]: {a.reshape(-1)[k].item()!r} against "
+                     f"{b.reshape(-1)[k].item()!r}")
+    del got, ref, pairs
+    torch.cuda.synchronize()
+    check(worst_rel <= K7_REL_TOL,
+          f"{label}: K7 disagrees with kkt_fill_ref, rel {worst_rel:.3e} of "
+          f"the row at {where}")
+    return worst_abs, worst_rel
+
+
+def k7_bound(kkt, args):
+    """K7's least time: the tables its launches read (``kkt_fill._ARR``,
+    ``_FILL`` and ``_TAB``) and the iterate read once; the values, d and
+    the four blocks written once (the blocks as a whole: their zeros too);
+    the row-maxima scratch is no output and not counted. The operations (a
+    few tens a COO value, ~1,000 a flow row) are far below the bytes."""
+    s = kkt.table.size
+    arr = kkt.spec.arrays
+    tables = [getattr(arr, name) for name in k7._ARR] \
+        + [getattr(arr.fill, name) for name in k7._FILL] \
+        + [getattr(kkt.table, name) for name in k7._TAB]
+    inputs = [t for t in args[2:] if torch.is_tensor(t)]
+    blocks = 8 * (s["k"] * s["ni"] * (s["ni"] + 2 * s["mbl"])
+                  + s["mb"] * s["mb"])
+    nbytes = tensor_bytes(*tables, *inputs) + blocks \
+        + 8 * (s["n_entries"] + s["n_aug"])
+    ops = K7_OPS_PER_ENTRY * s["n_entries"] + K7_OPS_PER_FLOW * s["n_fl"]
+    return bound(nbytes, ops)
+
+
+def k7_times(label, kkt, point):
+    """K7 at ``point``: ms a call (CUDA events; two memsets and two
+    launches), its device time alone and host µs, the plain version, the
+    bound. Returns (ms, plain_ms, (bound_ms, bound_by))."""
+    args = k7_args(kkt, point)
+    fn = lambda: k7.kkt_fill(*args)  # noqa: E731
+    ms = cuda_ms(fn, reps=10)
+    queued = queued_ms(fn, reps=10)
+    host = host_us(fn, reps=10)
+    plain_ms = cuda_ms(lambda: k7.kkt_fill_ref(*args), reps=3)
+    least = k7_bound(kkt, args)
+    print(f"phase 18 {label} K7: {ms!r} ms per call (CUDA events, the "
+          f"memsets and both launches), device {queued!r} ms queued, host "
+          f"{host!r} us; kkt_fill_ref {plain_ms!r} ms; bound {least[0]!r} ms "
+          f"by {least[1]}, share {least[0] / ms!r}")
+    return ms, plain_ms, least
+
+
+def kkt_layout(kkt):
+    return (f"k {kkt.k}, ni {kkt.ni}, mb {kkt.mb}, mbl {kkt.mbl}, "
+            f"{kkt.n_entries} COO entries, {kkt.table.size['n_dest']} block "
+            f"elements written")
+
+
+def k7_cells(rng):
+    """Phase 18 (a): K7 against its plain version at case118 (4 blocks),
+    case1354pegase (8) and the 10k cell (the automatic 19); times at each.
+    Returns the worst abs error and the 10k cell's times."""
+    worst, times = 0.0, None
+    for label, system, blocks in (
+            ("case118", case_system("case118"), 4),
+            (OPF_PEGASE, power_system(str(DATA / OPF_PEGASE)), 8),
+            ("10k AC OPF grid", synthetic_grid(*KKT_GRID, opf=True), None)):
+        spec = ac_optimal_power_flow(system, device="cuda")._spec
+        kkt = kkt_bbd.AcKktBbd(spec, blocks or max(8, spec.n // 512))
+        point = k7_point(spec, spec.start(system), rng)
+        err, rel = compare_k7(label, kkt, point)
+        worst = max(worst, err)
+        print(f"phase 18 {label} (n_x {spec.n_x}, m_E {spec.m_e}, m_I "
+              f"{spec.m_i}, {len(spec.flows)} flow rows; {kkt_layout(kkt)}; "
+              f"host build {kkt.build_s!r} s): K7 vs kkt_fill_ref max abs "
+              f"diff {err!r}, max rel diff {rel!r} of the row")
+        times = k7_times(label, kkt, point)
+        del kkt, spec
+    torch.cuda.empty_cache()
+    return worst, times
+
+
+def bbd_vs_dense(rng):
+    """Phase 18 (b): the BBD KKT against the dense KKT on the card, at
+    synthetic_grid(30, 30, opf=True): the two steps at one iterate, and
+    both solves end to end in one process."""
+    system = synthetic_grid(*KKT_SMALL_GRID, opf=True)
+    spec = ac_optimal_power_flow(system, device="cuda")._spec
+    kkt = kkt_bbd.AcKktBbd(spec, KKT_SMALL_BLOCKS)
+    x, y, z, _, _, _, _, _ = k7_point(spec, spec.start(system), rng)
+    dev = spec.arrays.rows.device
+    x, y, z = (torch.as_tensor(a, device=dev) for a in (x, y, z))
+    s = torch.as_tensor(rng.uniform(0.5, 2.0, spec.m_i), device=dev)
+    mu, delta = 0.1, 1e-6
+    ce, ri = spec.eq(x), spec.ineq(x) - s
+    unit = {"sf": 1.0, "ge": None, "gi": None}
+    fn_args = (spec.objective, spec.eq, spec.ineq, spec.n_x, spec.m_e,
+               spec.m_i)
+    bbd = ipm._make_fns(*fn_args, kkt_solve=lambda *a: kkt.solve(*a, unit))
+    dense = ipm._make_fns(*fn_args, jac_e_fn=spec.jac_eq,
+                          jac_i_fn=spec.jac_ineq, hess_fn=spec.hess)
+    got = bbd.step(x, y, z, s, mu, delta, ce, ri)
+    want = dense.step(x, y, z, s, mu, delta, ce, ri)
+    scale = max(1.0, want[0].abs().max().item())
+    ddx = (got[0] - want[0]).abs().max().item() / scale
+    check(ddx <= BBD_DENSE_STEP_TOL,
+          f"30x30 AC OPF: BBD step dx differs from the dense step's by "
+          f"{ddx:.3e} of its scale")
+    runs = {}
+    for blocks in (KKT_SMALL_BLOCKS, 0):
+        analysis = ac_optimal_power_flow(synthetic_grid(*KKT_SMALL_GRID,
+                                                        opf=True),
+                                         device="cuda")
+        wall, _ = wall_s(lambda: ac_mod.solve(analysis, kkt_blocks=blocks))
+        runs[blocks] = (analysis, wall)
+    (b, wb), (d, wd) = runs[KKT_SMALL_BLOCKS], runs[0]
+    rb, rd = b.method.result, d.method.result
+    dobj = abs(rb.objective - rd.objective) / max(1.0, abs(rd.objective))
+    dstate = max(np.abs(b.voltage.magnitude - d.voltage.magnitude).max(),
+                 np.abs(b.voltage.angle - d.voltage.angle).max())
+    check(rb.status == rd.status and rd.status in ("optimal", "acceptable")
+          and dobj <= BBD_DENSE_OBJ_RTOL and dstate <= BBD_DENSE_STATE_TOL,
+          f"30x30 AC OPF: BBD {rb.status} vs dense {rd.status}, objective "
+          f"rel {dobj:.3e}, V/θ {dstate:.3e}")
+    print(f"phase 18 30x30 AC OPF (n_x {spec.n_x}, KKT order "
+          f"{spec.n_x + spec.m_e}; BBD {kkt_layout(kkt)}): one step's dx BBD "
+          f"vs dense {ddx!r} of its scale; BBD {rb.status} in "
+          f"{rb.iterations} iterations, {wb!r} s; dense {rd.status} in "
+          f"{rd.iterations} iterations, {wd!r} s; objective rel {dobj!r}, "
+          f"V/θ {dstate!r}")
+
+
+def kkt_10k_run():
+    """Phase 18 (c), the main path: synthetic_grid(100, 100, opf=True)
+    through ``power_flow(power=True)`` with kkt_blocks unset (the BBD KKT),
+    K7's and K5's counts reset just before and read just after; then a
+    live cost edit re-solved on the cached structure. Returns (K7
+    launches, K5 launches)."""
+    system = synthetic_grid(*KKT_GRID, opf=True)
+    analysis = ac_optimal_power_flow(system, device="cuda")
+    steps = []
+    solve = kkt_bbd.AcKktBbd.solve
+
+    def recording(self, *args):
+        out = solve(self, *args)
+        dx = out[0]
+        steps.append(torch.stack([out[2], out[3], dx @ dx,
+                                  torch.isfinite(dx).all().to(dx.dtype)]))
+        return out
+
+    kkt_bbd.AcKktBbd.solve = recording
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        k7.kkt_fill.launches = 0
+        k5.schur_gather.launches = 0
+        with device_stages() as split:
+            wall, _ = wall_s(lambda: power_flow(analysis, power=True))
+        launches = (k7.kkt_fill.launches, k5.schur_gather.launches)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        kkt_bbd.AcKktBbd.solve = solve
+    res = analysis.method.result
+    kkt = analysis._kkt_cache[2]
+    stats = torch.stack(steps).cpu().numpy() if steps else np.zeros((0, 4))
+    # the steps the δ loop accepts: finite, lin_res < 1e-6, curvature held
+    taken = (stats[:, 3] > 0.5) & (stats[:, 0] < 1e-6) & (
+        (stats[:, 1] >= 1e-12 * stats[:, 2]) | (stats[:, 2] == 0.0))
+    worst_lin = float(stats[taken, 0].max()) if taken.any() else np.inf
+    balance, volt, power, flow, angle, _ = ac_feasibility(system, analysis)
+    check(res.status in ("optimal", "acceptable")
+          and balance <= KKT_BALANCE_TOL
+          and max(volt, power, flow, angle) <= AC_FEAS_LIMIT_TOL
+          and worst_lin <= KKT_LIN_RES_TOL and min(launches) > 0,
+          f"10k AC OPF: status {res.status}, balance {balance:.3e}, limits "
+          f"V {volt:.3e} PQ {power:.3e} flow {flow:.3e} angle {angle:.3e}, "
+          f"worst accepted lin_res {worst_lin:.3e}, K7/K5 launches "
+          f"{launches}")
+    it = res.iterations
+    spec = analysis._spec
+    line = opf_line("10k AC OPF (the main path)", analysis, wall)
+    print(f"phase 18 {line} (the reference: optimal in "
+          f"{KKT_REF_ITERATIONS} at tol 1e-6); "
+          f"n_x {spec.n_x}, m_E {spec.m_e}, m_I {spec.m_i}, KKT order "
+          f"{spec.n_x + spec.m_e}; {kkt_layout(kkt)}; host build "
+          f"{kkt.build_s!r} s; {len(stats)} KKT solves, {int(taken.sum())} "
+          f"taken, worst lin_res of those {worst_lin!r}; worst balance "
+          f"{balance!r} p.u. (raw Y bus), limits: V {volt!r}, Pg/Qg "
+          f"{power!r}; K7 launches {launches[0]}, K5 {launches[1]}; peak "
+          f"{peak / 1e9!r} GB; per iteration (CUDA events): "
+          f"{stage_ms(split, it)}")
+    # a numeric live edit keeps the routed structure: a new quadratic cost
+    # for the generator that supplies most
+    top = int(np.argmax(analysis.power.generator.active))
+    update_cost(analysis, system.generator.label.label(top), active=2,
+                polynomial=[0.05, 25.0, 0.0])
+    wall2, _ = wall_s(lambda: power_flow(analysis, power=True))
+    res2 = analysis.method.result
+    check(analysis._kkt_cache[2] is kkt
+          and res2.status in ("optimal", "acceptable"),
+          f"10k AC OPF after a cost edit: status {res2.status}, cached "
+          f"structure reused {analysis._kkt_cache[2] is kkt}")
+    line = opf_line("10k AC OPF after update_cost", analysis, wall2)
+    print(f"phase 18 {line}; the cached AcKktBbd reused")
+    return launches
+
+
+def phase18():
+    """The structured KKT of the AC OPF: K7 against its plain version at
+    case118, pegase and the 10k cell; the BBD KKT against the dense KKT at
+    900 buses; the main path, the 10k AC OPF at full size, and a live edit.
+    Returns K7's worst abs error, its times at the 10k cell, its launches
+    and K5's on the main path."""
+    rng = np.random.default_rng(SEED)
+    worst, times = k7_cells(rng)
+    bbd_vs_dense(rng)
+    k7_launches, k5_launches = kkt_10k_run()
+    return worst, times, k7_launches, k5_launches
+
+
+def activsg10k_acopf(max_seconds=300.0):
+    """The AC OPF of the real ACTIVSg10k grid on the card, which ``main``
+    does not run (it stops short of acceptable; see PERF.md). Run it from
+    the root of a checkout with
+
+        python3 -c 'import chip_smoke; chip_smoke.activsg10k_acopf(300)'
+
+    It solves ``ac_optimal_power_flow`` with ``kkt_blocks`` unset, which
+    sends the 10,000 buses to the structured (BBD) KKT, within
+    ``max_seconds`` of the interior point (its n_x is above 8,192, so it
+    runs without restoration, as the JAX package's does), and prints the
+    status, iterations, final KKT error and objective, the KKT layout and
+    host build, the ms an iteration by stage (CUDA events), the peak device
+    memory, and the end point's worst bus balance (raw Y bus) and limit
+    violations."""
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no card: this run measures the card")
+    system = power_system(str(DATA / OPF_10K))
+    build, analysis = wall_s(lambda: ac_optimal_power_flow(system,
+                                                           device="cuda"))
+    spec = analysis._spec
+    print(f"ACTIVSg10k AC OPF: n {spec.n}, n_x {spec.n_x}, m_E {spec.m_e}, "
+          f"m_I {spec.m_i}, KKT order {spec.n_x + spec.m_e}, "
+          f"{len(spec.flows)} flow rows, {len(spec.angles)} angle rows; "
+          f"ac_optimal_power_flow {build!r} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    with device_stages() as split:
+        wall, _ = wall_s(lambda: ac_mod.solve(analysis,
+                                              max_seconds=max_seconds,
+                                              verbose=1))
+    res = analysis.method.result
+    kkt = analysis._kkt_cache[2]
+    print(f"ACTIVSg10k KKT layout: {kkt_layout(kkt)}; host build "
+          f"{kkt.build_s!r} s")
+    print(f"ACTIVSg10k status {res.status}, {res.iterations} iterations, "
+          f"KKT error {res.kkt_error!r}, objective {res.objective!r}, solve "
+          f"{wall!r} s (max_seconds {max_seconds}); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9!r} GB; per iteration "
+          f"(CUDA events): {stage_ms(split, res.iterations)}")
+    balance, volt, power, flow, angle, n_flow = ac_feasibility(system,
+                                                               analysis)
+    print(f"ACTIVSg10k end point: worst balance {balance!r} p.u. (raw Y "
+          f"bus), limits: V {volt!r}, Pg/Qg {power!r}, flow {flow!r} "
+          f"({n_flow} limited ends), angle {angle!r}")
+
+
 def kernel_entry(name, replaces, launches, err, times, source=None,
                  library_ms=None):
     ms, plain_ms, (bound_ms, bound_by) = times
@@ -2949,11 +3293,14 @@ def main():
     k5_err = max(k5_err, k5_se_err)
     k3_launches += phase16()
     k6_err, k6_times, k6_launches = phase17()
+    k7_err, k7_times, k7_launches, k5_kkt = phase18()
+    k5_launches += k5_kkt
     print(card)
-    # no single PyTorch call computes K1's, K3's, K4's or K6's function, or
-    # the routed modes': library_ms is null; K5's is one index_put_. K6's
-    # times are those of one Jacobian and one Hessian launch, the pair an
-    # interior-point iteration takes
+    # no single PyTorch call computes K1's, K3's, K4's, K6's or K7's
+    # function, or the routed modes': library_ms is null; K5's is one
+    # index_put_. K6's times are those of one Jacobian and one Hessian
+    # launch, the pair an interior-point iteration takes; K7's those of one
+    # call (two memsets, two launches) at the 10k cell
     print(json.dumps({"kernels": [
         kernel_entry("nr_fill", "juliagrid_tpu/powerflow/ac.py:92",
                      k1_launches, k1_err, k1_times),
@@ -2972,7 +3319,9 @@ def main():
                      k5_launches, k5_err, k5_times,
                      library_ms=k5_library_ms),
         kernel_entry("opf_fill", "juliagrid_tpu/opf/acopf.py:693",
-                     k6_launches, k6_err, k6_times)]}))
+                     k6_launches, k6_err, k6_times),
+        kernel_entry("kkt_fill", "juliagrid_tpu/opf/kkt_bbd.py:335",
+                     k7_launches, k7_err, k7_times)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

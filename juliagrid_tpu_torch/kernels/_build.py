@@ -6,8 +6,9 @@ a stream (``launch_context``), so the build needs neither PyTorch's headers
 nor ninja: one ``nvcc`` call of a few seconds per source.
 
 The library is built at first use into ``build/juliagrid_tpu_torch/`` at the
-root of the checkout. Its file name carries a hash of the source and the
-flags, so an edited source builds anew, and a file lock lets concurrent
+root of the checkout. Its file name carries a hash of the source, the
+headers it includes from ``csrc/`` and the flags, so an edited source or
+header builds anew, and a file lock lets concurrent
 processes share one build.
 """
 
@@ -28,11 +29,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "juliagrid_tpu_torch"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
-#: flags of one source on top of NVCC_FLAGS. K3, K4 and K6 are built
+#: flags of one source on top of NVCC_FLAGS. K3, K4, K6 and K7 are built
 #: without fused multiply-add contraction so that they round as their plain
-#: versions do (see csrc/se_fill.cu, csrc/gs_sweep.cu and csrc/opf_fill.cu).
+#: versions do (see csrc/se_fill.cu, csrc/gs_sweep.cu, csrc/opf_fill.cu and
+#: csrc/kkt_fill.cu).
 SOURCE_FLAGS = {"se_fill": ("-fmad=false",), "gs_sweep": ("-fmad=false",),
-                "opf_fill": ("-fmad=false",)}
+                "opf_fill": ("-fmad=false",), "kkt_fill": ("-fmad=false",)}
 
 
 def nvcc_flags(name: str) -> tuple:
@@ -54,10 +56,29 @@ def nvcc_path() -> str:
         "are built from source at first use and need the CUDA toolkit")
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every header it includes from ``csrc/``
+    (``#include "..."``, followed into the headers), in a fixed order."""
+    seen = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if len(words) >= 2 and words[0] == "#include" and \
+                    words[1].startswith('"'):
+                todo.append(CSRC / words[1].strip('"'))
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    key = (CSRC / f"{name}.cu").read_bytes() + "\0".join(
-        nvcc_flags(name)).encode()
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source, the headers
+    it includes and the flags."""
+    key = b"\0".join(p.read_bytes() for p in sources(name)) + b"\0" + \
+        "\0".join(nvcc_flags(name)).encode()
     digest = hashlib.sha256(key).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

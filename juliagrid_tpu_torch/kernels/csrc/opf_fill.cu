@@ -47,6 +47,7 @@
 // S^2 (3), sqrt(I^2) (4) or I^2 (5) of one end, from the rectangular
 // voltages u = (Vf cos thf, Vf sin thf, Vt cos tht, Vt sin tht): the
 // current I = (ire, iim) is linear in u, P and Q are quadratic. flow_derivs
+// (in opf_terms.cuh, shared with K7's kkt_fill.cu, as is entry_terms)
 // writes the value's derivatives over u in closed form and takes them to
 // z = (thf, tht, Vf, Vt) by the chain rule: g_z = J^T g_u and H_z = J^T H_u
 // J + sum_u g_u d^2u/dz^2, J = du/dz. The sqrt rows clamp S^2 or I^2 at
@@ -68,6 +69,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "opf_terms.cuh"
 
 // The tables of one AC OPF spec, built once on the host (opf_fill.py::
 // _Tables). At file scope, so that the extern "C" launcher that takes it
@@ -115,7 +118,15 @@ constexpr int kUnitsPerBlock = kThreads / kWarp;
 // that the lines its values land in are still in L2 when they come
 constexpr int64_t kRegion = 16 * 1024;
 constexpr int kLinear = 0;
-constexpr double kFloor = 1e-24;
+
+using opf_terms::EntryTerms;
+using opf_terms::entry_terms;
+
+// The flow rows' tables of `t`, as the shared closed forms read them.
+__device__ __forceinline__ opf_terms::FlowRows flow_rows(
+    const OpfTables& t) {
+  return opf_terms::FlowRows{t.fl_idx, t.fl_y, t.n_fl, t.n};
+}
 
 // Units of `doubles` output elements a thread block owns.
 int units_per_block(int64_t doubles) {
@@ -145,158 +156,6 @@ __device__ __forceinline__ double warp_sum(double v) {
     v += __shfl_xor_sync(0xffffffffu, v, o);
   }
   return v;
-}
-
-// The y-weighted second derivatives of one Y-bus entry's injection terms
-// (acopf.py:831-867), for the entry from bus i (row) to bus j (column).
-struct EntryTerms {
-  double tt, tivi, tivj, tjvi, tjvj, vv;
-};
-
-__device__ __forceinline__ EntryTerms entry_terms(double gy, double by,
-                                                  double vi, double vj,
-                                                  double th, double yp,
-                                                  double yq) {
-  double st, ct;
-  sincos(th, &st, &ct);
-  const double gc = gy * ct + by * st;
-  const double gs = gy * st - by * ct;
-  const double t1 = vi * vj * gc;
-  const double t2 = vi * vj * gs;
-  EntryTerms c;
-  c.tt = -(yp * t1 + yq * t2);
-  c.tivi = -yp * vj * gs + yq * vj * gc;
-  c.tivj = -yp * vi * gs + yq * vi * gc;
-  c.tjvi = yp * vj * gs - yq * vj * gc;
-  c.tjvj = yp * vi * gs - yq * vi * gc;
-  c.vv = yp * gc + yq * gs;
-  return c;
-}
-
-// Gradient g[4] and, unless h is null, Hessian h[16] (row-major) of flow
-// row f's value over z = (theta_f, theta_t, V_f, V_t).
-__device__ void flow_derivs(const OpfTables& t, const double* __restrict__ x,
-                            int f, double* g, double* h) {
-  const int nf = t.n_fl;
-  const int n = t.n;
-  const int fb = t.fl_idx[f];
-  const int tb = t.fl_idx[nf + f];
-  const int cls = t.fl_idx[2 * nf + f];
-  const bool from = t.fl_idx[3 * nf + f] != 0;
-  const double gf = t.fl_y[f];
-  const double bf = t.fl_y[nf + f];
-  const double gt = t.fl_y[2 * nf + f];
-  const double bt = t.fl_y[3 * nf + f];
-  double sf, cf, st, ct;
-  sincos(x[fb], &sf, &cf);
-  sincos(x[tb], &st, &ct);
-  const double vf = x[n + fb];
-  const double vt = x[n + tb];
-  const double u[4] = {vf * cf, vf * sf, vt * ct, vt * st};
-  const double a[4] = {gf, -bf, gt, -bt};   // d ire / du
-  const double b[4] = {bf, gf, bt, gt};     // d iim / du
-  const double ire = gf * u[0] - bf * u[1] + gt * u[2] - bt * u[3];
-  const double iim = gf * u[1] + bf * u[0] + gt * u[3] + bt * u[2];
-  const int r = from ? 0 : 2;  // the end's real and imaginary voltage
-  const int i = r + 1;
-  const double vr = u[r];
-  const double vi = u[i];
-  const double pp = vr * ire + vi * iim;
-  const double qq = vi * ire - vr * iim;
-
-  // derivatives over u of the class's value: gu, hu
-  double gu[4];
-  double hu[16];
-  double dp[4], dq[4];
-  for (int k = 0; k < 4; ++k) {
-    dp[k] = vr * a[k] + vi * b[k];
-    dq[k] = vi * a[k] - vr * b[k];
-  }
-  dp[r] += ire;
-  dp[i] += iim;
-  dq[i] += ire;
-  dq[r] -= iim;
-  // the constant second derivatives of P and Q over u
-  auto hpp = [&](int k, int l) {
-    return (k == r ? a[l] : 0.0) + (l == r ? a[k] : 0.0) +
-           (k == i ? b[l] : 0.0) + (l == i ? b[k] : 0.0);
-  };
-  auto hqq = [&](int k, int l) {
-    return (k == i ? a[l] : 0.0) + (l == i ? a[k] : 0.0) -
-           (k == r ? b[l] : 0.0) - (l == r ? b[k] : 0.0);
-  };
-  if (cls == 1) {
-    for (int k = 0; k < 4; ++k) {
-      gu[k] = dp[k];
-      for (int l = 0; l < 4; ++l) hu[4 * k + l] = hpp(k, l);
-    }
-  } else {
-    double m;  // S^2 or I^2
-    if (cls == 2 || cls == 3) {
-      m = pp * pp + qq * qq;
-      for (int k = 0; k < 4; ++k) {
-        gu[k] = 2.0 * pp * dp[k] + 2.0 * qq * dq[k];
-        for (int l = 0; l < 4; ++l) {
-          hu[4 * k + l] = 2.0 * (dp[k] * dp[l] + pp * hpp(k, l) +
-                                 dq[k] * dq[l] + qq * hqq(k, l));
-        }
-      }
-    } else {
-      m = ire * ire + iim * iim;
-      for (int k = 0; k < 4; ++k) {
-        gu[k] = 2.0 * ire * a[k] + 2.0 * iim * b[k];
-        for (int l = 0; l < 4; ++l) {
-          hu[4 * k + l] = 2.0 * (a[k] * a[l] + b[k] * b[l]);
-        }
-      }
-    }
-    if (cls == 2 || cls == 4) {
-      // sqrt(max(m, floor)): the clamp's weight w on m's derivatives
-      const double w = m > kFloor ? 1.0 : m == kFloor ? 0.5 : 0.0;
-      const double mm = m > kFloor ? m : kFloor;
-      const double root = sqrt(mm);
-      const double inv = w / (2.0 * root);
-      const double inv3 = w * w / (4.0 * mm * root);
-      for (int k = 0; k < 4; ++k) {
-        for (int l = 0; l < 4; ++l) {
-          hu[4 * k + l] = hu[4 * k + l] * inv - gu[k] * gu[l] * inv3;
-        }
-      }
-      for (int k = 0; k < 4; ++k) gu[k] *= inv;
-    }
-  }
-
-  // du/dz: u0, u1 hang on (theta_f, V_f) = z0, z2; u2, u3 on z1, z3
-  const double jac[4][4] = {{-u[1], 0.0, cf, 0.0},
-                            {u[0], 0.0, sf, 0.0},
-                            {0.0, -u[3], 0.0, ct},
-                            {0.0, u[2], 0.0, st}};
-  for (int c = 0; c < 4; ++c) {
-    double s = 0.0;
-    for (int k = 0; k < 4; ++k) s += gu[k] * jac[k][c];
-    g[c] = s;
-  }
-  if (h == nullptr) return;
-  for (int p = 0; p < 4; ++p) {
-    for (int q = 0; q < 4; ++q) {
-      double s = 0.0;
-      for (int k = 0; k < 4; ++k) {
-        for (int l = 0; l < 4; ++l) {
-          s += jac[k][p] * hu[4 * k + l] * jac[l][q];
-        }
-      }
-      h[4 * p + q] = s;
-    }
-  }
-  // sum_u g_u d^2u/dz^2
-  h[0] += gu[0] * -u[0] + gu[1] * -u[1];
-  h[5] += gu[2] * -u[2] + gu[3] * -u[3];
-  const double fv = gu[0] * -sf + gu[1] * cf;
-  const double tv = gu[2] * -st + gu[3] * ct;
-  h[2] += fv;
-  h[8] += fv;
-  h[7] += tv;
-  h[13] += tv;
 }
 
 // J_E's balance rows of bus k: P (row k) and Q (row n + k).
@@ -403,7 +262,7 @@ __device__ void hess_bus(const OpfTables& t, const double* __restrict__ x,
       if (hi >= 0) w = w + z[hi];
       double gz[4];
       double hz[16];
-      flow_derivs(t, x, f, gz, hz);
+      opf_terms::flow_derivs(flow_rows(t), x, f, gz, hz);
       const int ends[2] = {t.fl_idx[f], t.fl_idx[nf + f]};
       for (int a = 0; a < 2; ++a) {
         if (ends[a] != k) continue;
@@ -462,7 +321,7 @@ __device__ void jac_row(const OpfTables& t, const double* __restrict__ x,
   const int fb = t.fl_idx[c1];
   const int tb = t.fl_idx[t.n_fl + c1];
   double gz[4];
-  flow_derivs(t, x, c1, gz, nullptr);
+  opf_terms::flow_derivs(flow_rows(t), x, c1, gz, nullptr);
   if (fb == tb) {
     hrow[fb] = v1 * gz[0] + v1 * gz[1];
     hrow[n + fb] = v1 * gz[2] + v1 * gz[3];

@@ -373,7 +373,8 @@ class _Tables(ctypes.Structure):
 
 
 #: the ``_Tables`` of each spec (keyed by its ``fill.row_ptr``), with the
-#: tensors they point into; rebuilt when the spec's tensors change
+#: other tensors they point into (not the key, so that an entry goes when
+#: its key does); rebuilt when the spec's tensors change
 _TABLES = WeakIdKeyDictionary()
 
 
@@ -384,7 +385,7 @@ def _tables(arr) -> int:
         "row_kind", "row_col", "row_val", "fl_idx", "fl_y", "pair_ptr",
         "pair", "pair_fptr", "pair_flow", "term_ptr", "term", "term_co")}
     tensors["yg"], tensors["yb"] = arr.yg, arr.yb
-    held = tuple(tensors.values())
+    held = tuple(tt for name, tt in tensors.items() if name != "row_ptr")
     entry = _TABLES.get(t.row_ptr)
     if entry is None or any(a is not b for a, b in zip(entry[1], held)):
         for name, tt in tensors.items():

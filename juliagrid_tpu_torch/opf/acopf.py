@@ -27,6 +27,11 @@ The constraint Jacobians and the Lagrangian's Hessian come from K6
 the CPU its plain version, the torch transcription of the JAX package's
 ``jac_eq``/``jac_ineq``/``hess``. The Jacobian pair of one point is kept, so
 ``jac_eq(x)`` and ``jac_ineq(x)`` at the same ``x`` cost one launch.
+
+From ``_KKT_BBD_AUTO`` buses (or with ``solve(kkt_blocks=k)``) the interior
+point's KKT is the structured BBD KKT of ``opf/kkt_bbd.py`` instead: K7
+(``kernels/kkt_fill.py``) fills its blocks, and no dense Jacobian or
+Hessian is formed.
 """
 
 from __future__ import annotations
@@ -46,8 +51,9 @@ from ..system.types import PowerSystem
 from .dcopf import OpfMethod
 from .ipm import NlpProblem, solve_nlp
 
-# buses from which the JAX package sends the KKT to its structured BBD solve
-# (opf/kkt_bbd.py): the dense (n_x + m_E)² KKT stops fitting its chip
+# buses from which the KKT goes to the structured BBD solve (opf/kkt_bbd.py),
+# as in the JAX package: at 10,000 buses the dense (n_x + m_E)² f64 KKT is
+# 15.5 GB, and the step holds three of them
 _KKT_BBD_AUTO = 4000
 
 
@@ -452,11 +458,31 @@ class _AcSpec:
         tags += [("piecewise_reactive", int(gi)) for gi in self.pwq[0]]
         self.ineq_tags = tags
 
-        n = self.n
+        n, g = self.n, self.g
         self.gen_off = np.flatnonzero(~self.gen_on)
         self.m_e = (2 * n + 1 + 2 * len(self.gen_off) + len(self.fixv_i)
                     + len(self.fixp_i) + len(self.fixq_i))
-        self.m_i = len(tags)
+        # the rows of J_I of each constraint group, in the emission order of
+        # ineq(), as (first row, count), and the simple bounds' columns: the
+        # structured KKT (opf/kkt_bbd.py) indexes the duals and Σ by them
+        self.ji_bound_cols = np.concatenate([
+            np.asarray(cols, dtype=np.int64) for cols in (
+                n + self.vlo_i, n + self.vhi_i, 2 * n + self.plo_i,
+                2 * n + self.phi_i, 2 * n + g + self.qlo_i,
+                2 * n + g + self.qhi_i)])
+        r = 0
+        self.ji_rows = {}
+        for name, k in (("bound", len(self.ji_bound_cols)),
+                        ("cc", len(self.cc_i)),
+                        ("fl_lo", int(self.fl_has_lo.sum())),
+                        ("fl_hi", int(self.fl_has_hi.sum())),
+                        ("an_lo", len(self.an_f)), ("an_hi", len(self.an_f)),
+                        ("pwp", len(self.pwp[0])),
+                        ("pwq", len(self.pwq[0]))):
+            self.ji_rows[name] = (r, k)
+            r += k
+        assert r == len(tags)
+        self.m_i = r
         self.arrays = acopf_arrays_from_numpy(self, self.device)
         self._jac_cache = None
 
@@ -689,39 +715,51 @@ def solve(analysis: AcOptimalPowerFlow, max_iter: int = 300,
           tolerance: float = 1e-8, verbose: int = 0,
           max_seconds=None, kkt_blocks=None,
           kkt_mesh=None) -> AcOptimalPowerFlow:
-    """Reference solve! — runs the interior point on the dense f64 KKT and
-    harvests primal and duals. ``kkt_blocks=0`` (or ``None`` below
-    ``_KKT_BBD_AUTO`` buses) is the dense KKT; the JAX package's structured
-    BBD KKT (any other value, or ``None`` from ``_KKT_BBD_AUTO`` buses) and
-    its ``kkt_mesh`` are not ported and raise."""
+    """Reference solve! — runs the interior point and harvests primal and
+    duals. ``kkt_blocks``: the number of interior blocks of the structured
+    BBD KKT (``opf/kkt_bbd.py``); ``None`` picks the JAX package's rule,
+    the dense f64 KKT below ``_KKT_BBD_AUTO`` buses and ``max(8, n // 512)``
+    blocks from there; ``0`` forces the dense KKT. The JAX package's
+    ``kkt_mesh`` (the KKT sharded over a device mesh) is not ported and
+    raises."""
     analysis._refresh_spec()
     spec = analysis._spec
     if kkt_mesh is not None:
         raise NotImplementedError(
             "a KKT solve sharded over a device mesh is not ported (ROADMAP "
             "item 15); leave kkt_mesh unset")
-    if kkt_blocks is None and spec.n >= _KKT_BBD_AUTO:
-        raise NotImplementedError(
-            f"{spec.n} buses take the structured (BBD) KKT, which is not "
-            "ported yet (ROADMAP item 12d); pass kkt_blocks=0 for the dense "
-            "f64 KKT")
+    # dual carry and the structured KKT are valid only against the same
+    # constraint layout (two structural edits can keep the counts and
+    # permute the rows)
+    layout = (spec.n, tuple(spec.ineq_tags),
+              tuple(i for i, _ in spec.fix_v),
+              tuple(i for i, _ in spec.fix_p),
+              tuple(i for i, _ in spec.fix_q))
+    if kkt_blocks is None:
+        kkt_blocks = max(8, spec.n // 512) if spec.n >= _KKT_BBD_AUTO else 0
+    kkt = None
     if kkt_blocks:
-        raise NotImplementedError(
-            "the structured (BBD) KKT solve is not ported yet (ROADMAP item "
-            "12d); pass kkt_blocks=0 for the dense f64 KKT")
+        # keyed by the spec (held, not its id), the layout, the cost terms'
+        # structure and the block count: a numeric live edit patches the
+        # spec in place and reuses the routed structure; a structural edit
+        # changes the layout (or rebuilds the spec) and re-routes
+        costs = tuple((key, tuple(np.asarray(idx).tolist()))
+                      for key, idx in zip(spec.poly_keys, spec.poly_idx))
+        cache = getattr(analysis, "_kkt_cache", None)
+        if cache is not None and cache[0] is spec and \
+                cache[1] == (layout, costs, kkt_blocks):
+            kkt = cache[2]
+        else:
+            from .kkt_bbd import AcKktBbd
+            kkt = AcKktBbd(spec, kkt_blocks)
+            analysis._kkt_cache = (spec, (layout, costs, kkt_blocks), kkt)
     has_ineq = spec.m_i > 0
     problem = NlpProblem(objective=spec.objective, eq=spec.eq,
                          ineq=spec.ineq if has_ineq else None,
                          jac_eq=spec.jac_eq,
                          jac_ineq=spec.jac_ineq if has_ineq else None,
                          hess=spec.hess,
-                         push_inside=spec.push_inside)
-    # dual carry across live edits, valid only against the same constraint
-    # layout (two structural edits can keep the counts and permute the rows)
-    layout = (spec.n, tuple(spec.ineq_tags),
-              tuple(i for i, _ in spec.fix_v),
-              tuple(i for i, _ in spec.fix_p),
-              tuple(i for i, _ in spec.fix_q))
+                         push_inside=spec.push_inside, kkt=kkt)
     warm = None
     prev = analysis.method.result
     if getattr(analysis, "_carry_duals", False) and prev is not None \

@@ -33,6 +33,16 @@ switch to an f64 LDLᵀ and its jit engine cache are TPU machinery and are
 not ported. A singular system factors without raising (``check=False``),
 so its step comes back non-finite and the loop escalates δ.
 
+A problem with a structured KKT (``NlpProblem.kkt``: the AC OPF's BBD KKT,
+``opf/kkt_bbd.py``, from 4,000 buses) takes the JAX package's structured
+step instead: the right-hand side from vector-Jacobian products, the
+system assembled and solved in bordered-block-diagonal form by the KKT
+object, ds from a Jacobian-vector product, and the gradient-based scaling
+from its closed-form row maxima. No (m, n_x) or (n_x, n_x) matrix is
+formed on that path, apart from the restoration and the dual recovery,
+which the caps below (``resto_ok``, ``recovery_ok``) keep to small
+problems.
+
 Problem callables take ``x`` of shape ``[..., n_x]`` and return
 ``[..., m]`` (the objective ``[...]``): the line search evaluates every
 backtracking step length in one batched call. Each iteration reads the
@@ -95,8 +105,11 @@ class NlpProblem:
     # problem: ∇²f - Σ y_i ∇²c_E,i - Σ z_j ∇²c_I,j. The solver maps its
     # scaled duals into raw space before calling and rescales the result.
     hess: Optional[Callable] = None
-    # structured KKT solver (the JAX package's opf/kkt_bbd.AcKktBbd):
-    # not ported yet, solve_nlp refuses it (ROADMAP item 12d)
+    # structured KKT solver (opf/kkt_bbd.AcKktBbd): ``solve(x, y, z,
+    # sigma, delta, rhs_x, rhs_e, pk) -> (dx, v, lin_res, curv)`` and
+    # ``row_maxes(x) -> (max|J_E| rows, max|J_I| rows)``, ``pk`` holding
+    # the scales ``sf``, ``ge``, ``gi``. With it set, the step, the dual
+    # residuals and the scaling form no (m, n_x) or (n_x, n_x) matrix.
     kkt: Optional[object] = None
 
 
@@ -150,10 +163,13 @@ def _jacobian(fn, n_x: int):
 
 
 def _make_fns(f, c_e, c_i, n_x: int, m_e: int, m_i: int,
-              jac_e_fn=None, jac_i_fn=None, hess_fn=None):
+              jac_e_fn=None, jac_i_fn=None, hess_fn=None, kkt_solve=None):
     """Every device function the loop needs, for the (scaled) problem
     ``f``/``c_e``/``c_i`` of ``x``; ``jac_e_fn``/``jac_i_fn``/``hess_fn``
-    are optional analytic derivatives that replace ``torch.func``."""
+    are optional analytic derivatives that replace ``torch.func``.
+    ``kkt_solve(x, y, z, sigma, delta, rhs_x, rhs_e)`` is a structured KKT
+    solve (``NlpProblem.kkt``): the step then goes through it, and every
+    Jᵀ product is a vector-Jacobian product."""
     if not m_e:
         c_e = lambda x: x.new_zeros(x.shape[:-1] + (0,))  # noqa: E731
     if not m_i:
@@ -183,8 +199,9 @@ def _make_fns(f, c_e, c_i, n_x: int, m_e: int, m_i: int,
             return given(x).T @ cot
         return vjp(fn, x)[1](cot)[0]
 
-    jt_e_fn = jac_e_fn if m_e else None
-    jt_i_fn = jac_i_fn if m_i else None
+    # the structured path never forms J: its Jᵀ products are vjps
+    jt_e_fn = jac_e_fn if (m_e and kkt_solve is None) else None
+    jt_i_fn = jac_i_fn if (m_i and kkt_solve is None) else None
 
     def metrics(x, s, mu):
         """Objective, violation theta, barrier phi, raw residual vectors;
@@ -345,6 +362,49 @@ def _make_fns(f, c_e, c_i, n_x: int, m_e: int, m_i: int,
             torch.isfinite(dx).all().to(dx.dtype)])
         return dx, dy, ds, dz, stats
 
+    def bbd_step(x, y, z, s, mu, delta, ce, ri):
+        """``step`` through the structured KKT solve: the JAX package's
+        ``_bbd_step_body``. r_d from vector-Jacobian products, ds from a
+        Jacobian-vector product; (dx, v, lin_res, curv) from
+        ``kkt_solve``."""
+        mark("derivatives")
+        g = grad_f(x)
+        r_d = g
+        if m_e:
+            r_d = r_d - vjp(c_e, x)[1](y)[0]
+        if m_i:
+            sigma = (z / s).clamp(1e-12, 1e12)
+            pull = vjp(c_i, x)[1]
+            r_d = r_d - pull(z)[0]
+            r_d = r_d + pull(sigma * ri + z - mu / s)[0]
+        else:
+            sigma = x.new_zeros(0)
+        rhs_e = -ce if m_e else x.new_zeros(0)
+        dx, v, lin_res, curv = kkt_solve(x, y, z, sigma, delta, -r_d, rhs_e)
+        dy = -v if m_e else x.new_zeros(0)
+        if m_i:
+            mark("derivatives")
+            ds = jvp(c_i, (x,), (dx,))[1] + ri
+            mark("step")
+            dz = (mu - s * z - z * ds) / s
+            tau = max(0.99, 1.0 - mu)
+            alpha_s = torch.where(ds < 0, -tau * s / ds, 1.0).min()
+            alpha_z = torch.where(dz < 0, -tau * z / dz, 1.0).min()
+            alpha_s = alpha_s.clamp(0.0, 1.0)
+            alpha_z = alpha_z.clamp(0.0, 1.0)
+            dphi = g @ dx - mu * (ds / s).sum()
+        else:
+            mark("step")
+            ds = x.new_zeros(0)
+            dz = x.new_zeros(0)
+            alpha_s = x.new_ones(())
+            alpha_z = x.new_ones(())
+            dphi = g @ dx
+        stats = torch.stack([
+            alpha_s, alpha_z, lin_res, curv, dphi, dx @ dx,
+            torch.isfinite(dx).all().to(dx.dtype)])
+        return dx, dy, ds, dz, stats
+
     def resto_step(x, lam):
         """Levenberg-Marquardt step for min ½‖c_E‖² + ½‖min(c_I,0)‖²."""
         r_parts = []
@@ -382,7 +442,8 @@ def _make_fns(f, c_e, c_i, n_x: int, m_e: int, m_i: int,
         f=f, c_e=c_e, c_i=c_i, grad_f=grad_f, jac_e=jac_e, jac_i=jac_i,
         hess_l=hess_l, metrics=metrics, metrics_p=metrics_p,
         kkt_error=kkt_error, kkt_error_multi=kkt_error_multi,
-        kkt_components=kkt_components, ls_probe=ls_probe, step=step,
+        kkt_components=kkt_components, ls_probe=ls_probe,
+        step=step if kkt_solve is None else bbd_step,
         resto_step=resto_step, grad_f_jvp=grad_f_jvp, theta_of=theta_of)
 
 
@@ -403,10 +464,9 @@ def _read(t: torch.Tensor):
 
 
 def _row_max(fn_raw, jac_raw, n_x, x):
-    """Per-row max|J| at x for gradient-based scaling (one (m,)
-    readback)."""
+    """Per-row max|J| at x for gradient-based scaling, on x's device."""
     jac = jac_raw if jac_raw is not None else _jacobian(fn_raw, n_x)
-    return jac(x).abs().amax(dim=1).cpu().numpy()
+    return jac(x).abs().amax(dim=1)
 
 
 def _scale_of(row: np.ndarray) -> np.ndarray:
@@ -433,10 +493,6 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
     iteration): on expiry the loop stops and the best iterate is returned,
     flagged acceptable/failed by its KKT error.
     """
-    if problem.kkt is not None:
-        raise NotImplementedError(
-            "the structured (BBD) KKT solve is not ported yet (ROADMAP item "
-            "12d); leave NlpProblem.kkt unset for the dense f64 KKT")
     dev = resolve_device(device)
     x = torch.as_tensor(np.asarray(x0, dtype=np.float64), device=dev)
     n_x = x.shape[0]
@@ -467,12 +523,17 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
     gmax = float(grad(f_raw)(x).abs().max()) if n_x else 1.0
     scale_f = min(1.0, 100.0 / gmax) if gmax > 0 else 1.0
     g_e = g_i = None
+    if problem.kkt is not None and (m_e or m_i):
+        # structured path: the row maxima from the KKT's closed forms, no
+        # dense (m, n_x) Jacobian
+        row_e, row_i = problem.kkt.row_maxes(x)
+    else:
+        row_e = _row_max(eq_raw, je_raw, n_x, x) if m_e else None
+        row_i = _row_max(ineq_raw, ji_raw, n_x, x) if m_i else None
     if m_e:
-        g_e = torch.as_tensor(_scale_of(_row_max(eq_raw, je_raw, n_x, x)),
-                              device=dev)
+        g_e = torch.as_tensor(_scale_of(row_e.cpu().numpy()), device=dev)
     if m_i:
-        g_i = torch.as_tensor(_scale_of(_row_max(ineq_raw, ji_raw, n_x, x)),
-                              device=dev)
+        g_i = torch.as_tensor(_scale_of(row_i.cpu().numpy()), device=dev)
 
     f = lambda xx: scale_f * f_raw(xx)  # noqa: E731
     c_e = (lambda xx: g_e * eq_raw(xx)) if m_e else None
@@ -488,8 +549,15 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
         xx, (g_e * yy / scale_f) if m_e else yy,
         (g_i * zz / scale_f) if m_i else zz)) \
         if hess_raw is not None else None
+    kkt_solve = None
+    if problem.kkt is not None:
+        pk = {"sf": scale_f, "ge": g_e, "gi": g_i}
+
+        def kkt_solve(xx, yy, zz, sigma, delta, rhs_x, rhs_e):
+            return problem.kkt.solve(xx, yy, zz, sigma, delta, rhs_x, rhs_e,
+                                     pk)
     fns = _make_fns(f, c_e, c_i, n_x, m_e, m_i, jac_e_fn=jac_e_fn,
-                    jac_i_fn=jac_i_fn, hess_fn=hess_fn)
+                    jac_i_fn=jac_i_fn, hess_fn=hess_fn, kkt_solve=kkt_solve)
     step, kkt_error, metrics = fns.step, fns.kkt_error, fns.metrics
     kkt_error_multi, metrics_p, ls_probe = (fns.kkt_error_multi,
                                             fns.metrics_p, fns.ls_probe)

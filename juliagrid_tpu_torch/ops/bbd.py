@@ -23,9 +23,10 @@ only the border columns it touches) the border system is assembled by K5
 ``bbd_partition`` (BFS region growing, a copy of the JAX package's) here,
 ``partition.nd_partition`` (spectral nested dissection) beside it.
 
-Not ported here: ``bbd_solve_f64``/``bbd_solve_local_f64`` (they need the
-unpivoted LDLᵀ of ROADMAP queue 2 f, and serve only the OPF KKT of item 12)
-and ``bbd_solve_sharded`` (the multi-device item 15).
+Not ported here: ``bbd_solve_f64``/``bbd_solve_local_f64``, the JAX
+package's f64 unpivoted LDLᵀ endgame for its f32 factors (the AC OPF's BBD
+KKT, ``opf/kkt_bbd.py``, factors with ``bbd_solve_local``'s pivoted f64 LU
+throughout), and ``bbd_solve_sharded`` (the multi-device item 15).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 
 from ..config import resolve_device
 from ..kernels.schur_gather import SchurRoute, schur_gather
+from ..utils.profiling import mark
 from . import linalg
 
 
@@ -212,15 +214,25 @@ def local_border(x_b, bsel, bmask):
     return torch.cat([x_b, x_b.new_zeros(1)])[bsel] * bmask
 
 
-def bbd_solve_local(arr: BbdLocalArrays, rhs):
+def bbd_solve_local(arr: BbdLocalArrays, rhs, check: bool = True):
     """Schur solve on the locality-compressed layout: the border system is
-    assembled by K5 from the per-block contributions."""
+    assembled by K5 from the per-block contributions. A singular interior
+    block or border system raises; with ``check`` off it does not, and the
+    solution comes out inf or NaN instead (the interior point's KKT, whose
+    loop escalates δ on a non-finite step). Its stages are marked for
+    ``utils.profiling.device_stages``."""
     r_i, r_b = _gather(rhs, arr.interior_idx, arr.interior_mask,
                        arr.border_idx)
-    y, z = linalg.batched_lu_solve2(arr.a_ii, r_i, arr.a_ib)
-    schur, rhs_b = schur_gather(arr.route, arr.a_bi @ z, _vec(arr.a_bi, y),
-                                arr.a_bb, r_b, scale=-1.0)
-    x_b = linalg.solve(linalg.factorize(schur, linalg.LU), rhs_b)
+    y, z = linalg.batched_lu_solve2(arr.a_ii, r_i, arr.a_ib, check)
+    mark("Schur products")
+    contrib, parts = arr.a_bi @ z, _vec(arr.a_bi, y)
+    mark("K5")
+    schur, rhs_b = schur_gather(arr.route, contrib, parts, arr.a_bb, r_b,
+                                scale=-1.0)
+    mark("border LU")
+    x_b = linalg.solve(linalg.factorize(schur, linalg.LU, check=check),
+                       rhs_b)
+    mark("back-sub")
     x_i = y - _vec(z, local_border(x_b, arr.bsel, arr.bmask))
     return _write_back(rhs.shape[0], x_i, x_b, arr.interior_idx,
                        arr.interior_mask, arr.border_idx)

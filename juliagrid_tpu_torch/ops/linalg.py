@@ -103,16 +103,21 @@ def solve_columns(factor: DenseFactor, b: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown factorization kind {factor.kind}")
 
 
-def lu_factor_blocks(a: torch.Tensor):
+def lu_factor_blocks(a: torch.Tensor, check: bool = True):
     """f64 LU factors and pivots of each block of ``a`` (``[k, n, n]``);
     raises ``torch.linalg.LinAlgError`` naming the first singular block.
+    With ``check`` off it does not look: a singular block factors as it
+    comes out (a zero pivot), its solves give inf or NaN, the other blocks
+    are untouched, and the call reads nothing back (the interior point's
+    step, where a singular KKT must come back non-finite).
 
     On the CPU one batched call. On the card one cuSOLVER getrf per block,
     each on a stream of its own: a getrf of a few thousand rows is bound by
     its column-by-column latency, not by the card's rate, so the blocks'
     factorizations overlap; PyTorch's batched call goes to MAGMA's batched
     getrf, which is slower at these sizes (PERF.md, section 5). Either way
-    one readback of the factorizations' ``info`` follows."""
+    one readback of the factorizations' ``info`` follows when ``check`` is
+    on."""
     if a.device.type != "cuda":
         lu, piv, info = torch.linalg.lu_factor_ex(a)
     else:
@@ -127,6 +132,8 @@ def lu_factor_blocks(a: torch.Tensor):
                 torch.linalg.lu_factor_ex(blk, out=(lu_b, piv_b, info_b))
         for side in streams:
             main.wait_stream(side)
+    if not check:
+        return lu, piv
     singular = torch.nonzero(info).flatten().tolist()
     if singular:
         raise torch.linalg.LinAlgError(
@@ -135,13 +142,15 @@ def lu_factor_blocks(a: torch.Tensor):
     return lu, piv
 
 
-def batched_lu_solve2(a: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor):
+def batched_lu_solve2(a: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor,
+                      check: bool = True):
     """One f64 LU of each block of ``a`` (``[k, n, n]``) and two solves
     against it: ``r1`` (``[k, n]`` or ``[k, n, m1]``) and ``r2``
     (``[k, n, m2]``). The BBD interior step; the JAX package's VMEM switch
-    and its f32 factor with refinement sweeps are TPU-only and not ported."""
+    and its f32 factor with refinement sweeps are TPU-only and not ported.
+    ``check`` as in ``lu_factor_blocks``."""
     mark("interior LU")
-    lu, piv = lu_factor_blocks(a)
+    lu, piv = lu_factor_blocks(a, check)
     mark("interior solves")
     vec = r1.dim() == a.dim() - 1
     y1 = torch.linalg.lu_solve(lu, piv, r1.unsqueeze(-1) if vec else r1)

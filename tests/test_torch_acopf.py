@@ -103,20 +103,17 @@ def test_case30_converges_with_fixed_q_generators(data_path):
 
 
 def test_dense_kkt_only(data_path, monkeypatch):
-    """The structured BBD KKT (item 12d) and the mesh (item 15) are not
-    ported: asking for them, or leaving kkt_blocks unset at the JAX
-    package's BBD size, raises; kkt_blocks=0 is the dense KKT."""
+    """kkt_blocks=0 is the dense KKT only, even at the BBD size (no
+    structured KKT is built). The KKT sharded over a device mesh (item 15)
+    is not ported: asking for it raises."""
     system = jgt.power_system(str(data_path / "case14optimal.m"))
     analysis = jgt.ac_optimal_power_flow(system, device="cpu")
-    with pytest.raises(NotImplementedError, match="12d"):
-        acopf.solve(analysis, kkt_blocks=4)
     with pytest.raises(NotImplementedError, match="item 15"):
         acopf.solve(analysis, kkt_mesh=object())
     monkeypatch.setattr(acopf, "_KKT_BBD_AUTO", 10)
-    with pytest.raises(NotImplementedError, match="kkt_blocks=0"):
-        acopf.solve(analysis)
     acopf.solve(analysis, kkt_blocks=0, max_iter=2)
     assert analysis.method.iteration == 2
+    assert getattr(analysis, "_kkt_cache", None) is None
 
 
 def test_solve_opf_dispatch(data_path):

@@ -188,7 +188,7 @@ def test_port_imports_no_jax():
         " 'estimation.pmuse', 'estimation.baddata', 'estimation.takahashi',"
         " 'estimation.observability', 'opf.ipm', 'opf.dcopf', 'opf.edit',"
         " 'estimation.lav', 'system.snapshot', 'opf.acopf', 'opf.extended',"
-        " 'kernels.opf_fill'):\n"
+        " 'kernels.opf_fill', 'opf.kkt_bbd', 'kernels.kkt_fill'):\n"
         "    assert 'juliagrid_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'juliagrid_tpu', 'h5py')]\n"

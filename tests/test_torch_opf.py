@@ -327,12 +327,6 @@ def test_cuda_request_without_card_raises(data_path):
                       np.ones(2), device="cuda")
 
 
-def test_bbd_kkt_is_refused():
-    problem = ipm.NlpProblem(lambda x: (x * x).sum(-1), kkt=object())
-    with pytest.raises(NotImplementedError, match="12d"):
-        ipm.solve_nlp(problem, np.ones(2), device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # live edits (tests/test_opf_edit_dc.py on the port)
 # ---------------------------------------------------------------------------
