@@ -74,19 +74,24 @@ case14optimal and case30test against the port's CPU run, case118 against
 MATPOWER's published optimum, and the main path: case1354pegase at full
 size with its own costs, checked against MATPOWER's published optimum and
 for balance (from the raw Y bus) and every limit, with the per-iteration
-split and K6's times beside a memset-and-fill split. Then the structured
-(BBD) KKT of the AC OPF (phase 18): K7 against its plain version at
+split; the fixed-order sums (``ops/segments.py``) on the card against the
+CPU, bit for bit, and a gather's gradient twice; and K6's times beside a
+memset-and-fill split and a bare ``zero_()`` of the same output, with each
+mode's registers and local bytes from ``cudaFuncGetAttributes``. Then the
+structured (BBD) KKT of the AC OPF (phase 18): K7 against its plain version at
 case118, case1354pegase and the 10,000-bus cell, timed; the BBD KKT
 against the dense KKT on the 900-bus ``synthetic_grid(30, 30, opf=True)``
 (one step's dx, and both solves end to end); and the main path, the
 JAX package's 10k AC OPF record ``synthetic_grid(100, 100, opf=True)``
 through ``power_flow(power=True)`` with ``kkt_blocks`` unset, checked for
 balance from the raw Y bus, every limit and every taken step's linear
-residual, with the per-iteration split, then re-solved after a live cost
-edit on the cached structure. Every phase prints its
-lines and times; any failure exits non-zero. The 10k and 25k NR/SE grids are
-``synthetic_grid``s; phase 16 loads ACTIVSg10k and case1354pegase from
-their numpy-only ``.npz`` snapshots (the card's machine has no h5py).
+residual, with the per-iteration split, solved a second time from a
+fresh build of the same grid (the same iterations to the same bits), then
+re-solved after a live cost edit on the cached structure. Every phase
+prints its lines and times; any failure exits non-zero. The 10k and 25k
+NR/SE grids are ``synthetic_grid``s; phase 16 loads ACTIVSg10k and
+case1354pegase from their numpy-only ``.npz`` snapshots (the card's
+machine has no h5py).
 
 The second-last lines are the card's ``nvidia-smi`` name and power limit
 and a JSON object with each kernel's launches on the main paths, error
@@ -151,6 +156,7 @@ from juliagrid_tpu_torch.opf import acopf as ac_mod
 from juliagrid_tpu_torch.opf import ipm, kkt_bbd
 from juliagrid_tpu_torch.opf.edit import update_cost
 from juliagrid_tpu_torch.ops import linalg
+from juliagrid_tpu_torch.ops.segments import segment_sum
 from juliagrid_tpu_torch.oracle import (oracle_dc, oracle_fdpf, oracle_nr,
                                         oracle_wls_se)
 from juliagrid_tpu_torch.parallel import (batched_dc_solve, batched_nr_solve,
@@ -2689,10 +2695,12 @@ def k6_bound(arr, x, outputs, duals=()):
 
 def k6_times(label, arr, x, y, z):
     """K6 at the main path's point: ms of each mode (CUDA events), its
-    device time alone and host µs, the memset-and-fill split, the plain
-    version, one kernel node a call, the bounds. Returns (ms, plain_ms,
-    (bound_ms, bound_by)) of the pair an iteration takes (one Jacobian
-    and one Hessian launch)."""
+    device time alone and host µs, the memset-and-fill split, a bare
+    ``zero_()`` of the same output (the card's practical store floor), the
+    plain version, one kernel node a call, the bounds, and what the build
+    gave each mode's kernel (registers and local bytes a thread, resident
+    blocks an SM). Returns (ms, plain_ms, (bound_ms, bound_by)) of the pair
+    an iteration takes (one Jacobian and one Hessian launch)."""
     jac = lambda: k6.opf_fill(arr, x)  # noqa: E731
     hes = lambda: k6.opf_fill(arr, x, y, z)  # noqa: E731
     out = {}
@@ -2701,26 +2709,79 @@ def k6_times(label, arr, x, y, z):
              lambda: k6.opf_fill_ref(arr, x)),
             ("Hessian", hes, lambda: k6._launch(arr, x, y, z, zeroed=True),
              lambda: k6.opf_fill_ref(arr, x, y, z))):
+        attr = k6.kernel_attributes(mode == "Hessian")
         check_one_launch(f"{label} K6 {mode}", fn)
         outputs = [t for t in fn() if t is not None]
         least = k6_bound(arr, x, outputs, (y, z) if mode == "Hessian" else ())
+        rows = sum(t.shape[0] for t in outputs)
         del outputs
-        # memset-and-fill and the one launch in turns
-        ms = [cuda_ms(f, reps=20) for f in (fn, split, split, fn)]
-        out[mode] = (0.5 * (ms[0] + ms[3]), queued_ms(fn, reps=20),
-                     host_us(fn, reps=20), 0.5 * (ms[1] + ms[2]),
-                     cuda_ms(plain, reps=3), least)
+        floor = torch.empty((rows, arr.n_x), dtype=torch.float64,
+                            device=x.device)
+        zero = floor.zero_
+        # memset-and-fill, a bare zero_() and the one launch in turns
+        ms = [cuda_ms(f, reps=20) for f in (fn, split, zero, zero, split,
+                                            fn)]
+        del floor
+        out[mode] = (0.5 * (ms[0] + ms[5]), queued_ms(fn, reps=20),
+                     host_us(fn, reps=20), 0.5 * (ms[1] + ms[4]),
+                     cuda_ms(plain, reps=3), least, 0.5 * (ms[2] + ms[3]))
         o = out[mode]
         print(f"phase 17 {label} K6 {mode} mode: {o[0]!r} ms per call "
-              f"(CUDA events; runs {ms[0]!r}, {ms[3]!r}), device {o[1]!r} "
+              f"(CUDA events; runs {ms[0]!r}, {ms[5]!r}), device {o[1]!r} "
               f"ms queued, host {o[2]!r} us; one kernel node a call, no "
               f"memset or memcpy (CUDA graph); memset (torch.zeros) + "
-              f"fill {o[3]!r} ms (runs {ms[1]!r}, {ms[2]!r}); opf_fill_ref "
-              f"{o[4]!r} ms; bound {least[0]!r} ms by {least[1]}, share "
-              f"{least[0] / o[0]!r}")
+              f"fill {o[3]!r} ms (runs {ms[1]!r}, {ms[4]!r}); a bare "
+              f"zero_() of the same {rows} x {arr.n_x} output {o[6]!r} ms "
+              f"(runs {ms[2]!r}, {ms[3]!r}); opf_fill_ref {o[4]!r} ms; "
+              f"bound {least[0]!r} ms by {least[1]}, share "
+              f"{least[0] / o[0]!r}; kernel: {attr['registers']} registers "
+              f"and {attr['local_bytes']} local bytes a thread, "
+              f"{attr['shared_bytes']} static shared bytes, "
+              f"{attr['blocks_per_sm']} resident blocks an SM "
+              f"({256 if mode == 'Jacobian' else 128} threads each)")
     pair = [sum(out[m][i] for m in out) for i in (0, 4)]
     least = sum(out[m][5][0] for m in out)
     return pair[0], pair[1], (least, "bytes")
+
+
+def fixed_sums_check(spec):
+    """``ops.segments.segment_sum`` on the card, twice, by columns and in
+    one kernel, against the same calls on the CPU, bit for bit, and the
+    gradient of a gather
+    (``x[..., idx]``, which PyTorch sums in order on the card) twice, at
+    the shapes of the spec's bus sums (its Y-bus entries by row, its
+    generators by bus, a batch of line-search points) and of the 10k BBD
+    KKT's residual (1.34M entries into 44,001 rows, in no order)."""
+    rng = np.random.default_rng(SEED)
+    arr = spec.arrays
+    cases = [("Y-bus entries by row", arr.rows.cpu().numpy(), spec.n, ()),
+             ("generators by bus", arr.gen_bus.cpu().numpy(), spec.n, ()),
+             ("8 points' entries by row", arr.rows.cpu().numpy(), spec.n,
+              (8,)),
+             ("10k KKT residual", rng.integers(0, 44_001, 1_340_000), 44_001,
+              ())]
+    for name, index, size, lead in cases:
+        src = rng.standard_normal(lead + (index.size,)) * 10.0 ** \
+            rng.integers(-8, 8, lead + (index.size,))
+        got = [segment_sum(torch.tensor(src, device=dev),
+                           torch.tensor(index, device=dev), size,
+                           forward_ad=ad).cpu()
+               for ad in (True, False) for dev in ("cuda", "cuda", "cpu")]
+        x = torch.tensor(rng.standard_normal(lead + (size,)), device="cuda")
+        idx = torch.tensor(index, device="cuda")
+        cot = torch.tensor(src, device="cuda")
+        grads = [torch.func.vjp(lambda v: v[..., idx], x)[1](cot)[0]
+                 for _ in range(2)]
+        check(all(torch.equal(got[0], other) for other in got[1:])
+              and torch.equal(grads[0], grads[1]),
+              f"fixed-order sums ({name}): the card's and the CPU's bits "
+              f"differ, max {float((got[0] - got[2]).abs().max())!r}, "
+              f"gather's gradient twice "
+              f"{float((grads[0] - grads[1]).abs().max())!r}")
+        print(f"phase 17 fixed-order sums, {name} ({index.size} entries "
+              f"into {size}, batch {lead}): card twice = CPU bit for bit, "
+              f"by columns and in one kernel; a gather's gradient twice the "
+              f"same bits")
 
 
 def ac_opf_run(system, device, stages=False, iterates=None):
@@ -2943,6 +3004,7 @@ def phase17():
           f"clamp at the flat start; the last point the solve's optimum), "
           f"max abs diff {err!r}, max rel diff {rel!r} of the row ({entry!r}"
           f" of the entry)")
+    fixed_sums_check(spec)
     dev = spec.arrays.rows.device
     x, y, z = (torch.as_tensor(a, device=dev) for a in (res.x, res.y, res.z))
     times = k6_times(OPF_PEGASE, spec.arrays, x, y, z)
@@ -3135,6 +3197,7 @@ def kkt_10k_run():
     launches, K5 launches)."""
     system = synthetic_grid(*KKT_GRID, opf=True)
     analysis = ac_optimal_power_flow(system, device="cuda")
+    start = np.array(analysis._x0)
     steps = []
     solve = kkt_bbd.AcKktBbd.solve
 
@@ -3185,6 +3248,16 @@ def kkt_10k_run():
           f"{power!r}; K7 launches {launches[0]}, K5 {launches[1]}; peak "
           f"{peak / 1e9!r} GB; per iteration (CUDA events): "
           f"{stage_ms(split, it)}")
+    # one input, one trajectory: the same solve again from a fresh build of
+    # the same grid
+    again = ac_optimal_power_flow(synthetic_grid(*KKT_GRID, opf=True),
+                                  device="cuda")
+    check(np.array_equal(again._x0, start),
+          "10k AC OPF: the second build starts elsewhere")
+    wall_again, _ = wall_s(lambda: power_flow(again, power=True))
+    same_trajectory("phase 18 10k AC OPF", res, again.method.result,
+                    wall, wall_again)
+    del again
     # a numeric live edit keeps the routed structure: a new quadratic cost
     # for the generator that supplies most
     top = int(np.argmax(analysis.power.generator.active))
@@ -3201,6 +3274,24 @@ def kkt_10k_run():
     return launches
 
 
+def same_trajectory(label, first, second, wall, wall_again):
+    """Two solves of one input must take the same iterations to the same
+    bits of x, y, z and the objective (the AC OPF's sums run in a fixed
+    order, ``ops/segments.py``)."""
+    same = {name: np.array_equal(getattr(first, name),
+                                 getattr(second, name))
+            for name in ("x", "y", "z", "s")}
+    same["objective"] = first.objective == second.objective
+    check(first.iterations == second.iterations and all(same.values()),
+          f"{label}: two solves of one input differ: iterations "
+          f"{first.iterations}/{second.iterations}, bit-equal {same}, "
+          f"objective {first.objective!r}/{second.objective!r}")
+    print(f"{label} solved again from the same start: {second.iterations} "
+          f"iterations, status {second.status}, x, y, z, s and the "
+          f"objective {second.objective!r} equal bit for bit; "
+          f"{wall_again!r} s (first {wall!r} s)")
+
+
 def phase18():
     """The structured KKT of the AC OPF: K7 against its plain version at
     case118, pegase and the 10k cell; the BBD KKT against the dense KKT at
@@ -3214,7 +3305,7 @@ def phase18():
     return worst, times, k7_launches, k5_launches
 
 
-def activsg10k_acopf(max_seconds=300.0):
+def activsg10k_acopf(max_seconds=300.0, verbose=1):
     """The AC OPF of the real ACTIVSg10k grid on the card, which ``main``
     does not run (it stops short of acceptable; see PERF.md). Run it from
     the root of a checkout with
@@ -3225,39 +3316,49 @@ def activsg10k_acopf(max_seconds=300.0):
     sends the 10,000 buses to the structured (BBD) KKT, within
     ``max_seconds`` of the interior point (its n_x is above 8,192, so it
     runs without restoration, as the JAX package's does), and prints the
-    status, iterations, final KKT error and objective, the KKT layout and
-    host build, the ms an iteration by stage (CUDA events), the peak device
-    memory, and the end point's worst bus balance (raw Y bus) and limit
-    violations."""
+    status, the exit that ended the loop (``IpmResult.stop``), iterations,
+    final KKT error and objective, the KKT layout and host build, the ms an
+    iteration by stage (CUDA events), the peak device memory, and the end
+    point's worst bus balance (raw Y bus) and limit violations. Then it
+    solves the same input again from a fresh build and fails unless the
+    two take the same iterations to the same bits. ``verbose`` is the
+    interior point's (3: every iteration's step lengths and KKT split)."""
     if not torch.cuda.is_available():
         raise SmokeFailure("no card: this run measures the card")
-    system = power_system(str(DATA / OPF_10K))
-    build, analysis = wall_s(lambda: ac_optimal_power_flow(system,
-                                                           device="cuda"))
-    spec = analysis._spec
-    print(f"ACTIVSg10k AC OPF: n {spec.n}, n_x {spec.n_x}, m_E {spec.m_e}, "
-          f"m_I {spec.m_i}, KKT order {spec.n_x + spec.m_e}, "
-          f"{len(spec.flows)} flow rows, {len(spec.angles)} angle rows; "
-          f"ac_optimal_power_flow {build!r} s", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    with device_stages() as split:
-        wall, _ = wall_s(lambda: ac_mod.solve(analysis,
-                                              max_seconds=max_seconds,
-                                              verbose=1))
-    res = analysis.method.result
-    kkt = analysis._kkt_cache[2]
-    print(f"ACTIVSg10k KKT layout: {kkt_layout(kkt)}; host build "
-          f"{kkt.build_s!r} s")
-    print(f"ACTIVSg10k status {res.status}, {res.iterations} iterations, "
-          f"KKT error {res.kkt_error!r}, objective {res.objective!r}, solve "
-          f"{wall!r} s (max_seconds {max_seconds}); peak "
-          f"{torch.cuda.max_memory_allocated() / 1e9!r} GB; per iteration "
-          f"(CUDA events): {stage_ms(split, res.iterations)}")
-    balance, volt, power, flow, angle, n_flow = ac_feasibility(system,
-                                                               analysis)
-    print(f"ACTIVSg10k end point: worst balance {balance!r} p.u. (raw Y "
-          f"bus), limits: V {volt!r}, Pg/Qg {power!r}, flow {flow!r} "
-          f"({n_flow} limited ends), angle {angle!r}")
+    results = []
+    for run in (1, 2):
+        system = power_system(str(DATA / OPF_10K))
+        build, analysis = wall_s(lambda: ac_optimal_power_flow(
+            system, device="cuda"))
+        spec = analysis._spec
+        print(f"ACTIVSg10k AC OPF, solve {run}: n {spec.n}, n_x {spec.n_x}, "
+              f"m_E {spec.m_e}, m_I {spec.m_i}, KKT order "
+              f"{spec.n_x + spec.m_e}, {len(spec.flows)} flow rows, "
+              f"{len(spec.angles)} angle rows; ac_optimal_power_flow "
+              f"{build!r} s", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        with device_stages() as split:
+            wall, _ = wall_s(lambda: ac_mod.solve(
+                analysis, max_seconds=max_seconds, verbose=verbose))
+        res = analysis.method.result
+        kkt = analysis._kkt_cache[2]
+        print(f"ACTIVSg10k KKT layout: {kkt_layout(kkt)}; host build "
+              f"{kkt.build_s!r} s")
+        print(f"ACTIVSg10k solve {run}: status {res.status}, ended by "
+              f"{res.stop!r}, {res.iterations} iterations, KKT error "
+              f"{res.kkt_error!r}, objective {res.objective!r}, solve "
+              f"{wall!r} s (max_seconds {max_seconds}); peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9!r} GB; per "
+              f"iteration (CUDA events): {stage_ms(split, res.iterations)}")
+        balance, volt, power, flow, angle, n_flow = ac_feasibility(
+            system, analysis)
+        print(f"ACTIVSg10k end point: worst balance {balance!r} p.u. (raw Y "
+              f"bus), limits: V {volt!r}, Pg/Qg {power!r}, flow {flow!r} "
+              f"({n_flow} limited ends), angle {angle!r}", flush=True)
+        results.append((res, wall))
+        del analysis, kkt
+    same_trajectory("ACTIVSg10k AC OPF", results[0][0], results[1][0],
+                    results[0][1], results[1][1])
 
 
 def kernel_entry(name, replaces, launches, err, times, source=None,

@@ -6,7 +6,10 @@
 // second derivatives (juliagrid_tpu/opf/acopf.py:831-867).
 // flow_derivs: a flow row's gradient and Hessian over (theta_f, theta_t,
 // V_f, V_t) by the chain rule over the rectangular voltages, with the sqrt
-// rows' clamp (see opf_fill.cu's head).
+// rows' clamp (see opf_fill.cu's head). It is built from pieces that K6's
+// Hessian mode calls one element at a time on many threads (flow_point,
+// flow_pq_du, flow_gm, flow_hu, flow_hz), each with the same operations in
+// the same order, so both kernels get the same bits from one flow row.
 //
 // Both sources are built with -fmad=false (_build.SOURCE_FLAGS), so every
 // product and sum here rounds on its own, as the plain versions' op-by-op
@@ -57,131 +60,214 @@ struct FlowRows {
   int n;
 };
 
-// Gradient g[4] and, unless h is null, Hessian h[16] (row-major) of flow
-// row f's value over z = (theta_f, theta_t, V_f, V_t).
-__device__ inline void flow_derivs(const FlowRows& t,
-                                   const double* __restrict__ x, int f,
-                                   double* g, double* h) {
+// One flow row at a point: its rectangular voltages u = (Vf cos thf,
+// Vf sin thf, Vt cos tht, Vt sin tht) and the angles' cosines and sines, its
+// end's admittances y = (gf, bf, gt, bt), its end's current (ire, iim) and
+// power (pp, qq), and, for the sqrt classes (2, 4), the clamp's scales: the
+// value's derivatives are inv times those of S^2 or I^2, plus inv3 times
+// the outer product of their gradient in the second.
+struct FlowPoint {
+  double u[4];
+  double cf, sf, ct, st;
+  double y[4];
+  double ire, iim, pp, qq;
+  double inv, inv3;
+  int cls;
+  int r;  // u[r], u[r + 1]: the real and imaginary voltage of the end
+};
+
+// d ire / du_k and d iim / du_k: a = (gf, -bf, gt, -bt), b = (bf, gf, bt,
+// gt).
+__device__ __forceinline__ double adm_a(const FlowPoint& p, int k) {
+  return k == 0 ? p.y[0] : k == 1 ? -p.y[1] : k == 2 ? p.y[2] : -p.y[3];
+}
+__device__ __forceinline__ double adm_b(const FlowPoint& p, int k) {
+  return k == 0 ? p.y[1] : k == 1 ? p.y[0] : k == 2 ? p.y[3] : p.y[2];
+}
+
+__device__ __forceinline__ void flow_point(const FlowRows& t,
+                                           const double* __restrict__ x,
+                                           int f, FlowPoint& p) {
   const int nf = t.n_fl;
   const int n = t.n;
   const int fb = t.fl_idx[f];
   const int tb = t.fl_idx[nf + f];
-  const int cls = t.fl_idx[2 * nf + f];
+  p.cls = t.fl_idx[2 * nf + f];
   const bool from = t.fl_idx[3 * nf + f] != 0;
   const double gf = t.fl_y[f];
   const double bf = t.fl_y[nf + f];
   const double gt = t.fl_y[2 * nf + f];
   const double bt = t.fl_y[3 * nf + f];
-  double sf, cf, st, ct;
-  sincos(x[fb], &sf, &cf);
-  sincos(x[tb], &st, &ct);
+  p.y[0] = gf;
+  p.y[1] = bf;
+  p.y[2] = gt;
+  p.y[3] = bt;
+  sincos(x[fb], &p.sf, &p.cf);
+  sincos(x[tb], &p.st, &p.ct);
   const double vf = x[n + fb];
   const double vt = x[n + tb];
-  const double u[4] = {vf * cf, vf * sf, vt * ct, vt * st};
-  const double a[4] = {gf, -bf, gt, -bt};   // d ire / du
-  const double b[4] = {bf, gf, bt, gt};     // d iim / du
-  const double ire = gf * u[0] - bf * u[1] + gt * u[2] - bt * u[3];
-  const double iim = gf * u[1] + bf * u[0] + gt * u[3] + bt * u[2];
-  const int r = from ? 0 : 2;  // the end's real and imaginary voltage
+  p.u[0] = vf * p.cf;
+  p.u[1] = vf * p.sf;
+  p.u[2] = vt * p.ct;
+  p.u[3] = vt * p.st;
+  p.ire = gf * p.u[0] - bf * p.u[1] + gt * p.u[2] - bt * p.u[3];
+  p.iim = gf * p.u[1] + bf * p.u[0] + gt * p.u[3] + bt * p.u[2];
+  p.r = from ? 0 : 2;
+  const double vr = from ? p.u[0] : p.u[2];
+  const double vi = from ? p.u[1] : p.u[3];
+  p.pp = vr * p.ire + vi * p.iim;
+  p.qq = vi * p.ire - vr * p.iim;
+  p.inv = 1.0;
+  p.inv3 = 0.0;
+  if (p.cls == 2 || p.cls == 4) {
+    // sqrt(max(m, floor)), m = S^2 or I^2: the clamp's weight w on m's
+    // derivatives
+    const double m = p.cls == 2 ? p.pp * p.pp + p.qq * p.qq
+                                : p.ire * p.ire + p.iim * p.iim;
+    const double w = m > kFloor ? 1.0 : m == kFloor ? 0.5 : 0.0;
+    const double mm = m > kFloor ? m : kFloor;
+    const double root = sqrt(mm);
+    p.inv = w / (2.0 * root);
+    p.inv3 = w * w / (4.0 * mm * root);
+  }
+}
+
+// dP/du_k and dQ/du_k.
+__device__ __forceinline__ void flow_pq_du(const FlowPoint& p, int k,
+                                           double& dp, double& dq) {
+  const double a = adm_a(p, k);
+  const double b = adm_b(p, k);
+  const double vr = p.r == 0 ? p.u[0] : p.u[2];
+  const double vi = p.r == 0 ? p.u[1] : p.u[3];
+  dp = vr * a + vi * b;
+  dq = vi * a - vr * b;
+  if (k == p.r) {
+    dp += p.ire;
+    dq -= p.iim;
+  }
+  if (k == p.r + 1) {
+    dp += p.iim;
+    dq += p.ire;
+  }
+}
+
+// d value / du_k before the sqrt classes' scale (P, S^2 or I^2), from
+// dP/du_k and dQ/du_k; the gradient over u is gm * inv for classes 2 and
+// 4, gm for the others (flow_gu).
+__device__ __forceinline__ double flow_gm(const FlowPoint& p, int k,
+                                          double dp, double dq) {
+  if (p.cls == 1) return dp;
+  if (p.cls == 2 || p.cls == 3) return 2.0 * p.pp * dp + 2.0 * p.qq * dq;
+  return 2.0 * p.ire * adm_a(p, k) + 2.0 * p.iim * adm_b(p, k);
+}
+__device__ __forceinline__ double flow_gu(const FlowPoint& p, double gm) {
+  return p.cls == 2 || p.cls == 4 ? gm * p.inv : gm;
+}
+
+// d^2 value / du_k du_l, from the two components' dP, dQ and gm.
+__device__ __forceinline__ double flow_hu(const FlowPoint& p, int k, int l,
+                                          double dpk, double dqk,
+                                          double dpl, double dql,
+                                          double gmk, double gml) {
+  const int r = p.r;
   const int i = r + 1;
-  const double vr = u[r];
-  const double vi = u[i];
-  const double pp = vr * ire + vi * iim;
-  const double qq = vi * ire - vr * iim;
-
-  // derivatives over u of the class's value: gu, hu
-  double gu[4];
-  double hu[16];
-  double dp[4], dq[4];
-  for (int k = 0; k < 4; ++k) {
-    dp[k] = vr * a[k] + vi * b[k];
-    dq[k] = vi * a[k] - vr * b[k];
-  }
-  dp[r] += ire;
-  dp[i] += iim;
-  dq[i] += ire;
-  dq[r] -= iim;
+  const double ak = adm_a(p, k);
+  const double al = adm_a(p, l);
+  const double bk = adm_b(p, k);
+  const double bl = adm_b(p, l);
   // the constant second derivatives of P and Q over u
-  auto hpp = [&](int k, int l) {
-    return (k == r ? a[l] : 0.0) + (l == r ? a[k] : 0.0) +
-           (k == i ? b[l] : 0.0) + (l == i ? b[k] : 0.0);
-  };
-  auto hqq = [&](int k, int l) {
-    return (k == i ? a[l] : 0.0) + (l == i ? a[k] : 0.0) -
-           (k == r ? b[l] : 0.0) - (l == r ? b[k] : 0.0);
-  };
-  if (cls == 1) {
-    for (int k = 0; k < 4; ++k) {
-      gu[k] = dp[k];
-      for (int l = 0; l < 4; ++l) hu[4 * k + l] = hpp(k, l);
-    }
+  const double hpp = (k == r ? al : 0.0) + (l == r ? ak : 0.0) +
+                     (k == i ? bl : 0.0) + (l == i ? bk : 0.0);
+  if (p.cls == 1) return hpp;
+  double h;
+  if (p.cls == 2 || p.cls == 3) {
+    const double hqq = (k == i ? al : 0.0) + (l == i ? ak : 0.0) -
+                       (k == r ? bl : 0.0) - (l == r ? bk : 0.0);
+    h = 2.0 * (dpk * dpl + p.pp * hpp + dqk * dql + p.qq * hqq);
   } else {
-    double m;  // S^2 or I^2
-    if (cls == 2 || cls == 3) {
-      m = pp * pp + qq * qq;
-      for (int k = 0; k < 4; ++k) {
-        gu[k] = 2.0 * pp * dp[k] + 2.0 * qq * dq[k];
-        for (int l = 0; l < 4; ++l) {
-          hu[4 * k + l] = 2.0 * (dp[k] * dp[l] + pp * hpp(k, l) +
-                                 dq[k] * dq[l] + qq * hqq(k, l));
-        }
-      }
-    } else {
-      m = ire * ire + iim * iim;
-      for (int k = 0; k < 4; ++k) {
-        gu[k] = 2.0 * ire * a[k] + 2.0 * iim * b[k];
-        for (int l = 0; l < 4; ++l) {
-          hu[4 * k + l] = 2.0 * (a[k] * a[l] + b[k] * b[l]);
-        }
-      }
-    }
-    if (cls == 2 || cls == 4) {
-      // sqrt(max(m, floor)): the clamp's weight w on m's derivatives
-      const double w = m > kFloor ? 1.0 : m == kFloor ? 0.5 : 0.0;
-      const double mm = m > kFloor ? m : kFloor;
-      const double root = sqrt(mm);
-      const double inv = w / (2.0 * root);
-      const double inv3 = w * w / (4.0 * mm * root);
-      for (int k = 0; k < 4; ++k) {
-        for (int l = 0; l < 4; ++l) {
-          hu[4 * k + l] = hu[4 * k + l] * inv - gu[k] * gu[l] * inv3;
-        }
-      }
-      for (int k = 0; k < 4; ++k) gu[k] *= inv;
+    h = 2.0 * (ak * al + bk * bl);
+  }
+  if (p.cls == 2 || p.cls == 4) h = h * p.inv - gmk * gml * p.inv3;
+  return h;
+}
+
+// du_k/dz_c: u0, u1 hang on (theta_f, V_f) = z0, z2; u2, u3 on z1, z3:
+// J = {{-u1, 0, cf, 0}, {u0, 0, sf, 0}, {0, -u3, 0, ct}, {0, u2, 0, st}}
+// by selects on c (k is a constant where it is called: loops unrolled).
+__device__ __forceinline__ double du_dz(const FlowPoint& p, int k, int c) {
+  const int end = k >> 1;
+  if ((c & 1) != end) return 0.0;
+  if (c < 2) return (k & 1) ? p.u[k - 1] : -p.u[k + 1];
+  return end == 0 ? ((k & 1) ? p.sf : p.cf) : ((k & 1) ? p.st : p.ct);
+}
+
+// Element (a, b) of the Hessian over z: J^T H_u J + sum_u g_u d^2u/dz^2,
+// J = du/dz. hu(k, l) gives d^2 value / du_k du_l and gu(k) the gradient
+// over u.
+template <class Hu, class Gu>
+__device__ __forceinline__ double flow_hz(const FlowPoint& p, int a, int b,
+                                          Hu hu, Gu gu) {
+  double s = 0.0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      s += du_dz(p, k, a) * hu(k, l) * du_dz(p, l, b);
     }
   }
+  const int e = 4 * a + b;
+  if (e == 0) {
+    s += gu(0) * -p.u[0] + gu(1) * -p.u[1];
+  } else if (e == 5) {
+    s += gu(2) * -p.u[2] + gu(3) * -p.u[3];
+  } else if (e == 2 || e == 8) {
+    s += gu(0) * -p.sf + gu(1) * p.cf;
+  } else if (e == 7 || e == 13) {
+    s += gu(2) * -p.st + gu(3) * p.ct;
+  }
+  return s;
+}
 
-  // du/dz: u0, u1 hang on (theta_f, V_f) = z0, z2; u2, u3 on z1, z3
-  const double jac[4][4] = {{-u[1], 0.0, cf, 0.0},
-                            {u[0], 0.0, sf, 0.0},
-                            {0.0, -u[3], 0.0, ct},
-                            {0.0, u[2], 0.0, st}};
+// Gradient g[4] and, unless h is null, Hessian h[16] (row-major) of flow
+// row f's value over z = (theta_f, theta_t, V_f, V_t).
+__device__ inline void flow_derivs(const FlowRows& t,
+                                   const double* __restrict__ x, int f,
+                                   double* g, double* h) {
+  FlowPoint p;
+  flow_point(t, x, f, p);
+  double dp[4], dq[4], gm[4], gu[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    flow_pq_du(p, k, dp[k], dq[k]);
+    gm[k] = flow_gm(p, k, dp[k], dq[k]);
+    gu[k] = flow_gu(p, gm[k]);
+  }
+#pragma unroll
   for (int c = 0; c < 4; ++c) {
     double s = 0.0;
-    for (int k = 0; k < 4; ++k) s += gu[k] * jac[k][c];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s += gu[k] * du_dz(p, k, c);
     g[c] = s;
   }
   if (h == nullptr) return;
-  for (int p = 0; p < 4; ++p) {
-    for (int q = 0; q < 4; ++q) {
-      double s = 0.0;
-      for (int k = 0; k < 4; ++k) {
-        for (int l = 0; l < 4; ++l) {
-          s += jac[k][p] * hu[4 * k + l] * jac[l][q];
-        }
-      }
-      h[4 * p + q] = s;
+  double hu[16];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      hu[4 * k + l] = flow_hu(p, k, l, dp[k], dq[k], dp[l], dq[l], gm[k],
+                              gm[l]);
     }
   }
-  // sum_u g_u d^2u/dz^2
-  h[0] += gu[0] * -u[0] + gu[1] * -u[1];
-  h[5] += gu[2] * -u[2] + gu[3] * -u[3];
-  const double fv = gu[0] * -sf + gu[1] * cf;
-  const double tv = gu[2] * -st + gu[3] * ct;
-  h[2] += fv;
-  h[8] += fv;
-  h[7] += tv;
-  h[13] += tv;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      h[4 * a + b] = flow_hz(
+          p, a, b, [&](int k, int l) { return hu[4 * k + l]; },
+          [&](int k) { return gu[k]; });
+    }
+  }
 }
 
 }  // namespace opf_terms

@@ -39,6 +39,7 @@ import torch
 from torch.func import grad, hessian, vmap
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..ops.segments import segment_sum
 from . import _build
 from .opf_fill import _flow_args, flow_row_value
 
@@ -403,11 +404,11 @@ def je_groups(arr, x, n, terms=None) -> list:
     v = x[n:2 * n]
     rows = arr.rows
     offf = (~diag).to(x.dtype)
-    zero = x.new_zeros(n)
-    p_bus = zero.index_add(0, rows, t1)
-    q_bus = zero.index_add(0, rows, t2)
-    gii = zero.index_add(0, rows, torch.where(diag, arr.yg, 0.0))
-    bii = zero.index_add(0, rows, torch.where(diag, arr.yb, 0.0))
+    # the bus sums in a fixed order (one input, one trajectory on the card)
+    p_bus = segment_sum(t1, rows, n)
+    q_bus = segment_sum(t2, rows, n)
+    gii = segment_sum(torch.where(diag, arr.yg, 0.0), rows, n)
+    bii = segment_sum(torch.where(diag, arr.yb, 0.0), rows, n)
     ar = torch.arange(n, device=x.device)
     return [(rows, -t2 * offf), (rows, -vi * gc * offf),
             (ar, q_bus + bii * v * v), (ar, -(p_bus / v + gii * v)),

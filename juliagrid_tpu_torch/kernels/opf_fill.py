@@ -6,8 +6,8 @@ One launch computes, at one point ``x`` of an AC OPF spec, what
 ``[m_E, n_x]`` and J_I ``[m_I, n_x]`` — or, given the duals ``y`` and
 ``z``, in ``hess`` with ``_flow_row_val`` (:802-921) — Hessian mode, the
 raw Lagrangian Hessian ``[n_x, n_x]``. The outputs are dense row-major f64
-matrices, zeroed and filled in the one launch. The CUDA source, its mapping
-and what bounds it are described in ``csrc/opf_fill.cu``.
+matrices, zeros included, written in the one launch. The CUDA source, its
+mapping and what bounds it are described in ``csrc/opf_fill.cu``.
 
 The kernel reads ``OpfFillTable``, which ``opf_fill_table`` builds on the
 host from the lists of an AC OPF spec (the port's ``opf/acopf._AcSpec`` or
@@ -15,7 +15,10 @@ the JAX package's) and ``check_fill_table`` holds to the rule that gives
 every output element one writer: each bus's Y-bus row, generator list and
 pair list (the buses it shares a Y-bus entry or a flow row with) name each
 column once, every Y-bus entry and every flow row is listed once at each of
-its ends, and every other row has its own descriptor.
+its ends, and every other row has its own descriptor. The Hessian mode
+streams its rows through shared-memory windows by the plan ``hess_plan``
+(also in the tables): ``check_fill_table`` holds its windows to covering
+every element of H once.
 
 ``opf_fill`` dispatches on the device of ``x``: a CUDA tensor goes to the
 kernel (the call raises if it does not build or launch), a CPU tensor to
@@ -39,6 +42,20 @@ from . import _build
 
 #: descriptor kinds of the rows after the balance rows (Jacobian mode)
 LINEAR, FLOW = 0, 1
+#: the Hessian mode's largest window, in doubles, and most tail rows a
+#: thread block (``kWindow``, ``kTailRoom`` of csrc/opf_fill.cu); a block
+#: stores about one window's worth of rows, and the value groups are about
+#: HESS_VALUE_BLOCKS: at case1354pegase on the H100 the 619 groups and 260
+#: tail units start in the first wave of 924 blocks (0.040 ms a Hessian;
+#: 0.042-0.053 with 145-310 or 713-1,130 groups, PERF.md)
+HESS_WINDOW, HESS_TAIL_ROOM, HESS_VALUE_BLOCKS = 8192, 64, 512
+#: a value group's flow entries, pair slots and buses that fit its block's
+#: shared memory (``kFlowRoom``, ``kSlotRoom``, ``kBusRoom``)
+HESS_FLOW_ROOM, HESS_SLOT_ROOM, HESS_BUS_ROOM = 48, 40, 32
+#: the Hessian mode's scratch, for value groups that outgrow shared memory:
+#: doubles per flow entry of the pair lists and per pair slot
+#: (``kFlowFields``, ``kSlotFields`` of csrc/opf_fill.cu)
+SCRATCH_PER_FLOW, SCRATCH_PER_SLOT = 60, 12
 
 
 class OpfFillTable(NamedTuple):
@@ -61,14 +78,34 @@ class OpfFillTable(NamedTuple):
     pair: torch.Tensor       # [3, P] j, the entry (k, j), the entry (j, k)
     pair_fptr: torch.Tensor  # [P + 1] flow rows between k and j ...
     pair_flow: torch.Tensor  # ... in ascending order
+    pf_idx: torch.Tensor     # [6, Q] fl_idx of each pair_flow entry
+    pf_y: torch.Tensor       # f64[4, Q] fl_y of each pair_flow entry
+    hess_group: torch.Tensor  # [6, G] the Hessian's value groups
+    unit_group: torch.Tensor  # [U] each bus unit's value group
+    item_at: torch.Tensor    # i64[4P + 4n] each slot's and bus's items'
+    #                          elements of H (-1: none)
     term_ptr: torch.Tensor   # [n_x - 2n + 1] cost terms of each Pg/Qg/h
     term: torch.Tensor       # [2, T] degree, offset into term_co
     term_co: torch.Tensor    # f64 coefficients, descending powers
+    hess_plan: tuple         # HessPlan: the Hessian mode's blocks and window
     n: int
     g: int
     n_x: int
     m_e: int
     m_i: int
+
+
+class HessPlan(NamedTuple):
+    """How the Hessian mode cuts H: ``bus_units`` consecutive buses a
+    streaming block (their rows k.. and n + k..), ``row_units`` consecutive
+    rows of 2n.. a tail block, each block's rows stored in windows of at
+    most ``window`` doubles, cut at multiples of it; the values in
+    ``groups`` value blocks (``hess_groups``)."""
+
+    bus_units: int
+    row_units: int
+    window: int
+    groups: int
 
 
 class OpfFill(NamedTuple):
@@ -191,6 +228,10 @@ def opf_fill_table(spec) -> dict:
     order = np.lexsort((fl_row, slot))
     out["pair_fptr"] = _csr(slot[order], pairs.size)
     out["pair_flow"] = fl_row[order].astype(np.int32)
+    # each entry's own copy of its flow row's descriptor: the Hessian mode
+    # reads it in one step from the entry
+    out["pf_idx"] = out["fl_idx"][:, out["pair_flow"]].reshape(6, -1)
+    out["pf_y"] = out["fl_y"][:, out["pair_flow"]].reshape(4, -1)
 
     # the objective's second derivative: cost terms of degree >= 2 by
     # variable (rows 2n.. of H), each group in the order of poly_keys
@@ -215,6 +256,13 @@ def opf_fill_table(spec) -> dict:
         if lens.size else lens]).reshape(2, -1).astype(np.int32)
     out["term_co"] = (np.concatenate(co_list) if co_list
                       else np.zeros(0)).astype(np.float64)
+    bus_units, row_units = hess_units(n, n_x)
+    out["hess_group"], out["unit_group"] = hess_groups(
+        out["pair_ptr"], out["pair_fptr"], n, bus_units)
+    out["item_at"] = item_positions(out["pair_ptr"], out["pair"][0], n, n_x)
+    out["hess_plan"] = np.asarray(
+        [bus_units, row_units, HESS_WINDOW, out["hess_group"].shape[1]],
+        dtype=np.int64)
     return out
 
 
@@ -232,14 +280,152 @@ def flow_admittances(spec) -> np.ndarray:
         4, -1).astype(np.float64)
 
 
+def hess_units(n: int, n_x: int, window: int = HESS_WINDOW) -> tuple:
+    """The Hessian mode's buses a streaming block and rows of 2n.. a tail
+    block for ``n`` buses and ``n_x`` variables: about a window of output a
+    block (one bus's two rows, or two tail rows, at case1354pegase; every
+    bus of case14 in one block)."""
+    tail = n_x - 2 * n
+    return (min(n, max(1, window // (2 * n_x))),
+            min(max(tail, 1), HESS_TAIL_ROOM, max(1, window // n_x)))
+
+
+def hess_groups(pair_ptr, pair_fptr, n: int, bus_units: int,
+                blocks: int = HESS_VALUE_BLOCKS):
+    """The Hessian mode's value groups: runs of consecutive bus units whose
+    flow entries, slots and buses fit a block's shared memory (a unit too
+    large for it is a group of its own) and whose work (16 per flow entry,
+    one per slot and bus) stays near the total over ``blocks``. Returns
+    ``[6, G]`` (first and end bus, slot and flow entry of each group) and
+    each bus unit's group."""
+    pair_ptr = np.asarray(pair_ptr, dtype=np.int64)
+    pair_fptr = np.asarray(pair_fptr, dtype=np.int64)
+    units = -(-n // bus_units)
+    k = np.minimum(np.arange(units + 1) * bus_units, n)
+    s = pair_ptr[k]
+    q = pair_fptr[s]
+    nq, ns, nb = np.diff(q), np.diff(s), np.diff(k)
+    work = 16 * nq + ns + nb
+    cap = max(1, -(-int(work.sum()) // blocks))
+    starts, used = [0], np.zeros(4, dtype=np.int64)
+    room = np.array([cap, HESS_FLOW_ROOM, HESS_SLOT_ROOM, HESS_BUS_ROOM])
+    for u in range(units):
+        add = np.array([work[u], nq[u], ns[u], nb[u]])
+        if u > starts[-1] and np.any(used + add > room):
+            starts.append(u)
+            used[:] = 0
+        used += add
+    starts = np.asarray(starts + [units])
+    first, end = starts[:-1], starts[1:]
+    group = np.stack([k[first], k[end], s[first], s[end], q[first],
+                      q[end]]).astype(np.int32)
+    return group, np.repeat(np.arange(first.size), end - first).astype(
+        np.int32)
+
+
+def item_positions(pair_ptr, pair_j, n: int, n_x: int) -> np.ndarray:
+    """Where the Hessian mode's items go (row-major elements of H): slot s
+    of bus k with bus j, its four at 4 s + c, c = (theta_k, theta_j),
+    (theta_k, V_j), (V_k, theta_j), (V_k, V_j), -1 for the slot (k, k);
+    then bus k's four diagonal ones at 4P + 4 k + c."""
+    pair_ptr = np.asarray(pair_ptr, dtype=np.int64)
+    pj = np.asarray(pair_j, dtype=np.int64)
+    pk = np.repeat(np.arange(n), np.diff(pair_ptr))
+    k = np.arange(n)
+
+    def four(rk, cj):
+        return np.stack([rk * n_x + cj, rk * n_x + n + cj,
+                         (n + rk) * n_x + cj, (n + rk) * n_x + n + cj], 1)
+
+    slots = np.where((pj == pk)[:, None], -1, four(pk, pj))
+    return np.concatenate([slots.reshape(-1),
+                           four(k, k).reshape(-1)]).astype(np.int64)
+
+
+def hess_blocks(plan, n: int, n_x: int) -> list:
+    """``(kind, unit)`` of each thread block of the Hessian mode, in block
+    order (csrc/opf_fill.cu::opf_hess_kernel): first the G value groups
+    ``("value", i)`` (``hess_groups``; they store their buses' values) with
+    the T' tail units ``("tail", i)`` (rows 2n + [i row_units, (i + 1)
+    row_units)) spread evenly among them (block b is tail unit floor(b T' /
+    (G + T')) when that count steps at b), then the U bus units ``("bus",
+    i)``, which store the zeros of the rows of buses [i bus_units, (i + 1)
+    bus_units) around the values (``item_positions``)."""
+    bus_units, row_units, groups = int(plan[0]), int(plan[1]), int(plan[3])
+    units = -(-n // bus_units)
+    tails = -(-(n_x - 2 * n) // row_units)
+    first = groups + tails
+    out = []
+    for t in range(first):
+        before = t * tails // first
+        if (t + 1) * tails // first > before:
+            out.append(("tail", before))
+        else:
+            out.append(("value", t - before))
+    return out + [("bus", i) for i in range(units)]
+
+
+def hess_windows(plan, n: int, n_x: int):
+    """Yield ``(block, first, last, base)`` for every window of the Hessian
+    mode, in the kernel's order: the block, the absolute elements
+    [first, last) of H (row-major) it stores, and the even element at which
+    its bitmap of 16-byte chunks starts (aligned pairs from there)."""
+    bus_units, row_units, window, _ = (int(v) for v in plan)
+    spans = []
+    for blk, (kind, i) in enumerate(hess_blocks(plan, n, n_x)):
+        if kind == "value":
+            continue
+        if kind == "bus":
+            k0, k1 = i * bus_units, min(n, (i + 1) * bus_units)
+            spans += [(blk, k0 * n_x, k1 * n_x),
+                      (blk, (n + k0) * n_x, (n + k1) * n_x)]
+        else:
+            r0 = 2 * n + i * row_units
+            spans.append((blk, r0 * n_x, min(n_x, r0 + row_units) * n_x))
+    for blk, first, last in spans:
+        a = first
+        while a < last:
+            b = min(last, (a // window + 1) * window)
+            yield blk, a, b, a & ~1
+            a = b
+
+
+def check_hess_plan(plan, n: int, n_x: int) -> None:
+    """Raise unless the plan's windows fit the kernel's bitmap and tail
+    rows its room, start their 16-byte stores on even elements, and cover
+    every element of the ``n_x`` rows of H exactly once."""
+    bus_units, row_units, window, groups = (int(v) for v in plan)
+    if bus_units < 1 or groups < 1 or \
+            not 1 <= row_units <= HESS_TAIL_ROOM or \
+            window < 2 or window % 2 or window > HESS_WINDOW:
+        raise ValueError(f"a Hessian plan needs units >= 1, at most "
+                         f"{HESS_TAIL_ROOM} tail rows and an even window in "
+                         f"[2, {HESS_WINDOW}], got {tuple(plan)}")
+    wins = np.array([w[1:] for w in hess_windows(plan, n, n_x)],
+                    dtype=np.int64).reshape(-1, 3)
+    first, last, base = wins.T
+    if np.any(base % 2) or np.any(base > first) or \
+            np.any(last - base > window) or np.any(last <= first):
+        raise ValueError("a Hessian window does not fit the bitmap from an "
+                         "even element")
+    order = np.argsort(first, kind="stable")
+    first, last = first[order], last[order]
+    if first.size == 0 or first[0] != 0 or last[-1] != n_x * n_x or \
+            np.any(first[1:] != last[:-1]):
+        raise ValueError("the Hessian windows do not cover every element of "
+                         "H exactly once")
+
+
 def check_fill_table(tab: dict, rows, cols) -> None:
     """Raise unless the tables give every element of J_E, J_I and H one
     writer: each bus's Y-bus row names a column once, each generator sits
     in one bus's list, each bus's pair list names a bus once and holds the
     Y-bus entries (k, j) and (j, k) it claims, every entry is claimed once
     from each end, every flow row is listed once at each of its ends (once
-    if they are one bus), every descriptor names columns of the state and
-    every cost term a coefficient run of its own."""
+    if they are one bus), every descriptor names columns of the state,
+    every cost term a coefficient run of its own, the Hessian plan's
+    windows cover every element of H once (``check_hess_plan``), and its
+    value groups run over the bus units in order."""
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     row_ptr = tab["row_ptr"].astype(np.int64)
@@ -287,6 +473,12 @@ def check_fill_table(tab: dict, rows, cols) -> None:
     if not ends.all() or np.any(
             np.bincount(flow, minlength=fb.size) != want):
         raise ValueError("every flow row must be listed once at each end")
+    if not (np.array_equal(tab["pf_idx"],
+                           tab["fl_idx"][:, flow].reshape(6, -1))
+            and np.array_equal(tab["pf_y"],
+                               tab["fl_y"][:, flow].reshape(4, -1))):
+        raise ValueError("a pair_flow entry's descriptor is not its flow "
+                         "row's")
     kind = tab["row_kind"]
     c = tab["row_col"].astype(np.int64)
     lin = kind == LINEAR
@@ -298,13 +490,35 @@ def check_fill_table(tab: dict, rows, cols) -> None:
     if term_ptr[-1] != deg.size or np.any(deg < 2) or np.any(
             off + deg + 1 > tab["term_co"].size):
         raise ValueError("a cost term's coefficients lie outside term_co")
+    check_hess_plan(tab["hess_plan"], n, n_x)
+    bus_units, groups = int(tab["hess_plan"][0]), int(tab["hess_plan"][3])
+    grp = tab["hess_group"].astype(np.int64)
+    k0, k1, s0, s1, q0, q1 = grp if grp.shape == (6, groups) else [None] * 6
+    if k0 is None or k0[0] != 0 or k1[-1] != n or \
+            np.any(k0[1:] != k1[:-1]) or np.any(k1 <= k0) or \
+            np.any(k0 % bus_units) or np.any(s0 != pair_ptr[k0]) or \
+            np.any(s1 != pair_ptr[k1]) or np.any(q0 != fptr[s0]) or \
+            np.any(q1 != fptr[s1]) or not np.array_equal(
+                tab["unit_group"], np.repeat(np.arange(groups),
+                                             -(-(k1 - k0) // bus_units))):
+        raise ValueError("the Hessian's value groups do not run over the bus "
+                         "units in order, each with its buses' slots and "
+                         "flow entries")
+    at = item_positions(pair_ptr, pj, n, n_x)
+    if not np.array_equal(tab["item_at"], at):
+        raise ValueError("an item of the Hessian goes elsewhere than its "
+                         "slot's or bus's elements")
 
 
 def opf_fill_table_tensors(tab: dict, spec, device) -> OpfFillTable:
     """``OpfFillTable`` on ``device`` from the numpy fields."""
     fields = {}
     for name, a in tab.items():
-        dtype = torch.float64 if a.dtype == np.float64 else torch.int32
+        if name == "hess_plan":
+            fields[name] = HessPlan(*(int(v) for v in a))
+            continue
+        dtype = {np.dtype(np.float64): torch.float64,
+                 np.dtype(np.int64): torch.int64}.get(a.dtype, torch.int32)
         fields[name] = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                        device=device)
     return OpfFillTable(**fields, n=int(spec.n), g=int(spec.g),
@@ -316,6 +530,7 @@ def _check_inputs(arr, x, y, z):
     if x.dim() != 1 or x.shape[0] != arr.n_x:
         raise ValueError(f"x must have shape [{arr.n_x}], got "
                          f"{tuple(x.shape)}")
+    where = arr.rows.get_device()
     for name, t, size in (("x", x, arr.n_x), ("y", y, arr.m_e),
                           ("z", z, arr.m_i)):
         if t is None:
@@ -325,7 +540,7 @@ def _check_inputs(arr, x, y, z):
                              f"{tuple(t.shape)}")
         if t.dtype != torch.float64:
             raise TypeError(f"{name} must be float64, got {t.dtype}")
-        if t.device != arr.rows.device:
+        if t.get_device() != where:
             raise ValueError(f"{name} is on {t.device}, the spec on "
                              f"{arr.rows.device}")
     if (y is None) != (z is None):
@@ -352,8 +567,10 @@ opf_fill.launches = 0
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("opf_fill")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.opf_fill_launch.argtypes = [ptr] * 5 + [i32, i32, ptr]
+    lib.opf_fill_launch.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     lib.opf_fill_launch.restype = i32
+    lib.opf_fill_attributes.argtypes = [i32, ptr]
+    lib.opf_fill_attributes.restype = i32
     lib.opf_fill_error_string.argtypes = [i32]
     lib.opf_fill_error_string.restype = ctypes.c_char_p
     return lib
@@ -365,64 +582,94 @@ class _Tables(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "row_ptr", "ycol", "yg", "yb", "diag", "gen_ptr", "gen_idx",
         "gen_on", "row_kind", "row_col", "row_val", "fl_idx", "fl_y",
-        "pair_ptr", "pair", "pair_fptr", "pair_flow", "term_ptr", "term",
+        "pair_ptr", "pair", "pair_fptr", "pair_flow", "pf_idx", "pf_y",
+        "hess_group", "unit_group", "item_at", "term_ptr", "term",
         "term_co")]
         + [(name, ctypes.c_int) for name in (
             "n", "g", "n_x", "m_e", "m_i", "nnz", "n_rows", "n_fl", "n_pair",
-            "n_term")])
+            "n_term", "n_pf")])
 
 
-#: the ``_Tables`` of each spec (keyed by its ``fill.row_ptr``), with the
-#: other tensors they point into (not the key, so that an entry goes when
-#: its key does); rebuilt when the spec's tensors change
-_TABLES = WeakIdKeyDictionary()
+class _Entry:
+    """The ``_Tables`` of one spec, the tensors it points into (all but the
+    key, so that the entry goes when its key does), and whether a value
+    group of the Hessian mode outgrows shared memory (then each launch
+    takes a scratch buffer)."""
 
+    __slots__ = ("struct", "address", "held", "spill")
 
-def _tables(arr) -> int:
-    t = arr.fill
-    tensors = {name: getattr(t, name) for name in (
-        "row_ptr", "ycol", "diag", "gen_ptr", "gen_idx", "gen_on",
-        "row_kind", "row_col", "row_val", "fl_idx", "fl_y", "pair_ptr",
-        "pair", "pair_fptr", "pair_flow", "term_ptr", "term", "term_co")}
-    tensors["yg"], tensors["yb"] = arr.yg, arr.yb
-    held = tuple(tt for name, tt in tensors.items() if name != "row_ptr")
-    entry = _TABLES.get(t.row_ptr)
-    if entry is None or any(a is not b for a, b in zip(entry[1], held)):
+    def __init__(self, arr, tensors, held):
+        t = arr.fill
         for name, tt in tensors.items():
-            want = torch.float64 if tt.is_floating_point() else torch.int32
+            want = torch.float64 if tt.is_floating_point() else \
+                torch.int64 if name == "item_at" else torch.int32
             if tt.dtype != want or not tt.is_contiguous():
                 raise TypeError(f"{name} must be contiguous {want}")
-        struct = _Tables(
+        self.struct = _Tables(
             **{name: tt.data_ptr() for name, tt in tensors.items()},
             n=t.n, g=t.g, n_x=t.n_x, m_e=t.m_e, m_i=t.m_i,
             nnz=t.ycol.numel(), n_rows=t.row_kind.numel(),
             n_fl=t.fl_y.shape[1], n_pair=t.pair.shape[1],
-            n_term=t.term.shape[1])
-        entry = (struct, held)
+            n_term=t.term.shape[1], n_pf=t.pair_flow.numel())
+        self.address = ctypes.addressof(self.struct)
+        self.held = held
+        grp = t.hess_group.cpu().numpy().astype(np.int64)
+        self.spill = bool(np.any(grp[5] - grp[4] > HESS_FLOW_ROOM)
+                          or np.any(grp[3] - grp[2] > HESS_SLOT_ROOM))
+
+
+#: the ``_Entry`` of each spec, keyed by its ``fill.row_ptr``; rebuilt when
+#: the spec's tables or admittances are other tensors
+_TABLES = WeakIdKeyDictionary()
+
+
+def _tables(arr) -> _Entry:
+    t = arr.fill
+    tensors = {name: getattr(t, name) for name in (
+        "row_ptr", "ycol", "diag", "gen_ptr", "gen_idx", "gen_on",
+        "row_kind", "row_col", "row_val", "fl_idx", "fl_y", "pair_ptr",
+        "pair", "pair_fptr", "pair_flow", "pf_idx", "pf_y", "hess_group",
+        "unit_group", "item_at", "term_ptr", "term", "term_co")}
+    tensors["yg"], tensors["yb"] = arr.yg, arr.yb
+    held = tuple(tt for name, tt in tensors.items() if name != "row_ptr")
+    entry = _TABLES.get(t.row_ptr)
+    if entry is None or any(a is not b for a, b in zip(entry.held, held)):
+        entry = _Entry(arr, tensors, held)
         _TABLES[t.row_ptr] = entry
-    return ctypes.addressof(entry[0])
+    return entry
+
+
+def scratch_doubles(fill: OpfFillTable) -> int:
+    """Doubles of the Hessian mode's scratch (csrc/opf_fill.cu)."""
+    return (SCRATCH_PER_FLOW * fill.pair_flow.numel()
+            + SCRATCH_PER_SLOT * fill.pair.shape[1])
 
 
 def _launch(arr, x, y=None, z=None, zeroed=False) -> OpfFill:
     """One K6 launch. ``zeroed=True`` hands the kernel an output the caller
-    has zeroed (a memset), so that the kernel only fills: that split is
-    timed against the one-launch fill, and used nowhere else."""
-    tables = _tables(arr)
+    has zeroed (a memset), so that the kernel only writes the values: that
+    split is timed against the one-launch fill, and used nowhere else."""
+    entry = _tables(arr)
     hess = y is not None
     n_x, m_e, m_i = arr.n_x, arr.m_e, arr.m_i
     rows = n_x if hess else m_e + m_i
     alloc = torch.zeros if zeroed else torch.empty
     out = alloc((rows, n_x), dtype=torch.float64, device=x.device)
     x = x.contiguous()
+    scratch = None
     if hess:
         y, z = y.contiguous(), z.contiguous()
+        if entry.spill:
+            scratch = torch.empty(scratch_doubles(arr.fill),
+                                  dtype=torch.float64, device=x.device)
     ctx, stream = _build.launch_context(x.device)
     with ctx:
         err = _library().opf_fill_launch(
-            tables, x.data_ptr(), y.data_ptr() if hess else None,
+            entry.address, x.data_ptr(), y.data_ptr() if hess else None,
             z.data_ptr() if hess and m_i else None,
-            out.data_ptr() if out.numel() else None, int(hess),
-            int(not zeroed), stream)
+            out.data_ptr() if out.numel() else None,
+            scratch.data_ptr() if scratch is not None else None, int(hess),
+            int(not zeroed), *arr.fill.hess_plan, stream)
     if err != 0:
         raise RuntimeError("opf_fill launch failed: "
                            + _library().opf_fill_error_string(err).decode())
@@ -430,6 +677,21 @@ def _launch(arr, x, y=None, z=None, zeroed=False) -> OpfFill:
     if hess:
         return OpfFill(None, None, out)
     return OpfFill(out[:m_e], out[m_e:], None)
+
+
+def kernel_attributes(hessian: bool) -> dict:
+    """What the build gave the kernel of one mode (``cudaFuncGetAttributes``
+    and its occupancy): registers a thread, local memory a thread in bytes
+    (spills and local arrays), static shared memory a block in bytes,
+    resident blocks an SM (of 256 threads in the Jacobian mode, 128 in the
+    Hessian mode)."""
+    vals = (ctypes.c_int * 4)()
+    err = _library().opf_fill_attributes(int(hessian), vals)
+    if err != 0:
+        raise RuntimeError("opf_fill_attributes failed: "
+                           + _library().opf_fill_error_string(err).decode())
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm"), vals))
 
 
 # ---- the plain version -----------------------------------------------------

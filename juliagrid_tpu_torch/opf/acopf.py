@@ -16,11 +16,13 @@ The spec keeps the JAX package's host lists (``v_lo``, ``p_hi``,
 and its emission order, so ``ineq_tags`` and the dual harvest line up.
 ``_finalize`` turns the lists into index and coefficient tensors
 (``AcOpfArrays``, built by ``convert.acopf_arrays_from_numpy``), and the
-problem functions are gathers, a Horner loop and one ``index_add`` each for
-P and Q, on ``x`` of shape ``[..., n_x]`` (the line search probes every step
-length in one batch). Admittances stay real pairs (``yg``/``yb``, the flow
-rows' ``fl_y``) as in the JAX package: the hand kernel reads them so, and
-the two packages then round alike.
+problem functions are gathers, a Horner loop and one sum over the Y-bus
+rows each for P and Q, on ``x`` of shape ``[..., n_x]`` (the line search
+probes every step length in one batch). The sums over an index run in a
+fixed order (``ops/segments.py``), so one input gives the interior point
+one trajectory on the card. Admittances stay real pairs (``yg``/``yb``,
+the flow rows' ``fl_y``) as in the JAX package: the hand kernel reads them
+so, and the two packages then round alike.
 
 The constraint Jacobians and the Lagrangian's Hessian come from K6
 (``kernels/opf_fill.py``): one launch fills J_E and J_I, one the Hessian; on
@@ -44,6 +46,7 @@ import torch
 
 from ..config import resolve_device
 from ..kernels.opf_fill import OpfFillTable, opf_fill
+from ..ops.segments import segment_sum
 from ..postprocessing.results import AcPower, Cartesian
 from ..powerflow.ac import Polar
 from ..system.model import model
@@ -596,8 +599,7 @@ def _injections(arr: AcOpfArrays, theta, v):
     th = theta[..., arr.rows] - theta[..., arr.cols]
     t1 = vi * vj * (arr.yg * torch.cos(th) + arr.yb * torch.sin(th))
     t2 = vi * vj * (arr.yg * torch.sin(th) - arr.yb * torch.cos(th))
-    zero = v.new_zeros(v.shape[:-1] + (arr.n,))
-    return (zero.index_add(-1, arr.rows, t1), zero.index_add(-1, arr.rows, t2))
+    return segment_sum(torch.stack([t1, t2], -2), arr.rows, arr.n).unbind(-2)
 
 
 def acopf_objective(arr: AcOpfArrays, x):
@@ -621,9 +623,9 @@ def acopf_eq(arr: AcOpfArrays, x):
     theta, v = x[..., :n], x[..., n:2 * n]
     pg, qg = x[..., 2 * n:2 * n + g], x[..., 2 * n + g:2 * n + 2 * g]
     p_inj, q_inj = _injections(arr, theta, v)
-    zero = x.new_zeros(x.shape[:-1] + (n,))
-    sup_p = zero.index_add(-1, arr.gen_bus, torch.where(arr.gen_on, pg, 0.0))
-    sup_q = zero.index_add(-1, arr.gen_bus, torch.where(arr.gen_on, qg, 0.0))
+    sup_p, sup_q = segment_sum(
+        torch.where(arr.gen_on, torch.stack([pg, qg], -2), 0.0), arr.gen_bus,
+        n).unbind(-2)
     out = [sup_p - p_inj - arr.pd, sup_q - q_inj - arr.qd,
            (theta[..., arr.slack] - arr.slack_angle)[..., None],
            pg[..., arr.off_idx], qg[..., arr.off_idx],

@@ -14,9 +14,9 @@ The spec keeps the JAX package's host lists (``cap_lo``, ``cap_hi``,
 inequality tags and the dual harvest line up. The JAX package emits its
 rows one Python scalar at a time; here ``_finalize`` turns the lists into
 index and coefficient tensors (``convert.dcopf_arrays_from_numpy``), so the
-problem functions are a few gathers, one ``index_add`` and one matvec with
-the dense B, which is scattered on the device from the DC nodal matrix.
-Every problem function takes ``x`` of shape ``[..., n_x]``. The
+problem functions are a few gathers, one fixed-order sum of the outputs by
+bus (``ops/segments.py``) and one matvec with the dense B, which is
+scattered on the device from the DC nodal matrix. Every problem function takes ``x`` of shape ``[..., n_x]``. The
 constraints are linear and the objective quadratic, so their Jacobians and
 the Lagrangian's Hessian are scattered straight from the same tensors
 (``dcopf_jac_eq``, ``dcopf_jac_ineq``, ``dcopf_hess``: the entries
@@ -36,6 +36,7 @@ from ..config import resolve_device
 from ..postprocessing.results import Cartesian, DcPower
 from ..powerflow.dc import Angle
 from ..system.model import model
+from ..ops.segments import segment_sum
 from ..system.types import PowerSystem
 from .ipm import IpmResult, NlpProblem, solve_nlp
 
@@ -363,8 +364,7 @@ def dcopf_eq(arr: DcOpfArrays, x):
     generators, then the fixed outputs."""
     n, g = arr.n, arr.g
     theta, pg = x[..., :n], x[..., n:n + g]
-    inj = x.new_zeros(x.shape[:-1] + (n,)).index_add(
-        -1, arr.gen_bus, torch.where(arr.gen_on, pg, 0.0))
+    inj = segment_sum(torch.where(arr.gen_on, pg, 0.0), arr.gen_bus, n)
     # one point (also each tangent of a vmapped Jacobian block): B θ, whose
     # batching rule is one matrix product; a batch of points: θ Bᵀ. The
     # broadcast B θ[..., None] would run a matrix-vector product per point

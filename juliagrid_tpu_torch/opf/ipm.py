@@ -127,6 +127,13 @@ class IpmResult:
     # acceptable point (degenerate active set, KKT error < acceptable_tol);
     # "failed": no acceptable iterate found.
     status: str = "optimal"
+    # the exit that ended the loop: "tol", "acceptable stall", "degenerate
+    # endgame", "cross candidate", "mid-loop dual recovery", "acceptable
+    # run", "acceptable-run dual recovery", "no factorizable system",
+    # "feasible yet unsteppable", "restoration off (n_x > 8192)",
+    # "restoration failed", "max_seconds" or "max_iter" (a record only:
+    # the status above does not read it)
+    stop: str = "max_iter"
 
 
 # problems larger than this take their Jacobians and Hessian in blocks of
@@ -654,6 +661,8 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
     err = np.inf
     best = None
     stall = 0
+    # which exit ended the loop (IpmResult.stop)
+    stop = "max_iter"
     # most-FEASIBLE iterate seen, tracked separately from best-KKT: at a
     # degenerate endgame the duals thrash while the primal converges, and
     # dual recovery needs the feasible iterate
@@ -941,6 +950,7 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
                 t_start = _time.perf_counter()
             elif t_start is not None and \
                     _time.perf_counter() - t_start > max_seconds:
+                stop = "max_seconds"
                 break
         # E at mu=0 (the stopping error) AND at the whole deterministic
         # Fiacco-McCormick mu ladder, in one evaluation and one readback
@@ -963,17 +973,20 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
             stall += 1
         if err < tol:
             converged = True
+            stop = "tol"
             break
         # Ipopt-style acceptable-level stop once progress stalls below the
         # acceptable tolerance (degenerate active sets)
         if stall >= acceptable_iter and best[0] < acceptable_tol:
             converged = True
+            stop = "acceptable stall"
             break
         # degenerate endgame: barrier at its floor, best already
         # acceptable, the last step blew the error up — return the best
         if mu <= mu_min * 1.01 and best[0] < acceptable_tol and \
                 err > 10.0 * best[0]:
             converged = True
+            stop = "degenerate endgame"
             break
 
         # monotone Fiacco-McCormick with superlinear decrease, gated on
@@ -1013,6 +1026,7 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
                     if err_cross < acceptable_tol:
                         err, x, y, z, s = best
                         converged = err < tol
+                        stop = "cross candidate"
                         break
             # recover from the BEST iterate's primal
             rec = _dual_recovery(best[1], best[4], err,
@@ -1025,6 +1039,7 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
                 if rec[0] < acceptable_tol:
                     err, x, y, z, s = rec
                     converged = err < tol
+                    stop = "mid-loop dual recovery"
                     break
 
         # Ipopt acceptable-point heuristic: stop once the violation is
@@ -1038,6 +1053,7 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
             if acceptable_run >= acceptable_iter:
                 if best is not None and best[0] < acceptable_tol:
                     converged = True
+                    stop = "acceptable run"
                     break
                 # primal stagnant but duals thrashing (degenerate vertex)
                 rec = _dual_recovery(
@@ -1051,6 +1067,7 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
                     converged = True
                     if verbose >= 1:
                         print(f"  ipm dual recovery: kkt -> {err:.3e}")
+                    stop = "acceptable-run dual recovery"
                     break
                 acceptable_run = 0  # recovery failed; keep iterating
         else:
@@ -1091,6 +1108,7 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
                 if delta == 0.0 else delta * 8.0
         delta_last = delta
         if not ok:
+            stop = "no factorizable system"
             break  # no factorizable system; return best iterate
 
         alpha_max = alpha_s
@@ -1199,8 +1217,10 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
         if not accepted:
             # --- feasibility restoration (LM on the violation) ----------
             if theta_k <= max(10.0 * tol, 1e-8) and best is not None:
+                stop = "feasible yet unsteppable"
                 break  # feasible yet unsteppable: return best
             if not resto_ok:
+                stop = "restoration off (n_x > 8192)"
                 break  # dense LM gated at scale: return best iterate
             if verbose >= 2:
                 print(f"      -> restoration from theta={theta_k:.3e}")
@@ -1233,6 +1253,7 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
                 if verbose >= 2:
                     print(f"      -> restoration failed at "
                           f"theta={theta_r:.3e} lam={lam:.1e}")
+                stop = "restoration failed"
                 break  # infeasible or stuck: return best iterate
             # re-enter the barrier loop from the restored point
             filt.append(((1.0 - GAMMA_THETA) * theta_k,
@@ -1338,4 +1359,4 @@ def solve_nlp(problem: NlpProblem, x0: np.ndarray,
         x=host(x), y=y_out, z=z_out, s=s_out,
         objective=_read(f(x)) / scale_f,
         converged=converged, iterations=it, kkt_error=float(err),
-        status=status)
+        status=status, stop=stop)

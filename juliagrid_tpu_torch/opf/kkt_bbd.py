@@ -50,6 +50,7 @@ from ..kernels.opf_fill import _flow_args, flow_row_value
 from ..kernels.schur_gather import schur_route
 from ..ops.bbd import BbdLocalArrays, bbd_solve_local
 from ..ops.partition import nd_partition
+from ..ops.segments import segment_sum
 from ..utils.profiling import mark
 
 
@@ -353,8 +354,8 @@ class AcKktBbd:
     def _finish(self, vals, rhs, sol):
         """Unscaled residual check + curvature from the solved direction."""
         mark("residual")
-        ax = torch.zeros_like(rhs).index_add_(0, self._rows,
-                                              vals * sol[self._cols])
+        ax = segment_sum(vals * sol[self._cols], self._rows, rhs.numel(),
+                         forward_ad=False)
         lin_res = (ax - rhs).abs().max() / (1.0 + rhs.abs().max())
         nw = self.n_w
         curv = (vals[:nw] * sol[self._rows[:nw]]

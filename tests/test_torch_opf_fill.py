@@ -272,13 +272,12 @@ def _entry_terms(gy, by, vi, vj, th, yp, yq):
             "tjvj": yp * vi * gs - yq * vi * gc, "vv": yp * gc + yq * gs}
 
 
-def _walk(tab, spec, x, y=None, z=None):
-    """[J_E; J_I] or H as csrc/opf_fill.cu fills them from the tables, each
-    element written at most once (asserted)."""
+def _walk(tab, spec, x):
+    """[J_E; J_I] as csrc/opf_fill.cu's Jacobian mode fills it from the
+    tables, each element written at most once (asserted)."""
     n, g, n_x = spec.n, spec.g, spec.n_x
     yg, yb = spec.yg, spec.yb
-    hess = y is not None
-    out = np.zeros((n_x if hess else spec.m_e + spec.m_i, n_x))
+    out = np.zeros((spec.m_e + spec.m_i, n_x))
     seen = np.zeros(out.shape, dtype=bool)
 
     def put(r, c, v):
@@ -288,86 +287,31 @@ def _walk(tab, spec, x, y=None, z=None):
 
     for k in range(n):
         vk, tk = x[n + k], x[k]
-        if not hess:
-            p = q = 0.0
-            for e in range(tab["row_ptr"][k], tab["row_ptr"][k + 1]):
-                j = tab["ycol"][e]
-                th = tk - x[j]
-                gc = yg[e] * np.cos(th) + yb[e] * np.sin(th)
-                gs = yg[e] * np.sin(th) - yb[e] * np.cos(th)
-                t1, t2 = vk * x[n + j] * gc, vk * x[n + j] * gs
-                p, q = p + t1, q + t2
-                if j != k:
-                    put(k, j, -t2)
-                    put(k, n + j, -vk * gc)
-                    put(n + k, j, t1)
-                    put(n + k, n + j, -vk * gs)
-            for s in range(tab["gen_ptr"][k], tab["gen_ptr"][k + 1]):
-                gi = tab["gen_idx"][s]
-                put(k, 2 * n + gi, tab["gen_on"][gi])
-                put(n + k, 2 * n + g + gi, tab["gen_on"][gi])
-            d = tab["diag"][k]
-            gii, bii = (yg[d], yb[d]) if d >= 0 else (0.0, 0.0)
-            put(k, k, q + bii * vk * vk)
-            put(k, n + k, -(p / vk + gii * vk))
-            put(n + k, k, -(p - gii * vk * vk))
-            put(n + k, n + k, -(q / vk - bii * vk))
-            continue
-        diag = np.zeros(4)              # tt, tv, vt, vv
-        for s in range(tab["pair_ptr"][k], tab["pair_ptr"][k + 1]):
-            j, ekj, ejk = tab["pair"][:, s]
-            off = np.zeros(4)
+        p = q = 0.0
+        for e in range(tab["row_ptr"][k], tab["row_ptr"][k + 1]):
+            j = tab["ycol"][e]
+            th = tk - x[j]
+            gc = yg[e] * np.cos(th) + yb[e] * np.sin(th)
+            gs = yg[e] * np.sin(th) - yb[e] * np.cos(th)
+            t1, t2 = vk * x[n + j] * gc, vk * x[n + j] * gs
+            p, q = p + t1, q + t2
             if j != k:
-                if ekj >= 0:
-                    c = _entry_terms(yg[ekj], yb[ekj], vk, x[n + j],
-                                     tk - x[j], y[k], y[n + k])
-                    diag += [c["tt"], c["tivi"], c["tivi"], 0.0]
-                    off += [-c["tt"], c["tivj"], c["tjvi"], c["vv"]]
-                if ejk >= 0:
-                    c = _entry_terms(yg[ejk], yb[ejk], x[n + j], vk,
-                                     x[j] - tk, y[j], y[n + j])
-                    diag += [c["tt"], c["tjvj"], c["tjvj"], 0.0]
-                    off += [-c["tt"], c["tjvi"], c["tivj"], c["vv"]]
-            elif ekj >= 0:
-                diag[3] += y[k] * 2.0 * yg[ekj] - y[n + k] * 2.0 * yb[ekj]
-            for q in range(tab["pair_fptr"][s], tab["pair_fptr"][s + 1]):
-                f = tab["pair_flow"][q]
-                lo, hi = tab["fl_idx"][4][f], tab["fl_idx"][5][f]
-                w = (-z[lo] if lo >= 0 else 0.0) + (z[hi] if hi >= 0
-                                                    else 0.0)
-                _, hz = _flow_derivs(tab, x, n, f)
-                ends = (tab["fl_idx"][0][f], tab["fl_idx"][1][f])
-                for a in range(2):
-                    if ends[a] != k:
-                        continue
-                    for c in range(4):
-                        acc = diag if ends[c & 1] == k else off
-                        col = 0 if c < 2 else 1
-                        acc[col] += w * hz[a, c]
-                        acc[2 + col] += w * hz[2 + a, c]
-            if j != k:
-                put(k, j, off[0])
-                put(k, n + j, off[1])
-                put(n + k, j, off[2])
-                put(n + k, n + j, off[3])
-        put(k, k, diag[0])
-        put(k, n + k, diag[1])
-        put(n + k, k, diag[2])
-        put(n + k, n + k, diag[3])
+                put(k, j, -t2)
+                put(k, n + j, -vk * gc)
+                put(n + k, j, t1)
+                put(n + k, n + j, -vk * gs)
+        for s in range(tab["gen_ptr"][k], tab["gen_ptr"][k + 1]):
+            gi = tab["gen_idx"][s]
+            put(k, 2 * n + gi, tab["gen_on"][gi])
+            put(n + k, 2 * n + g + gi, tab["gen_on"][gi])
+        d = tab["diag"][k]
+        gii, bii = (yg[d], yb[d]) if d >= 0 else (0.0, 0.0)
+        put(k, k, q + bii * vk * vk)
+        put(k, n + k, -(p / vk + gii * vk))
+        put(n + k, k, -(p - gii * vk * vk))
+        put(n + k, n + k, -(q / vk - bii * vk))
     for row in range(2 * n, out.shape[0]):
         d = row - 2 * n
-        if hess:
-            total, any_term = 0.0, False
-            for s in range(tab["term_ptr"][d], tab["term_ptr"][d + 1]):
-                deg, o = tab["term"][:, s]
-                acc = 0.0
-                for jj in range(deg - 1):
-                    kk = deg - jj
-                    acc = acc * x[row] + tab["term_co"][o + jj] * kk * (kk - 1)
-                total, any_term = total + acc, True
-            if any_term:
-                put(row, row, total)
-            continue
         c1, c2 = tab["row_col"][:, d]
         v1, v2 = tab["row_val"][:, d]
         if tab["row_kind"][d] == k6.LINEAR:
@@ -389,19 +333,209 @@ def _walk(tab, spec, x, y=None, z=None):
     return out
 
 
+def _slot_values(tab, spec, x, y, whz, k, s):
+    """What pass 2 of the Hessian mode sums for slot s of bus k: its four
+    off-diagonal elements and its part of the bus's four diagonal ones."""
+    n, yg, yb = spec.n, spec.yg, spec.yb
+    vk, tk = x[n + k], x[k]
+    j, ekj, ejk = tab["pair"][:, s]
+    diag = np.zeros(4)              # tt, tv, vt, vv
+    off = np.zeros(4)
+    if j != k:
+        if ekj >= 0:
+            c = _entry_terms(yg[ekj], yb[ekj], vk, x[n + j], tk - x[j], y[k],
+                             y[n + k])
+            diag += [c["tt"], c["tivi"], c["tivi"], 0.0]
+            off += [-c["tt"], c["tivj"], c["tjvi"], c["vv"]]
+        if ejk >= 0:
+            c = _entry_terms(yg[ejk], yb[ejk], x[n + j], vk, x[j] - tk, y[j],
+                             y[n + j])
+            diag += [c["tt"], c["tjvj"], c["tjvj"], 0.0]
+            off += [-c["tt"], c["tjvi"], c["tivj"], c["vv"]]
+    elif ekj >= 0:
+        diag[3] += y[k] * 2.0 * yg[ekj] - y[n + k] * 2.0 * yb[ekj]
+    for q in range(tab["pair_fptr"][s], tab["pair_fptr"][s + 1]):
+        f = tab["pair_flow"][q]
+        ends = (tab["fl_idx"][0][f], tab["fl_idx"][1][f])
+        for a in range(2):
+            if ends[a] != k:
+                continue
+            for c in range(4):
+                acc = diag if ends[c & 1] == k else off
+                col = 0 if c < 2 else 1
+                acc[col] += whz[q][a, c]
+                acc[2 + col] += whz[q][2 + a, c]
+    return off, diag
+
+
+def _hess_walk(tab, spec, x, y, z):
+    """H as csrc/opf_fill.cu's Hessian mode fills it: a weighted 4x4 block
+    per flow entry of the pair lists, a thread's sums per pair slot, each
+    bus's diagonal added slot after slot, the tail rows' cost terms; then
+    every element stored once, window by window of the plan (asserted)."""
+    n, n_x = spec.n, spec.n_x
+    pair_ptr = tab["pair_ptr"]
+    whz = []
+    for f in tab["pair_flow"]:
+        lo, hi = tab["fl_idx"][4][f], tab["fl_idx"][5][f]
+        w = 0.0
+        if lo >= 0:
+            w = w + -z[lo]
+        if hi >= 0:
+            w = w + z[hi]
+        whz.append(w * _flow_derivs(tab, x, n, f)[1])
+    values = {}                     # absolute element of H -> value
+    for k in range(n):
+        dsum = []
+        for s in range(pair_ptr[k], pair_ptr[k + 1]):
+            off, part = _slot_values(tab, spec, x, y, whz, k, s)
+            dsum.append(part)
+            j = tab["pair"][0, s]
+            if j != k:
+                for c in range(4):
+                    row = k if c < 2 else n + k
+                    values[row * n_x + (n + j if c & 1 else j)] = off[c]
+        for c in range(4):
+            d = 0.0
+            for part in dsum:       # slot order, one addition at a time
+                d = d + part[c]
+            row = k if c < 2 else n + k
+            values[row * n_x + (n + k if c & 1 else k)] = d
+    for row in range(2 * n, n_x):
+        d = row - 2 * n
+        total, any_term = 0.0, False
+        for s in range(tab["term_ptr"][d], tab["term_ptr"][d + 1]):
+            deg, o = tab["term"][:, s]
+            acc = 0.0
+            for jj in range(deg - 1):
+                kk = deg - jj
+                acc = acc * x[row] + tab["term_co"][o + jj] * kk * (kk - 1)
+            total, any_term = total + acc, True
+        if any_term:
+            values[row * n_x + row] = total
+    at = tab["item_at"]
+    tails = [r * n_x + r for r in range(2 * n, n_x) if r * n_x + r in values]
+    assert sorted(values) == sorted(at[at >= 0].tolist() + tails)
+    bus_units, row_units, _, _ = tab["hess_plan"]
+    blocks = {unit: b for b, unit in enumerate(
+        k6.hess_blocks(tab["hess_plan"], n, n_x))}
+
+    def block_of(row):
+        if row < 2 * n:
+            return blocks["bus", (row % n) // bus_units]
+        return blocks["tail", (row - 2 * n) // row_units]
+
+    at = np.array(sorted(values), dtype=np.int64)
+    out = np.zeros(n_x * n_x)
+    seen = np.zeros(n_x * n_x, dtype=bool)
+    for blk, a, b, base in k6.hess_windows(tab["hess_plan"], n, n_x):
+        assert block_of(a // n_x) == blk == block_of((b - 1) // n_x)
+        stage = np.zeros(b - base)
+        for i in at[(at >= a) & (at < b)]:
+            stage[i - base] = values[i]
+        assert not seen[a:b].any(), ("two windows store", a, b)
+        seen[a:b] = True
+        out[a:b] = stage[a - base:]
+    assert seen.all()
+    return out.reshape(n_x, n_x)
+
+
 def test_kernel_walk_matches_ref(specs):
     """The tables, walked as the kernel walks them (one writer per element,
-    closed-form flow derivatives), give the plain version's matrices."""
+    closed-form flow derivatives; the Hessian by flow entry, pair slot and
+    the diagonal slot after slot, stored window by window), give the plain
+    version's matrices, with the case's plan and with one of three-bus
+    blocks, two-row tail blocks and six-double windows, which cut every
+    row."""
     _, _, _, tspec, x0 = specs
     tab = k6.opf_fill_table(tspec)
+    grp, unit_group = k6.hess_groups(tab["pair_ptr"], tab["pair_fptr"],
+                                     tspec.n, 3, blocks=4)
+    small = dict(tab, hess_plan=np.array([3, 2, 6, grp.shape[1]]),
+                 hess_group=grp, unit_group=unit_group)
+    k6.check_fill_table(small, tspec.rows, tspec.cols)
     for x, y, z in _points(tspec, x0, seed=2):
         xt = torch.tensor(x)
         ref = k6.opf_fill_ref(tspec.arrays, xt)
         jac = _walk(tab, tspec, x)
         _close(jac[:tspec.m_e], ref.jac_eq)
         _close(jac[tspec.m_e:], ref.jac_ineq)
-        _close(_walk(tab, tspec, x, y, z), k6.opf_fill_ref(
-            tspec.arrays, xt, torch.tensor(y), torch.tensor(z)).hess)
+        hess = k6.opf_fill_ref(tspec.arrays, xt, torch.tensor(y),
+                               torch.tensor(z)).hess
+        for t in (tab, small):
+            _close(_hess_walk(t, tspec, x, y, z), hess)
+
+
+@pytest.mark.parametrize("n, n_x", [(14, 54), (14, 55), (1354, 3228),
+                                    (9000, 24001)],
+                         ids=["even", "odd", "pegase", "wide-odd"])
+def test_hess_plan_covers_every_element_once(n, n_x):
+    """The Hessian mode's windows store every element of every row of H
+    exactly once, each from an even element and at most HESS_WINDOW
+    doubles (the bitmap's reach), and no window crosses from one block's
+    rows into another's."""
+    units = k6.hess_units(n, n_x)
+    plan = k6.HessPlan(*units, k6.HESS_WINDOW, min(n, k6.HESS_VALUE_BLOCKS))
+    k6.check_hess_plan(plan, n, n_x)
+    if n_x == 3228:        # pegase: a bus a block, two tail rows a block
+        assert units == (1, 2)
+    wins = np.array([w for w in k6.hess_windows(plan, n, n_x)])
+    blk, first, last, base = wins.T
+    assert np.all(base % 2 == 0) and np.all(last - base <= plan.window)
+    kinds = k6.hess_blocks(plan, n, n_x)
+    units = -(-n // plan.bus_units)
+    groups = plan.groups
+    tails = -(-(n_x - 2 * n) // plan.row_units)
+    assert sorted(kinds) == sorted(
+        [("bus", i) for i in range(units)]
+        + [("value", i) for i in range(groups)]
+        + [("tail", i) for i in range(tails)])
+    # the value groups and tail units first, so that they start in the
+    # first wave, then the bus units
+    assert kinds[-units:] == [("bus", i) for i in range(units)]
+    number = {unit: b for b, unit in enumerate(kinds)}
+    rows = np.stack([first // n_x, (last - 1) // n_x])
+    owner = [[number["bus", (r % n) // plan.bus_units] if r < 2 * n
+              else number["tail", (r - 2 * n) // plan.row_units]
+              for r in rr] for rr in rows]
+    assert np.all(np.asarray(owner) == blk)
+    if n_x * n_x <= 10 ** 7:
+        count = np.zeros(n_x * n_x, dtype=np.int8)
+        for a, b in zip(first, last):
+            count[a:b] += 1
+        assert np.all(count == 1)
+    else:
+        order = np.argsort(first)
+        assert first[order][0] == 0 and last[order][-1] == n_x * n_x
+        assert np.all(first[order][1:] == last[order][:-1])
+
+
+def test_check_fill_table_refuses_a_broken_plan(data_path, monkeypatch):
+    spec = acopf._AcSpec(jgt.power_system(str(data_path / "case30test.m")),
+                         device="cpu")
+    good = k6.opf_fill_table(spec)
+    groups = good["hess_plan"][3]
+    for plan in ([1, 1, 7, groups], [1, 1, 2 * k6.HESS_WINDOW, groups],
+                 [0, 1, 64, groups], [1, 0, 64, groups],
+                 [1, k6.HESS_TAIL_ROOM + 1, 64, groups], [1, 1, 64, 0]):
+        with pytest.raises(ValueError, match="Hessian plan"):
+            k6.check_fill_table(dict(good, hess_plan=np.array(plan)),
+                                spec.rows, spec.cols)
+    windows = k6.hess_windows
+
+    def lose_one(plan, n, n_x):
+        wins = list(windows(plan, n, n_x))
+        return wins[:1] + wins[2:]
+
+    def overlap(plan, n, n_x):
+        wins = list(windows(plan, n, n_x))
+        blk, a, b, base = wins[1]
+        return wins[:1] + [(blk, a - 2, b, base - 2)] + wins[2:]
+
+    for broken in (lose_one, overlap):
+        monkeypatch.setattr(k6, "hess_windows", broken)
+        with pytest.raises(ValueError, match="exactly once"):
+            k6.check_fill_table(good, spec.rows, spec.cols)
 
 
 def test_check_fill_table_refuses_two_writers(data_path):
@@ -431,10 +565,18 @@ def test_check_fill_table_refuses_two_writers(data_path):
     def far_column(tab):
         tab["row_col"][0, 0] = spec.n_x
 
+    def other_descriptor(tab):
+        tab["pf_y"][0, 0] += 1.0
+
+    def short_group(tab):
+        tab["hess_group"][1, -1] -= 1
+
     for edit, match in ((dup_col, "column twice"), (dup_pair, "bus twice"),
                         (lost_entry, "claimed once"),
                         (lost_flow, "once at each end"),
-                        (far_column, "outside the state")):
+                        (far_column, "outside the state"),
+                        (other_descriptor, "descriptor"),
+                        (short_group, "value groups")):
         with pytest.raises(ValueError, match=match):
             k6.check_fill_table(broken(edit), rows, cols)
     with pytest.raises(ValueError, match="entry list"):
