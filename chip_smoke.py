@@ -87,13 +87,25 @@ through ``power_flow(power=True)`` with ``kkt_blocks`` unset, checked for
 balance from the raw Y bus, every limit and every taken step's linear
 residual, with the per-iteration split, solved a second time from a
 fresh build of the same grid (the same iterations to the same bits), then
-re-solved after a live cost edit on the cached structure. Every phase
+re-solved after a live cost edit on the cached structure. Then the
+product surface (phase 19): ``entry()``'s Newton-Raphson step on the card
+against the CPU; live edits at full size, each reused analysis re-solved
+against a fresh build of the edited case on the card (a branch out, an
+added generator and a demand change on a fresh 10k grid, also against
+``oracle_nr``; a wattmeter switched off and a varmeter's variance changed
+on the 1,369-bus set, with seeded noise); the report tables of the 10k NR,
+the 1,369-bus SE, the ACTIVSg10k DC OPF and the pegase AC OPF, checked for
+a row per element, pegase's balance and flow columns and the SE residual
+column; and a ``utils.profiling.trace`` of the 10k NR solve whose K1
+kernel events must equal its K1 launches. ``utils.checkpoint`` is not run
+there: it writes HDF5 and the card's machine has no h5py. Every phase
 prints its lines and times; any failure exits non-zero. The 10k and 25k
 NR/SE grids are ``synthetic_grid``s; phase 16 loads ACTIVSg10k and
 case1354pegase from their numpy-only ``.npz`` snapshots (the card's
 machine has no h5py).
 
-The second-last lines are the card's ``nvidia-smi`` name and power limit
+The last lines are each phase's wall time and the whole run's, the card's
+``nvidia-smi`` name and power limit
 and a JSON object with each kernel's launches on the main paths, error
 against its plain version, times and least possible time; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -101,6 +113,7 @@ against its plain version, times and least possible time; the last line is
 
 from __future__ import annotations
 
+import io
 import json
 import subprocess
 import sys
@@ -120,15 +133,25 @@ from juliagrid_tpu_torch import (add_ammeter, add_pmu, add_varmeter,
                                  newton_raphson, pmu_placement_apply,
                                  pmu_state_estimation, power_flow,
                                  power_system, reactive_limit, residual_test,
-                                 state_estimation, update_voltmeter,
+                                 state_estimation, update_bus,
+                                 update_varmeter, update_voltmeter,
                                  update_wattmeter)
+from juliagrid_tpu_torch import (physical_island, print_branch_constraint,
+                                 print_branch_data, print_branch_summary,
+                                 print_bus_constraint, print_bus_data,
+                                 print_bus_summary,
+                                 print_generator_constraint,
+                                 print_generator_data,
+                                 print_generator_summary,
+                                 print_wattmeter_data, set_initial_point)
 from juliagrid_tpu_torch import newton_raphson_bbd, power_flow_bbd
 from juliagrid_tpu_torch import (ac_lav_state_estimation,
                                  ac_optimal_power_flow, cost,
                                  dc_lav_state_estimation,
                                  dc_optimal_power_flow,
                                  pmu_lav_state_estimation)
-from juliagrid_tpu_torch.convert import (dcse_arrays_from_numpy,
+from juliagrid_tpu_torch.convert import (acopf_arrays_from_numpy,
+                                         dcse_arrays_from_numpy,
                                          pmuse_arrays_from_numpy)
 from juliagrid_tpu_torch.estimation.acse_bbd import (_block_chunk,
                                                      _gn_increment_bbd,
@@ -145,6 +168,8 @@ from juliagrid_tpu_torch.estimation.dcse import (_dcse_host,
                                                  _dcse_weighted)
 from juliagrid_tpu_torch.estimation.pmuse import (_pmuse_host,
                                                   _pmuse_normal_equations)
+from juliagrid_tpu_torch.entry import entry
+from juliagrid_tpu_torch.measurement import devices as meter_devices
 from juliagrid_tpu_torch.estimation.takahashi import projection_diag_sparse
 from juliagrid_tpu_torch.kernels import gs_sweep as k4
 from juliagrid_tpu_torch.kernels import kkt_fill as k7
@@ -173,7 +198,7 @@ from juliagrid_tpu_torch.powerflow.newton_bbd import _blocks, compile_nr_bbd
 from juliagrid_tpu_torch.report.log import suppress
 from juliagrid_tpu_torch.system.builders import (add_branch, add_bus,
                                                  add_generator, update_branch)
-from juliagrid_tpu_torch.utils.profiling import device_stages
+from juliagrid_tpu_torch.utils.profiling import annotate, device_stages, trace
 from juliagrid_tpu_torch.utils.synthetic import synthetic_grid
 
 DATA = Path(__file__).resolve().parent / "tests" / "data"
@@ -266,6 +291,22 @@ BBD_DENSE_OBJ_RTOL = 1e-8  # the 30x30 AC OPF end to end, BBD vs dense
 BBD_DENSE_STATE_TOL = 1e-6  # ... V and θ
 KKT_BALANCE_TOL = 1e-6     # 10k AC OPF: bus balance (p.u., raw Y bus)
 KKT_LIN_RES_TOL = 1e-8     # ... lin_res of every step the δ loop takes
+ENTRY_TOL = 1e-12          # entry()'s step, card vs CPU
+#: phase 19's edit solves run to a mismatch (NR) or max|dx| (SE) of 1e-10,
+#: so a reused and a fresh solve both sit within ~1e-11 of the solution
+#: and a stale array, which moves the answer by the edit's size, cannot
+#: hide under the stopping tolerance
+EDIT_TOL = 1e-10
+REUSE_TOL = 1e-9           # a reused re-solve against a fresh build
+TABLE_BALANCE_TOL = 1e-8   # pegase's balance columns (phase 17's gate)
+FLOW_TABLE_REL_TOL = 1e-12  # Flow Solution vs flow_values on the CPU
+#: the Residual column against mean - h(x) from se_fill_ref on the CPU,
+#: of max(1, |mean|): h is a sum of power terms, so its rounding scales
+#: with the mean it is taken from, not with the residual
+RESIDUAL_TABLE_TOL = 1e-12
+#: the noisy set's residuals must reach at least this, so that the gate
+#: above tells a right column from one of zeros
+NOISY_RESIDUAL_MIN = 1e-6
 #: published peaks of the card (NVIDIA data sheet, H100 SXM, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 67e12
@@ -676,20 +717,22 @@ def singular_fleet():
 # State estimation (phases 5-7)
 # --------------------------------------------------------------------------
 
-def scada_pmu(system, pmu_every=10):
+def scada_pmu(system, pmu_every=10, noise=False):
     """bench.py's SE measurement set (``_scada_pmu``, bench.py:86-105) from
     the port's own power flow: voltmeters, watt- and varmeters on every bus
-    and branch end, polar PMUs on every 10th bus, no noise."""
+    and branch end, polar PMUs on every 10th bus, no noise (with ``noise``,
+    each mean drawn around the power flow's value with its variance, from
+    the measurement layer's seeded generator)."""
     pf = newton_raphson(system, device="cuda")
     power_flow(pf, power=True)
     mon = measurement(system)
-    add_voltmeter(mon, analysis=pf, noise=False)
-    add_wattmeter(mon, analysis=pf, noise=False)
-    add_varmeter(mon, analysis=pf, noise=False)
+    add_voltmeter(mon, analysis=pf, noise=noise)
+    add_wattmeter(mon, analysis=pf, noise=noise)
+    add_varmeter(mon, analysis=pf, noise=noise)
     for b in range(0, system.bus.number, pmu_every):
         add_pmu(mon, bus=system.bus.label.label(b),
                 magnitude=float(pf.voltage.magnitude[b]),
-                angle=float(pf.voltage.angle[b]), polar=True, noise=False)
+                angle=float(pf.voltage.angle[b]), polar=True, noise=noise)
     return mon, pf
 
 
@@ -928,6 +971,7 @@ def phase6():
           f"s, state_estimation(power=True) {t4 - t3!r} s; peak device "
           f"memory {peak_gb!r} GB")
 
+    main_se, main_mon = se, mon
     it, split = se_timed_split(se.arrays, se.net, vm0, va0)
     check(it == se.method.iteration,
           f"SE grid: the timed loop took {it} iterations")
@@ -950,7 +994,7 @@ def phase6():
             print(f"phase 6 {case} {name} ({kind}): {se.method.iteration} "
                   f"iterations, vs power flow max |dvm| {dvm!r}, max |dva| "
                   f"{dva!r}")
-    return launches
+    return launches, main_se, main_mon
 
 
 def fleet_runs(label, arr, net, vm0, va0, means, chunk):
@@ -2471,6 +2515,7 @@ def opf_10k():
           f"{bal!r} p.u., capability {cap!r}, flow {flow!r}, angle {ang!r}; "
           f"peak {peak / 1e9!r} GB; per iteration (CUDA events): "
           f"{stage_ms(split, res.iterations)}")
+    return card
 
 
 def opf_pegase():
@@ -2595,10 +2640,12 @@ def lav_runs():
 
 
 def phase16():
+    """The interior point's DC OPF and LAV cells. Returns the K3 launches
+    of the LAV runs and the ACTIVSg10k own-cost DC OPF."""
     opf_small()
-    opf_10k()
+    dc_10k = opf_10k()
     opf_pegase()
-    return lav_runs()
+    return lav_runs(), dc_10k
 
 
 # ---- phase 17: the AC optimal power flow and K6 ---------------------------
@@ -2938,7 +2985,7 @@ def phase17():
     then the AC OPF: case14optimal/case30test card vs CPU, case118 vs
     MATPOWER, and the main path, case1354pegase at full size with its own
     costs through ``power_flow(power=True)``. Returns K6's worst abs error,
-    its times and its launches on the main path."""
+    its times, its launches on the main path and the pegase analysis."""
     rng = np.random.default_rng(SEED)
     worst = 0.0
     for cls in (1, 2, 3, 4, 5):
@@ -3008,7 +3055,7 @@ def phase17():
     dev = spec.arrays.rows.device
     x, y, z = (torch.as_tensor(a, device=dev) for a in (res.x, res.y, res.z))
     times = k6_times(OPF_PEGASE, spec.arrays, x, y, z)
-    return worst, times, launches
+    return worst, times, launches, card
 
 
 # ---- phase 18: the structured (BBD) KKT of the AC OPF and K7 ---------------
@@ -3305,6 +3352,343 @@ def phase18():
     return worst, times, k7_launches, k5_launches
 
 
+# ---- phase 19: the product surface on the card -----------------------------
+
+def entry_check():
+    """``entry()``'s step on the card against the same step on the CPU.
+    Returns its K1 launches."""
+    k1.nr_fill.launches = 0
+    fn, args = entry()
+    wall, (vm, va) = wall_s(lambda: fn(*args))
+    launches = k1.nr_fill.launches
+    cfn, cargs = entry(device="cpu")
+    cvm, cva = cfn(*cargs)
+    err = max(float((vm.cpu() - cvm).abs().max()),
+              float((va.cpu() - cva).abs().max()))
+    check(args[0].cols.device.type == "cuda" and launches == 1
+          and err <= ENTRY_TOL,
+          f"entry(): device {args[0].cols.device}, {launches} K1 launches, "
+          f"card vs CPU {err:.3e} (tol {ENTRY_TOL})")
+    print(f"phase 19 entry(): one Newton-Raphson step on case14test, card "
+          f"vs CPU max |d| {err!r}, K1 launches {launches}, wall {wall!r} s")
+    return launches
+
+
+def state_diff(a, b):
+    return max(float(np.abs(a.voltage.magnitude - b.voltage.magnitude).max()),
+               float(np.abs(a.voltage.angle - b.voltage.angle).max()))
+
+
+def removable_branch(system):
+    """An in-service branch whose outage leaves one island."""
+    status = system.branch.layout.status
+    for k in range(system.branch.number):
+        if status[k] == 1:
+            status[k] = 0
+            connected = len(physical_island(system)) == 1
+            status[k] = 1
+            if connected:
+                return k
+    raise SmokeFailure("no removable branch")
+
+
+def nr_edits():
+    """Three live edits of the reuse matrix on a fresh 10k grid: the
+    reused analysis re-solved against a fresh build of the edited grid,
+    both on the card, and against ``oracle_nr``. Returns their K1
+    launches: the first solve's, the re-solves' and the fresh builds'."""
+    system = synthetic_grid(*GRID)
+    k1.nr_fill.launches = 0
+    live = newton_raphson(system, device="cuda")
+    power_flow(live, tolerance=EDIT_TOL)
+    check(live.method.converged, "10k edits: the first solve failed")
+    labels = system.bus.label
+    gen_bus = labels.label(GRID[0] * GRID[1] // 2 + GRID[1] // 2)
+    demand_bus = labels.label(GRID[0] * GRID[1] // 3)
+    n = system.bus.number
+    edits = (
+        ("branch out", lambda: update_branch(
+            system, system.branch.label.label(removable_branch(system)),
+            status=0)),
+        ("generator added", lambda: add_generator(
+            system, bus=gen_bus, active=0.2, reactive=0.05, max_active=0.5,
+            min_active=0.0, max_reactive=0.2, min_reactive=-0.2,
+            magnitude=1.0, status=1)),
+        ("demand", lambda: update_bus(
+            system, demand_bus,
+            active=system.bus.demand.active.array[labels.index(demand_bus)]
+            + 0.1, reactive=0.05)))
+    for name, edit in edits:
+        edit()
+        t_live, _ = wall_s(lambda: power_flow(live, tolerance=EDIT_TOL))
+        fresh = None
+
+        def build_and_solve():
+            nonlocal fresh
+            fresh = newton_raphson(system, device="cuda")
+            power_flow(fresh, tolerance=EDIT_TOL)
+
+        t_fresh, _ = wall_s(build_and_solve)
+        t0 = time.perf_counter()
+        oracle = oracle_nr(system, tolerance=EDIT_TOL)
+        t_oracle = time.perf_counter() - t0
+        d = state_diff(live, fresh)
+        check(live.method.converged and d <= REUSE_TOL,
+              f"10k edit {name}: reused vs fresh {d:.3e} (tol {REUSE_TOL})")
+        check_against_oracle(f"10k edit {name} (fresh)", fresh, oracle,
+                             GRID_STATE_TOL)
+        dvm = float(np.abs(live.voltage.magnitude - oracle.magnitude).max())
+        dang = live.voltage.angle - oracle.angle
+        dva = float(np.abs((dang + np.pi) % (2 * np.pi) - np.pi).max())
+        check(max(dvm, dva) <= GRID_STATE_TOL,
+              f"10k edit {name}: reused vs oracle {dvm:.3e}, {dva:.3e}")
+        print(f"phase 19 10k NR edit '{name}' (n={n}): reused re-solve "
+              f"{live.method.iteration} iterations in {t_live!r} s, fresh "
+              f"build + solve {fresh.method.iteration} iterations (oracle "
+              f"{oracle.iterations}) in {t_fresh!r} s, oracle_nr "
+              f"{t_oracle!r} s; reused vs fresh max |d| {d!r}, reused vs "
+              f"oracle {max(dvm, dva)!r}")
+    return k1.nr_fill.launches
+
+
+def se_edits():
+    """Two live measurement edits on phase 6's 1,369-bus set, built anew
+    with seeded noise so that each edit moves the estimate: the reused
+    estimate against a fresh one, both on the card; then the edited set's
+    wattmeter table. Returns the K3 launches of the estimates (not of the
+    power flow that makes the set, nor of the table)."""
+    system = synthetic_grid(*SE_GRID)
+    meter_devices.seed(SEED)
+    mon, _ = scada_pmu(system, noise=True)
+    k3.se_fill.launches = 0
+    live = gauss_newton(mon, device="cuda")
+    state_estimation(live, tolerance=EDIT_TOL)
+    check(live.method.converged, "SE edits: the first estimate failed")
+    watt = mon.wattmeter.label.label(mon.wattmeter.number // 2)
+    var = mon.varmeter.label.label(mon.varmeter.number // 3)
+    edits = (("wattmeter off", lambda: update_wattmeter(mon, watt, status=0)),
+             ("varmeter variance", lambda: update_varmeter(mon, var,
+                                                           variance=4e-3)))
+    for name, edit in edits:
+        edit()
+        t_live, _ = wall_s(lambda: state_estimation(live, tolerance=EDIT_TOL))
+        fresh = None
+
+        def build_and_solve():
+            nonlocal fresh
+            fresh = gauss_newton(mon, device="cuda")
+            state_estimation(fresh, tolerance=EDIT_TOL)
+
+        t_fresh, _ = wall_s(build_and_solve)
+        d = state_diff(live, fresh)
+        check(live.method.converged and fresh.method.converged
+              and d <= REUSE_TOL,
+              f"SE edit {name}: reused vs fresh {d:.3e} (tol {REUSE_TOL})")
+        print(f"phase 19 {SE_GRID[0]}x{SE_GRID[1]} SE edit '{name}': reused "
+              f"{live.method.iteration} iterations in {t_live!r} s, fresh "
+              f"gauss_newton + state_estimation {fresh.method.iteration} "
+              f"iterations in {t_fresh!r} s; reused vs fresh max |d| {d!r}")
+    launches = k3.se_fill.launches
+    top, err, seconds = residual_table(
+        f"{SE_GRID[0]}x{SE_GRID[1]} noisy SE after the edits", live, mon)
+    check(top >= NOISY_RESIDUAL_MIN,
+          f"noisy SE: residual column max |r| {top:.3e} under "
+          f"{NOISY_RESIDUAL_MIN}: the gate cannot tell it from zeros")
+    print(f"phase 19 {SE_GRID[0]}x{SE_GRID[1]} noisy SE print_wattmeter_data "
+          f"({mon.wattmeter.number} rows) after the edits: Residual column "
+          f"max |r| {top!r}, vs se_fill_ref on the CPU {err!r} of max(1, "
+          f"|mean|); host {seconds!r} s")
+    return launches
+
+
+def render(printer, *args, **kw):
+    """A table rendered into a StringIO: (column names, body rows, host
+    s). The header block (names, then units where a column has one) lies
+    between the first two border lines."""
+    t0 = time.perf_counter()
+    text = printer(*args, file=io.StringIO(), **kw)
+    seconds = time.perf_counter() - t0
+    lines = text.splitlines()
+    first, second = [i for i, line in enumerate(lines)
+                     if line.startswith("+")][:2]
+    cells = [[c.strip() for c in line.strip("|").split("|")]
+             for line in lines[second + 1:] if line.startswith("|")]
+    names = [c.strip() for c in lines[first + 1].strip("|").split("|")]
+    return names, cells, seconds
+
+
+def column(header, rows, name):
+    """The non-empty cells of column ``name`` as floats."""
+    check(name in header, f"table has no column {name!r}: {header}")
+    i = header.index(name)
+    return np.array([float(r[i]) for r in rows if r[i] not in ("", "-")])
+
+
+def residual_table(label, se, mon):
+    """``print_wattmeter_data`` of an SE analysis, its Residual column held
+    to mean - h(x) at the analysis's state from ``se_fill_ref`` on arrays
+    compiled anew on the CPU. Returns the column's max |r|, its worst error
+    of max(1, |mean|) and the table's host s."""
+    header, rows, seconds = render(print_wattmeter_data, mon, analysis=se,
+                                   fmt={"Residual": "{:.17e}"})
+    got = column(header, rows, "Residual")
+    arr, _, row_device = compile_se_arrays(se.system, mon, device="cpu")
+    net = compile_ac_arrays(se.system, "cpu")
+    vm, va = (torch.as_tensor(v)[None] for v in (se.voltage.magnitude,
+                                                 se.voltage.angle))
+    r = k3.se_fill_ref(arr, net, vm, va, arr.mean[None],
+                       jacobian=False).r[0].numpy()
+    mean = arr.mean.numpy()
+    first = {}
+    for row, (kind, dev) in enumerate(row_device):
+        if kind == "wattmeter":
+            first.setdefault(dev, row)
+    rows_of = np.array([first[i] for i in range(mon.wattmeter.number)])
+    err = float((np.abs(got - r[rows_of])
+                 / np.maximum(1.0, np.abs(mean[rows_of]))).max())
+    check(len(rows) == mon.wattmeter.number and len(got) == len(rows)
+          and err <= RESIDUAL_TABLE_TOL,
+          f"{label} print_wattmeter_data: {len(rows)} rows, {len(got)} "
+          f"residuals for {mon.wattmeter.number} wattmeters, vs mean - h(x) "
+          f"from se_fill_ref on the CPU {err:.3e} (tol {RESIDUAL_TABLE_TOL})")
+    return float(np.abs(got).max()), err, seconds
+
+
+def tables(nr, se, se_mon, dc_10k, pegase):
+    """The report tables of the earlier phases' analyses, gated on their
+    row counts, pegase's balance and flow columns and the SE residuals."""
+    walls = []
+    system = nr.system
+    for printer, count in ((print_bus_data, system.bus.number),
+                           (print_branch_data, system.branch.number),
+                           (print_generator_data, system.generator.number),
+                           (print_bus_summary, None),
+                           (print_branch_summary, None),
+                           (print_generator_summary, None)):
+        header, rows, seconds = render(printer, nr)
+        if count is None:   # one row a quantity: finite, min <= max
+            low = column(header, rows, "Minimum")
+            high = column(header, rows, "Maximum")
+            check(len(rows) > 0 and np.all(np.isfinite(low))
+                  and np.all(low <= high), f"10k {printer.__name__}: {rows}")
+        else:
+            check(len(rows) == count, f"10k {printer.__name__}: {len(rows)} "
+                                      f"rows for {count} elements")
+        walls.append((f"10k NR {printer.__name__}", len(rows), seconds))
+
+    precise = {name: "{:.17e}" for name in (
+        "Active Power Balance Solution", "Reactive Power Balance Solution",
+        "Flow Solution")}
+    spec, psys = pegase._spec, pegase.system
+    header, rows, seconds = render(print_bus_constraint, pegase, fmt=precise)
+    balance = max(float(np.abs(column(header, rows, name)).max()) for name in
+                  ("Active Power Balance Solution",
+                   "Reactive Power Balance Solution"))
+    check(len(rows) == psys.bus.number and balance <= TABLE_BALANCE_TOL,
+          f"pegase print_bus_constraint: {len(rows)} rows, balance "
+          f"{balance:.3e} (tol {TABLE_BALANCE_TOL})")
+    walls.append(("pegase AC OPF print_bus_constraint", len(rows), seconds))
+    header, rows, seconds = render(print_branch_constraint, pegase,
+                                   fmt=precise)
+    flows = column(header, rows, "Flow Solution")
+    x = torch.as_tensor(pegase._x0)
+    want = ac_mod.flow_values(acopf_arrays_from_numpy(spec, "cpu"),
+                              x[:spec.n], x[spec.n:2 * spec.n]).numpy()
+    flow_err = float((np.abs(flows - want) / np.maximum(1.0, np.abs(want)))
+                     .max())
+    check(len(flows) == len(spec.fl_k) and flow_err <= FLOW_TABLE_REL_TOL,
+          f"pegase print_branch_constraint: {len(flows)} flow rows for "
+          f"{len(spec.fl_k)}, vs flow_values on the CPU {flow_err:.3e} of "
+          f"the row (tol {FLOW_TABLE_REL_TOL})")
+    walls.append(("pegase AC OPF print_branch_constraint", len(rows),
+                  seconds))
+    header, rows, seconds = render(print_generator_constraint, pegase)
+    check(len(rows) == psys.generator.number,
+          f"pegase print_generator_constraint: {len(rows)} rows")
+    walls.append(("pegase AC OPF print_generator_constraint", len(rows),
+                  seconds))
+
+    for printer, count in (
+            (print_bus_constraint, dc_10k.system.bus.number),
+            (print_generator_constraint, dc_10k.system.generator.number)):
+        header, rows, seconds = render(printer, dc_10k)
+        check(len(rows) == count, f"ACTIVSg10k DC OPF {printer.__name__}: "
+                                  f"{len(rows)} rows for {count}")
+        walls.append((f"ACTIVSg10k DC OPF {printer.__name__}", len(rows),
+                      seconds))
+
+    top, res_err, seconds = residual_table(
+        f"{SE_GRID[0]}x{SE_GRID[1]} SE", se, se_mon)
+    walls.append((f"{SE_GRID[0]}x{SE_GRID[1]} SE print_wattmeter_data",
+                  se_mon.wattmeter.number, seconds))
+    print(f"phase 19 tables: pegase balance columns max |.| {balance!r} "
+          f"p.u., Flow Solution vs flow_values on the CPU {flow_err!r} of "
+          f"the row, SE Residual column (noiseless set, max |r| {top!r}) vs "
+          f"se_fill_ref on the CPU {res_err!r} of max(1, |mean|); host s: "
+          + ", ".join(f"{name} ({count} rows) {s!r}"
+                      for name, count, s in walls))
+
+
+def trace_run(nr):
+    """Phase 3's 10k NR re-solved from its start, with and without a
+    device trace around it: the trace must name the annotation and hold
+    one K1 kernel event a launch. Returns its K1 launches."""
+    set_initial_point(nr)
+    t_plain, _ = wall_s(lambda: power_flow(nr))
+    set_initial_point(nr)
+    k1.nr_fill.launches = 0
+    logdir = Path(__file__).resolve().parent / "build" / "phase19_trace"
+    t0 = time.perf_counter()
+    with trace(str(logdir)) as path:
+        with annotate("phase19 power_flow"):
+            t_traced, _ = wall_s(lambda: power_flow(nr))
+    t_block = time.perf_counter() - t0
+    launches = k1.nr_fill.launches
+    t0 = time.perf_counter()
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    t_read = time.perf_counter() - t0
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1_events = sum("nr_fill_kernel" in e.get("name", "") for e in kernels)
+    named = any(e.get("name") == "phase19 power_flow" for e in events)
+    check(nr.method.converged and named
+          and k1_events == launches == nr.method.iteration + 1,
+          f"trace: annotation found {named}, {k1_events} K1 kernel events "
+          f"for {launches} launches ({nr.method.iteration} iterations)")
+    print(f"phase 19 trace of the 10k NR power_flow: {len(events)} events, "
+          f"{len(kernels)} kernels, {k1_events} K1 kernel events = "
+          f"{launches} launches ({nr.method.iteration} iterations + 1), "
+          f"annotation present; power_flow wall {t_plain!r} s without the "
+          f"trace, {t_traced!r} s inside it; the trace block with its stop, "
+          f"check and export {t_block!r} s ({Path(path).stat().st_size} "
+          f"bytes), reading it back {t_read!r} s")
+    return launches
+
+
+def phase19(nr, se, se_mon, dc_10k, pegase):
+    """The product surface: ``entry()``; live edits at full size (10k NR,
+    the 1,369-bus SE), reused against fresh; the report tables of phases
+    3, 6, 16 and 17's analyses; a device trace of phase 3's solve. Returns
+    the K1 and K3 launches of the entry step, the edits and the trace.
+    ``checkpointed_map`` is not run: it writes HDF5, and the card's
+    machine has no h5py."""
+    walls = [time.perf_counter()]
+    launches = entry_check()
+    walls.append(time.perf_counter())
+    tables(nr, se, se_mon, dc_10k, pegase)
+    walls.append(time.perf_counter())
+    launches += nr_edits()
+    walls.append(time.perf_counter())
+    k3_launches = se_edits()
+    walls.append(time.perf_counter())
+    launches += trace_run(nr)
+    walls.append(time.perf_counter())
+    print("phase 19 split (s): " + ", ".join(
+        f"{name} {b - a!r}" for name, a, b in zip(
+            ("entry", "tables", "10k NR edits", "SE edits", "trace"),
+            walls, walls[1:])))
+    return launches, k3_launches
+
+
 def activsg10k_acopf(max_seconds=300.0, verbose=1):
     """The AC OPF of the real ACTIVSg10k grid on the card, which ``main``
     does not run (it stops short of acceptable; see PERF.md). Run it from
@@ -3372,30 +3756,47 @@ def kernel_entry(name, replaces, launches, err, times, source=None,
 
 
 def main():
-    card = phase0()
-    k1_err, *k1_times = phase1()
-    phase2()
-    k1_launches, dense_10k = phase3()
-    phase4()
-    k3_err, k3_times = phase5()
-    k3_launches = phase6()
-    phase7()
-    k4_err, k4_times = phase8()
-    k4_launches = phase9()
-    phase10()
-    phase11()
-    k3_launches += phase12()
-    (k1r_err, *k1r_times), (k5_err, *k5_times) = phase13()
+    t0 = time.perf_counter()
+    walls = {}
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        walls[phase.__name__] = time.perf_counter() - t
+        return out
+
+    card = timed(phase0)
+    k1_err, *k1_times = timed(phase1)
+    timed(phase2)
+    k1_launches, dense_10k = timed(phase3)
+    timed(phase4)
+    k3_err, k3_times = timed(phase5)
+    k3_launches, se_1369, mon_1369 = timed(phase6)
+    timed(phase7)
+    k4_err, k4_times = timed(phase8)
+    k4_launches = timed(phase9)
+    timed(phase10)
+    timed(phase11)
+    k3_launches += timed(phase12)
+    (k1r_err, *k1r_times), (k5_err, *k5_times) = timed(phase13)
     k5_library_ms = k5_times.pop()
-    nr_bbd, (k1r_launches, k5_launches) = phase14(dense_10k)
-    (k3r_err, *k3r_times), (k3r_launches, k5_se), k5_se_err = phase15(
-        nr_bbd)
+    nr_bbd, (k1r_launches, k5_launches) = timed(phase14, dense_10k)
+    (k3r_err, *k3r_times), (k3r_launches, k5_se), k5_se_err = timed(
+        phase15, nr_bbd)
     k5_launches += k5_se
     k5_err = max(k5_err, k5_se_err)
-    k3_launches += phase16()
-    k6_err, k6_times, k6_launches = phase17()
-    k7_err, k7_times, k7_launches, k5_kkt = phase18()
+    k3_lav, dc_10k = timed(phase16)
+    k3_launches += k3_lav
+    k6_err, k6_times, k6_launches, pegase = timed(phase17)
+    k7_err, k7_times, k7_launches, k5_kkt = timed(phase18)
     k5_launches += k5_kkt
+    k1_surface, k3_surface = timed(phase19, dense_10k, se_1369, mon_1369,
+                                   dc_10k, pegase)
+    k1_launches += k1_surface
+    k3_launches += k3_surface
+    print("phase walls: " + ", ".join(f"{name} {seconds!r} s"
+                                      for name, seconds in walls.items())
+          + f"; whole run wall {time.perf_counter() - t0!r} s")
     print(card)
     # no single PyTorch call computes K1's, K3's, K4's, K6's or K7's
     # function, or the routed modes': library_ms is null; K5's is one

@@ -25,7 +25,11 @@ the LAV estimators (the AC kind through K3, its Hessian from
 ``torch.func``). The
 numpy host layer (parsers, data
 model, measurements, post-processing, observability and PMU placement) is a
-copy of the JAX package's, so the port imports no JAX.
+copy of the JAX package's, so the port imports no JAX; so are the report
+tables and info trees (``report/``) and the fleets' checkpoints
+(``utils/checkpoint.py``, HDF5 through h5py). ``utils.profiling.trace``
+records a device trace through ``torch.profiler``, and ``entry.entry``
+returns one Newton-Raphson step to call.
 
 Analyses run on ``config.device`` (``"cuda"`` by default); pass
 ``device="cpu"`` to run on the CPU, where each kernel's plain PyTorch
@@ -33,11 +37,15 @@ version takes its place.
 """
 
 from .config import config, default_config, set_config
+from .templates import default, set_template, template
 from .units import units
 
 # power-system data layer
 from .system.load import power_system
-from .system.model import ac_model, dc_model
+from .system.model import ac_model, dc_model, drop_zeros, physical_island
+from .system.builders import (add_branch, add_bus, add_generator, cost,
+                              update_branch, update_bus, update_generator)
+from .system.hdf5io import save_power_system
 
 # measurement layer
 from .measurement.load import ems, measurement
@@ -64,7 +72,6 @@ from .powerflow.limits import adjust_angle, reactive_limit
 # optimal power flow
 from .opf import (ac_optimal_power_flow, dc_optimal_power_flow,
                   solve_opf)
-from .system.builders import cost
 
 # state estimation
 from .estimation.acse import gauss_newton, increment, state_estimation
@@ -81,5 +88,15 @@ from .estimation.observability import (island_topological,
 # postprocessing
 from .postprocessing import ac as ac_post
 from .postprocessing import dc as dc_post
+
+# reporting
+from .report.tables import (print_branch_constraint, print_branch_data,
+                            print_branch_summary, print_bus_constraint,
+                            print_bus_data, print_bus_summary,
+                            print_generator_constraint,
+                            print_generator_data, print_generator_summary,
+                            print_ammeter_data, print_pmu_data,
+                            print_varmeter_data, print_voltmeter_data,
+                            print_wattmeter_data)
 
 __version__ = "0.1.0"

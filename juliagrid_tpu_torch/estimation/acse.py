@@ -890,6 +890,9 @@ def state_estimation(analysis, iteration: int = 40, tolerance: float = 1e-8,
         method.converged = converged
         method.max_increment = maxinc
         method.refine_residual = relmax
+        # the residuals of the state before this solve are stale: readers
+        # (the meter tables) recompute them at the new state
+        method.residual = None
         if verbose:
             from ..report.solver import print_exit
             print_exit("gauss_newton", converged, not converged, it,

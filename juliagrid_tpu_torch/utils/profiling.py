@@ -14,15 +14,22 @@ Device stages measure the card's time instead: a solver calls
 each mark records a CUDA event on the current stream, so the time from one
 mark to the next is the named stage's. Outside such a block ``mark`` does
 nothing.
+
+Device traces: ``trace(logdir)`` wraps ``torch.profiler`` so a real solve
+can be captured with the card's kernels and inspected as a Chrome trace
+(chrome://tracing, Perfetto); ``annotate(name)`` names a region in it.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import torch
+
+from ..config import resolve_device
 
 
 @dataclass
@@ -67,6 +74,52 @@ class Timings:
 #: process-wide default registry (drivers record here too, so a process's
 #: cumulative picture is one ``default_timings.report()`` away)
 default_timings = Timings()
+
+
+@contextmanager
+def span(name: str, timings: Timings | None = None):
+    """Time a section into ``timings`` (or the process-wide registry)."""
+    target = timings if timings is not None else default_timings
+    with target.span(name):
+        yield
+
+
+@contextmanager
+def trace(logdir: str, device=None):
+    """Profile the block and write a Chrome trace into ``logdir``; yields
+    the trace file's path, written when the block ends.
+
+    On ``device`` (default ``config.device``) ``"cuda"`` the trace records
+    the host and the card's kernels, and raises when the profiler cannot
+    record CUDA activity or the trace holds no device event: a trace
+    without the card's events would hide what it exists to show. With
+    ``device="cpu"`` it records the host only."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    on_card = resolve_device(device).type == "cuda"
+    if on_card:
+        if torch.profiler.ProfilerActivity.CUDA not in \
+                torch.profiler.supported_activities():
+            raise RuntimeError("torch.profiler cannot record CUDA activity "
+                               "here")
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    with torch.profiler.profile(activities=activities) as prof:
+        yield path
+    # the raw events: prof.events() would first build an EventList of
+    # every event in Python, tens of seconds for a 10k-bus solve's trace
+    events = prof.profiler.kineto_results.events()
+    if on_card and not any(e.device_type() == torch.autograd.DeviceType.CUDA
+                           for e in events):
+        raise RuntimeError("the trace holds no device event")
+    prof.export_chrome_trace(path)
+
+
+def annotate(name: str):
+    """A named range in a ``trace`` (``torch.profiler.record_function``);
+    a context manager."""
+    return torch.profiler.record_function(name)
+
 
 #: (name, CUDA event) of each mark while a ``device_stages()`` block records
 _marks: list | None = None
