@@ -98,7 +98,22 @@ the 1,369-bus SE, the ACTIVSg10k DC OPF and the pegase AC OPF, checked for
 a row per element, pegase's balance and flow columns and the SE residual
 column; and a ``utils.profiling.trace`` of the 10k NR solve whose K1
 kernel events must equal its K1 launches. ``utils.checkpoint`` is not run
-there: it writes HDF5 and the card's machine has no h5py. Every phase
+there: it writes HDF5 and the card's machine has no h5py. Then the mesh
+path (phase 20, ``parallel/mesh.py``), every rank a process of its own: a
+NCCL world of one runs ``sharded_nr_solve`` on phase 4's fleet, which must
+give the single process's bits and counts; four gloo ranks that share the
+card (NCCL refuses two ranks on one GPU) run the case118 x1024 NR and SE
+fleets (``sharded_nr_solve``, ``sharded_se_solve``), ``bbd_solve_sharded``
+on the 10k grid's DC matrix at a block a rank and the 10k AC OPF through
+``solve_opf`` with ``kkt_blocks=4, kkt_mesh=`` the block mesh, each against
+its single-process twin (the AC OPF by phase 18's BBD gates, balance and
+limits), every rank's results the same bits, with each path's wall (the
+AC OPF's after a short warm-up solve in every process), the all-reduce
+stage's ms an iteration and each rank's peak memory; before the ranks
+start, K7 and K5 are held to their plain versions at the shapes the ranks
+give them (K7 in the k = 4 tables and in each rank's one-block tables, K5
+on each block's own route with no base and sign -1); the ranks' K1, K3,
+K5 and K7 launches count on the main path. Every phase
 prints its lines and times; any failure exits non-zero. The 10k and 25k
 NR/SE grids are ``synthetic_grid``s; phase 16 loads ACTIVSg10k and
 case1354pegase from their numpy-only ``.npz`` snapshots (the card's
@@ -144,7 +159,7 @@ from juliagrid_tpu_torch import (physical_island, print_branch_constraint,
                                  print_generator_data,
                                  print_generator_summary,
                                  print_wattmeter_data, set_initial_point)
-from juliagrid_tpu_torch import newton_raphson_bbd, power_flow_bbd
+from juliagrid_tpu_torch import dc_model, newton_raphson_bbd, power_flow_bbd
 from juliagrid_tpu_torch import (ac_lav_state_estimation,
                                  ac_optimal_power_flow, cost,
                                  dc_lav_state_estimation,
@@ -179,13 +194,17 @@ from juliagrid_tpu_torch.kernels import schur_gather as k5
 from juliagrid_tpu_torch.kernels import se_fill as k3
 from juliagrid_tpu_torch.opf import acopf as ac_mod
 from juliagrid_tpu_torch.opf import ipm, kkt_bbd
+from juliagrid_tpu_torch.opf import solve_opf
 from juliagrid_tpu_torch.opf.edit import update_cost
 from juliagrid_tpu_torch.ops import linalg
+from juliagrid_tpu_torch.ops.bbd import (bbd_partition, bbd_solve,
+                                         bbd_solve_sharded, build_bbd_arrays)
 from juliagrid_tpu_torch.ops.segments import segment_sum
 from juliagrid_tpu_torch.oracle import (oracle_dc, oracle_fdpf, oracle_nr,
                                         oracle_wls_se)
 from juliagrid_tpu_torch.parallel import (batched_dc_solve, batched_nr_solve,
-                                          batched_se_solve)
+                                          batched_se_solve, launch,
+                                          sharded_nr_solve, sharded_se_solve)
 from juliagrid_tpu_torch.powerflow.ac import (_max_mismatch, _nr_solve,
                                               _nr_update, compile_ac_arrays)
 from juliagrid_tpu_torch.powerflow.dc import _dc_solve
@@ -292,6 +311,14 @@ BBD_DENSE_STATE_TOL = 1e-6  # ... V and θ
 KKT_BALANCE_TOL = 1e-6     # 10k AC OPF: bus balance (p.u., raw Y bus)
 KKT_LIN_RES_TOL = 1e-8     # ... lin_res of every step the δ loop takes
 ENTRY_TOL = 1e-12          # entry()'s step, card vs CPU
+MESH_RANKS = 4             # phase 20's gloo ranks, all on the one card
+MESH_TIMEOUT = 420.0       # s, the deadline of a phase-20 launch
+MESH_STATE_TOL = 1e-10     # sharded fleets vs their single-process runs
+MESH_SCHUR_TOL = 1e-10     # bbd_solve_sharded vs bbd_solve
+MESH_SCHUR_RES = 1e-8      # ... its |A x - r|
+MESH_SEED = 20             # phase 20's step point and kernel inputs
+MESH_WARM_ITER = 3         # a warm-up AC OPF's iterations before the timed
+#                            solve, in each rank and in the single process
 #: phase 19's edit solves run to a mismatch (NR) or max|dx| (SE) of 1e-10,
 #: so a reused and a fresh solve both sit within ~1e-11 of the solution
 #: and a stale array, which moves the answer by the edit's size, cannot
@@ -649,7 +676,9 @@ def phase3():
     return launches, analysis
 
 
-def phase4():
+def nr_fleet_inputs():
+    """Phase 4's case118 fleet: its arrays and ``FLEET`` scenarios at 5%
+    scale noise on P and Q (seed 0)."""
     system = power_system(str(DATA / "case118.m"))
     analysis = newton_raphson(system, device="cuda")
     arr = analysis.arrays
@@ -657,9 +686,13 @@ def phase4():
     rng = np.random.default_rng(0)
     scale = torch.tensor(1.0 + 0.05 * rng.standard_normal((FLEET, 1)),
                          device=vm.device)
-    inputs = (vm.expand(FLEET, -1).contiguous(),
-              va.expand(FLEET, -1).contiguous(),
-              arr.p_sched[None] * scale, arr.q_sched[None] * scale)
+    return arr, (vm.expand(FLEET, -1).contiguous(),
+                 va.expand(FLEET, -1).contiguous(),
+                 arr.p_sched[None] * scale, arr.q_sched[None] * scale)
+
+
+def phase4():
+    arr, inputs = nr_fleet_inputs()
     batched_nr_solve(arr, *inputs)      # warm-up: cuSOLVER's batched setup
     runs = []
     for fill in (k1.nr_fill, k1.nr_fill_ref, k1.nr_fill_ref, k1.nr_fill):
@@ -1918,12 +1951,15 @@ def k5_bound(route, base=True):
                  + (2 if base else 1) * border, 2 * sources)
 
 
-def compare_k5(label, route, base=True, phase=13):
+def compare_k5(label, route, base=True, phase=13, sign=None):
     """K5 against schur_gather_ref, bit for bit against schur_gather_lists
     and against one index_put_ on random contributions of the layout's
     shapes, called as its solver calls it: sign -1 and a border base in
     the BBD NR (phase 13), sign 1 and no base in the BBD SE (phase 15,
-    ``base=False``)."""
+    ``base=False``), sign -1 and no base on one block's route in the AC
+    OPF's mesh mode (phase 20, ``base=False, sign=-1.0``)."""
+    if sign is None:
+        sign = -1.0 if base else 1.0
     k, width = route.bsel.shape
     nb = route.nb
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1933,8 +1969,8 @@ def compare_k5(label, route, base=True, phase=13):
                            device="cuda")
 
     contrib, parts = randn(k, width, width), randn(k, width)
-    args = ((contrib, parts, randn(nb, nb), randn(nb), -1.0) if base
-            else (contrib, parts, None, None, 1.0))
+    args = ((contrib, parts, randn(nb, nb), randn(nb), sign) if base
+            else (contrib, parts, None, None, sign))
     got = k5.schur_gather(route, *args)
     ref = k5.schur_gather_ref(route, *args)
     lists = k5.schur_gather_lists(route, *args)
@@ -1963,7 +1999,7 @@ def compare_k5(label, route, base=True, phase=13):
                                                   accumulate=True), reps=20)
     check_one_launch(f"{label} K5", call)
     print(f"phase {phase} {label} K5: k={k}, L={width}, nb={nb}, "
-          f"{'border base, sign -1' if base else 'no base, sign 1'}, "
+          f"{'border base' if base else 'no base'}, sign {sign:+g}, "
           f"{'merge' if not route.by_rows else 'row'} kernel, {sources} "
           f"sources, {route.slot_blk.numel()} list entries; max abs diff "
           f"{worst_abs!r}, max rel diff {worst_rel!r}, bit for bit "
@@ -3075,22 +3111,25 @@ def k7_point(spec, x0, rng):
             rng.uniform(0.3, 1.0, spec.m_e), rng.uniform(0.3, 1.0, spec.m_i))
 
 
-def k7_args(kkt, point):
+def k7_args(kkt, point, table=None):
+    """K7's arguments at ``point`` in ``kkt``'s tables or in ``table``
+    (one rank's, ``kkt_fill_table(kkt, block=r)``)."""
     dev = kkt.spec.arrays.rows.device
     x, y, z, sigma, delta, sf, ge, gi = point
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    return (kkt.table, kkt.spec.arrays, t(x), t(y), t(z), t(sigma), delta,
-            sf, t(ge), t(gi))
+    return (kkt.table if table is None else table, kkt.spec.arrays, t(x),
+            t(y), t(z), t(sigma), delta, sf, t(ge), t(gi))
 
 
-def compare_k7(label, kkt, point):
-    """K7 against kkt_fill_ref: every COO value within K7_REL_TOL of its
-    KKT row's scale (its largest value), d, and every element of the four
-    blocks within K7_REL_TOL of its block row's scale. Returns the worst
-    abs and row-relative differences."""
-    args = k7_args(kkt, point)
+def compare_k7(label, kkt, point, table=None):
+    """K7 against kkt_fill_ref (in ``kkt``'s tables or ``table``): every
+    COO value within K7_REL_TOL of its KKT row's scale (its largest
+    value), d, and every element of the four blocks within K7_REL_TOL of
+    its block row's scale. Returns the worst abs and row-relative
+    differences."""
+    args = k7_args(kkt, point, table)
     got, ref = k7.kkt_fill(*args), k7.kkt_fill_ref(*args)
-    rows = kkt.table.rows.long()
+    rows = args[0].rows.long()
     rmax = torch.zeros(kkt.n_aug, dtype=torch.float64, device=rows.device)
     rmax = rmax.scatter_reduce(0, rows, ref.vals.abs(), "amax")
     pairs = [("vals", got.vals, ref.vals, rmax[rows].clamp(min=1.0)),
@@ -3124,11 +3163,12 @@ def k7_bound(kkt, args):
     the four blocks written once (the blocks as a whole: their zeros too);
     the row-maxima scratch is no output and not counted. The operations (a
     few tens a COO value, ~1,000 a flow row) are far below the bytes."""
-    s = kkt.table.size
+    table = args[0]
+    s = table.size
     arr = kkt.spec.arrays
     tables = [getattr(arr, name) for name in k7._ARR] \
         + [getattr(arr.fill, name) for name in k7._FILL] \
-        + [getattr(kkt.table, name) for name in k7._TAB]
+        + [getattr(table, name) for name in k7._TAB]
     inputs = [t for t in args[2:] if torch.is_tensor(t)]
     blocks = 8 * (s["k"] * s["ni"] * (s["ni"] + 2 * s["mbl"])
                   + s["mb"] * s["mb"])
@@ -3138,18 +3178,19 @@ def k7_bound(kkt, args):
     return bound(nbytes, ops)
 
 
-def k7_times(label, kkt, point):
-    """K7 at ``point``: ms a call (CUDA events; two memsets and two
-    launches), its device time alone and host µs, the plain version, the
-    bound. Returns (ms, plain_ms, (bound_ms, bound_by))."""
-    args = k7_args(kkt, point)
+def k7_times(label, kkt, point, table=None, phase=18):
+    """K7 at ``point`` (in ``kkt``'s tables or ``table``): ms a call (CUDA
+    events; two memsets and two launches), its device time alone and host
+    µs, the plain version, the bound. Returns (ms, plain_ms, (bound_ms,
+    bound_by))."""
+    args = k7_args(kkt, point, table)
     fn = lambda: k7.kkt_fill(*args)  # noqa: E731
     ms = cuda_ms(fn, reps=10)
     queued = queued_ms(fn, reps=10)
     host = host_us(fn, reps=10)
     plain_ms = cuda_ms(lambda: k7.kkt_fill_ref(*args), reps=3)
     least = k7_bound(kkt, args)
-    print(f"phase 18 {label} K7: {ms!r} ms per call (CUDA events, the "
+    print(f"phase {phase} {label} K7: {ms!r} ms per call (CUDA events, the "
           f"memsets and both launches), device {queued!r} ms queued, host "
           f"{host!r} us; kkt_fill_ref {plain_ms!r} ms; bound {least[0]!r} ms "
           f"by {least[1]}, share {least[0] / ms!r}")
@@ -3186,6 +3227,31 @@ def k7_cells(rng):
     return worst, times
 
 
+def step_point(spec, system, rng):
+    """An interior point near the start for one step: x, y, z from
+    ``k7_point`` and slacks s, on the spec's device."""
+    x, y, z, _, _, _, _, _ = k7_point(spec, spec.start(system), rng)
+    s = rng.uniform(0.5, 2.0, spec.m_i)
+    dev = spec.arrays.rows.device
+    return tuple(torch.as_tensor(a, device=dev) for a in (x, y, z, s))
+
+
+def step_dx(spec, point, kkt=None):
+    """One interior-point step's dx at ``point`` (μ 0.1, δ 1e-6), through
+    the structured KKT ``kkt`` or, without one, the dense KKT."""
+    x, y, z, s = point
+    fn_args = (spec.objective, spec.eq, spec.ineq, spec.n_x, spec.m_e,
+               spec.m_i)
+    if kkt is None:
+        fns = ipm._make_fns(*fn_args, jac_e_fn=spec.jac_eq,
+                            jac_i_fn=spec.jac_ineq, hess_fn=spec.hess)
+    else:
+        unit = {"sf": 1.0, "ge": None, "gi": None}
+        fns = ipm._make_fns(*fn_args,
+                            kkt_solve=lambda *a: kkt.solve(*a, unit))
+    return fns.step(x, y, z, s, 0.1, 1e-6, spec.eq(x), spec.ineq(x) - s)[0]
+
+
 def bbd_vs_dense(rng):
     """Phase 18 (b): the BBD KKT against the dense KKT on the card, at
     synthetic_grid(30, 30, opf=True): the two steps at one iterate, and
@@ -3193,22 +3259,10 @@ def bbd_vs_dense(rng):
     system = synthetic_grid(*KKT_SMALL_GRID, opf=True)
     spec = ac_optimal_power_flow(system, device="cuda")._spec
     kkt = kkt_bbd.AcKktBbd(spec, KKT_SMALL_BLOCKS)
-    x, y, z, _, _, _, _, _ = k7_point(spec, spec.start(system), rng)
-    dev = spec.arrays.rows.device
-    x, y, z = (torch.as_tensor(a, device=dev) for a in (x, y, z))
-    s = torch.as_tensor(rng.uniform(0.5, 2.0, spec.m_i), device=dev)
-    mu, delta = 0.1, 1e-6
-    ce, ri = spec.eq(x), spec.ineq(x) - s
-    unit = {"sf": 1.0, "ge": None, "gi": None}
-    fn_args = (spec.objective, spec.eq, spec.ineq, spec.n_x, spec.m_e,
-               spec.m_i)
-    bbd = ipm._make_fns(*fn_args, kkt_solve=lambda *a: kkt.solve(*a, unit))
-    dense = ipm._make_fns(*fn_args, jac_e_fn=spec.jac_eq,
-                          jac_i_fn=spec.jac_ineq, hess_fn=spec.hess)
-    got = bbd.step(x, y, z, s, mu, delta, ce, ri)
-    want = dense.step(x, y, z, s, mu, delta, ce, ri)
-    scale = max(1.0, want[0].abs().max().item())
-    ddx = (got[0] - want[0]).abs().max().item() / scale
+    point = step_point(spec, system, rng)
+    got, want = step_dx(spec, point, kkt), step_dx(spec, point)
+    scale = max(1.0, want.abs().max().item())
+    ddx = (got - want).abs().max().item() / scale
     check(ddx <= BBD_DENSE_STEP_TOL,
           f"30x30 AC OPF: BBD step dx differs from the dense step's by "
           f"{ddx:.3e} of its scale")
@@ -3689,6 +3743,354 @@ def phase19(nr, se, se_mon, dc_10k, pegase):
     return launches, k3_launches
 
 
+# ---- phase 20: the mesh path, ranks that share the card ---------------------
+
+#: the kernels a rank of phase 20 counts
+MESH_KERNELS = {"K1": k1.nr_fill, "K3": k3.se_fill,
+                "K5": k5.schur_gather, "K7": k7.kkt_fill}
+
+
+def mesh_path(fn):
+    """``fn()`` once on this rank with the kernels' counts at 0 and the peak
+    memory reset: ``(result, wall s, launches, peak GB)``."""
+    for kernel in MESH_KERNELS.values():
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    wall, out = wall_s(fn)
+    launches = {name: kernel.launches
+                for name, kernel in MESH_KERNELS.items()}
+    return out, wall, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
+def cpu_all(values):
+    return [v.cpu() for v in values]
+
+
+def dc_schur_system(blocks):
+    """The slack-masked DC nodal matrix of the 10k grid (scipy CSR), its
+    injections and its BFS partition into ``blocks`` blocks."""
+    from scipy import sparse
+    system = synthetic_grid(*GRID)
+    dc_model(system)
+    n = system.bus.number
+    nodal = system.model.dc.nodal.tocsr()
+    m = np.ones(n)
+    m[system.bus.layout.slack] = 0.0
+    a = (sparse.diags(m) @ nodal @ sparse.diags(m)
+         + sparse.diags(1.0 - m)).tocsr()
+    rhs = (system.bus.supply.active.array[:n]
+           - system.bus.demand.active.array[:n]) * m
+    adj = nodal.copy()
+    adj.eliminate_zeros()
+    return a, rhs, *bbd_partition(adj, blocks)
+
+
+def mesh_opf(blocks, mesh=None):
+    """The 10k AC OPF through ``solve_opf`` (what ``power_flow`` calls) with
+    ``kkt_blocks=blocks`` and, with ``mesh``, its KKT over the mesh, then
+    the power post-processing; and one step's dx through the solve's
+    cached KKT at a seeded point. A warm-up solve of MESH_WARM_ITER
+    iterations on an analysis of its own comes first, so that the timed
+    solve holds none of the process's first-use costs. Returns the results
+    on the CPU and the timed solve's analysis."""
+    warm = ac_optimal_power_flow(synthetic_grid(*KKT_GRID, opf=True),
+                                 device="cuda")
+    solve_opf(warm, kkt_blocks=blocks, kkt_mesh=mesh,
+              max_iter=MESH_WARM_ITER)
+    del warm
+    torch.cuda.empty_cache()
+    system = synthetic_grid(*KKT_GRID, opf=True)
+    analysis = ac_optimal_power_flow(system, device="cuda")
+
+    def solve():
+        solve_opf(analysis, kkt_blocks=blocks, kkt_mesh=mesh)
+        ac_post.power(analysis)
+
+    with device_stages() as split:
+        _, wall, launches, peak = mesh_path(solve)
+    res = analysis.method.result
+    kkt = analysis._kkt_cache[2]
+    spec = analysis._spec
+    point = step_point(spec, system, np.random.default_rng(MESH_SEED))
+    dx = step_dx(spec, point, kkt).cpu()
+    feasible = ac_feasibility(system, analysis)[:5]
+    return {"x": res.x, "y": res.y, "z": res.z, "s": res.s,
+            "objective": res.objective, "status": res.status,
+            "iterations": res.iterations, "vm": analysis.voltage.magnitude,
+            "va": analysis.voltage.angle, "dx": dx, "feasible": feasible,
+            "wall": wall, "launches": launches, "peak": peak,
+            "split": dict(split), "layout": kkt_layout(kkt)}, analysis
+
+
+def mesh_kernels(analysis):
+    """Phase 20's kernels at the shapes its ranks give them, against their
+    plain versions, before the ranks launch: K7 in the single process's
+    tables of the 10k AC OPF at k = 4 and in each rank's (its one block
+    and ``a_bb``: ``kkt_fill_table(kkt, block=r)``); K5 on each block's
+    own route, no base and sign -1, as ``bbd_solve_local_sharded`` calls
+    it. Returns the worst abs errors of K7 and K5."""
+    kkt = analysis._kkt_cache[2]
+    spec = analysis._spec
+    point = k7_point(spec, spec.start(analysis.system),
+                     np.random.default_rng(MESH_SEED))
+    k7_err, rel = compare_k7(f"phase 20 10k AC OPF k={kkt.k}", kkt, point)
+    print(f"phase 20 10k AC OPF k={kkt.k} ({kkt_layout(kkt)}): K7 vs "
+          f"kkt_fill_ref max abs diff {k7_err!r}, max rel diff {rel!r} of "
+          f"the row")
+    k7_times(f"10k AC OPF k={kkt.k}", kkt, point, phase=20)
+    whole_gb, buffer_gb = (
+        8 * sum(k7._block_sizes(k, kkt.ni, kkt.mb, kkt.mbl)) / 1e9
+        for k in (kkt.k, 1))
+    k5_err = 0.0
+    for r in range(kkt.k):
+        host = k7.kkt_fill_table(kkt, block=r)
+        k7.check_route(host, kkt)
+        table = k7.kkt_fill_table_tensors(host, kkt, "cuda")
+        label = f"10k AC OPF k={kkt.k} rank {r}'s block"
+        err, rel = compare_k7(f"phase 20 {label}", kkt, point, table)
+        k7_err = max(k7_err, err)
+        print(f"phase 20 {label} ({host['size']['n_dest']} block elements "
+              f"written, a {buffer_gb!r} GB buffer against "
+              f"{whole_gb!r} GB): K7 vs kkt_fill_ref max abs diff {err!r}, "
+              f"max rel diff {rel!r} of the row")
+        if r == 0:
+            k7_times(label, kkt, point, table, phase=20)
+        del table
+        route = k5.schur_route(kkt.bsel[r:r + 1], kkt.mb, "cuda")
+        k5_err = max(k5_err, compare_k5(
+            f"10k AC OPF k={kkt.k} block {r}", route, base=False, phase=20,
+            sign=-1.0)[0])
+    torch.cuda.empty_cache()
+    return k7_err, k5_err
+
+
+def mesh_fleets_rank(mesh):
+    """A phase-20 rank of the NCCL world of one: the case118 NR fleet
+    through ``sharded_nr_solve``."""
+    arr, inputs = nr_fleet_inputs()
+    sharded_nr_solve(mesh, arr, *inputs)              # warm-up
+    out, wall, launches, peak = mesh_path(
+        lambda: sharded_nr_solve(mesh, arr, *inputs))
+    return {"nr": cpu_all(out), "wall": wall, "launches": launches,
+            "peak": peak}
+
+
+def mesh_rank(mesh, blocks):
+    """A phase-20 rank of the gloo mesh: the case118 NR and SE fleets
+    through ``sharded_nr_solve``/``sharded_se_solve`` and the 10k DC Schur
+    solve through ``bbd_solve_sharded`` (each after a warm-up call), and
+    the 10k AC OPF with its KKT over the block mesh (after a short
+    warm-up solve). Each path runs with the kernels' counts at 0 and its
+    wall and peak memory taken."""
+    out = {}
+    arr, inputs = nr_fleet_inputs()
+    sharded_nr_solve(mesh, arr, *inputs)
+    res, *rest = mesh_path(lambda: sharded_nr_solve(mesh, arr, *inputs))
+    out["nr"] = (cpu_all(res), *rest)
+    del arr, inputs
+    se_args = fleet_inputs(power_system(str(DATA / "case118.m")), SE_FLEET,
+                           SE_FLEET)
+    sharded_se_solve(mesh, *se_args)
+    res, *rest = mesh_path(lambda: sharded_se_solve(mesh, *se_args))
+    out["se"] = (cpu_all(res), *rest)
+    del se_args
+    bmesh = mesh.renamed("block")
+    a, rhs, block_of, border = dc_schur_system(blocks)
+    bbd = build_bbd_arrays(a, block_of, border, device="cuda")
+    rhs_t = torch.as_tensor(rhs, device="cuda")
+    bbd_solve_sharded(bmesh, bbd, rhs_t)
+    res, *rest = mesh_path(lambda: bbd_solve_sharded(bmesh, bbd, rhs_t))
+    out["schur"] = (res.cpu(), *rest)
+    del bbd
+    torch.cuda.empty_cache()
+    out["opf"], _ = mesh_opf(blocks, bmesh)
+    return out
+
+
+def same_bits(label, values):
+    """Every rank's results equal bit for bit."""
+    def flat(v):
+        if isinstance(v, dict):
+            return [x for key in sorted(v) for x in flat(v[key])]
+        if isinstance(v, (list, tuple)):
+            return [x for item in v for x in flat(item)]
+        if isinstance(v, (torch.Tensor, np.ndarray)):
+            a = np.asarray(v)
+            return [(a.dtype.str, a.shape, a.tobytes())]
+        return [v]
+    first = flat(values[0])
+    check(all(flat(v) == first for v in values[1:]),
+          f"{label}: the ranks' results differ in their bits")
+
+
+def fleet_gate(label, got, want):
+    """Sharded against single-process: counts equal, states within
+    MESH_STATE_TOL."""
+    check(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+          and bool(got[3].all()),
+          f"{label}: iteration counts or flags differ from the "
+          "single-process run")
+    diff = max((got[0] - want[0]).abs().max().item(),
+               (got[1] - want[1]).abs().max().item())
+    check(diff <= MESH_STATE_TOL, f"{label}: states {diff:.3e} off the "
+          "single-process run")
+    return diff
+
+
+def phase20(ranks=MESH_RANKS):
+    """The mesh path (``parallel/mesh.py``) on the card, every rank a
+    process of its own: (a) a world of one over NCCL runs
+    ``sharded_nr_solve`` on phase 4's fleet, which must give the
+    single-process run's bits and counts; (b) ``ranks`` gloo ranks that
+    share the card run the case118 NR and SE fleets, ``bbd_solve_sharded``
+    on the 10k grid's DC matrix at a block a rank and the 10k AC OPF with
+    ``kkt_blocks=ranks`` and its KKT over the block mesh, each against its
+    single-process twin in this process. K7 and K5 are first held to their
+    plain versions at the shapes the ranks give them (``mesh_kernels``).
+    Every rank's results must have the same bits. Prints the walls, the
+    all-reduce stage's ms an iteration and each rank's peak memory, all
+    of ranks that share one card. Returns the ranks' K1, K3, K5 and K7
+    launches and the worst K7 and K5 abs errors."""
+    totals = dict.fromkeys(MESH_KERNELS, 0)
+
+    def count(launches):
+        for name, n in launches.items():
+            totals[name] += n
+
+    # single-process twins, in this process
+    arr, inputs = nr_fleet_inputs()
+    batched_nr_solve(arr, *inputs)
+    nr_wall, nr_ref = wall_s(lambda: batched_nr_solve(arr, *inputs))
+    nr_ref = cpu_all(nr_ref)
+    se_args = fleet_inputs(power_system(str(DATA / "case118.m")), SE_FLEET,
+                           SE_FLEET)
+    batched_se_solve(*se_args)
+    se_wall, se_ref = wall_s(lambda: batched_se_solve(*se_args))
+    se_ref = cpu_all(se_ref)
+    a, rhs, block_of, border = dc_schur_system(ranks)
+    bbd = build_bbd_arrays(a, block_of, border, device="cuda")
+    rhs_t = torch.as_tensor(rhs, device="cuda")
+    bbd_solve(bbd, rhs_t)
+    schur_wall, x_ref = wall_s(lambda: bbd_solve(bbd, rhs_t))
+    x_ref = x_ref.cpu()
+    del arr, inputs, se_args, bbd
+    opf_ref, analysis = mesh_opf(ranks)
+    errs = mesh_kernels(analysis)
+    del analysis
+    torch.cuda.empty_cache()
+
+    # (a) a world of one over NCCL
+    (one,) = launch(mesh_fleets_rank, 1, backend="nccl", device="cuda",
+                    timeout=MESH_TIMEOUT)
+    same_bits("phase 20 NCCL world of one vs the single-process fleet",
+              [one["nr"], nr_ref])
+    check(torch.equal(one["nr"][2], nr_ref[2]),
+          "phase 20 world of one: iteration counts differ")
+    count(one["launches"])
+    print(f"phase 20 (a) nccl world of one: sharded_nr_solve case118 "
+          f"x{FLEET} the single-process run's bits and counts "
+          f"({int(one['nr'][2].sum())} NR iterations); wall "
+          f"{one['wall']!r} s (single process {nr_wall!r} s); K1 launches "
+          f"{one['launches']['K1']}; peak {one['peak']!r} GB")
+
+    # (b) gloo ranks that share the card
+    t0 = time.perf_counter()
+    outs = launch(mesh_rank, ranks, backend="gloo", device="cuda",
+                  args=(ranks,), timeout=MESH_TIMEOUT)
+    launch_wall = time.perf_counter() - t0
+    for name in ("nr", "se", "schur"):
+        same_bits(f"phase 20 {name}", [o[name][0] for o in outs])
+    same_bits("phase 20 AC OPF", [
+        {k: o["opf"][k] for k in ("x", "y", "z", "s", "objective", "status",
+                                  "iterations", "vm", "va", "dx")}
+        for o in outs])
+    for o in outs:
+        for name in ("nr", "se", "schur"):
+            count(o[name][2])
+        count(o["opf"]["launches"])
+    check(one["launches"]["K1"] and all(
+        o["nr"][2]["K1"] and o["se"][2]["K3"] and o["opf"]["launches"]["K5"]
+        and o["opf"]["launches"]["K7"] for o in outs),
+        "phase 20: a rank launched no K1, K3, K5 or K7 on its path")
+
+    def walls(name):
+        return ", ".join(f"{o[name][1]!r}" for o in outs)
+
+    def peaks(name):
+        return ", ".join(f"{o[name][3]!r}" for o in outs)
+
+    d_nr = fleet_gate("phase 20 NR fleet", outs[0]["nr"][0], nr_ref)
+    d_se = fleet_gate("phase 20 SE fleet", outs[0]["se"][0], se_ref)
+    x = outs[0]["schur"][0]
+    d_x = (x - x_ref).abs().max().item()
+    resid = float(np.abs(a @ x.numpy() - rhs).max())
+    check(d_x <= MESH_SCHUR_TOL and resid <= MESH_SCHUR_RES,
+          f"phase 20 Schur solve: {d_x:.3e} off bbd_solve, residual "
+          f"{resid:.3e}")
+    print(f"phase 20 (b) {ranks} gloo ranks sharing one card (launch "
+          f"{launch_wall!r} s): NR fleet x{FLEET} states vs the single "
+          f"process {d_nr!r}, same counts; walls {walls('nr')} s (single "
+          f"process {nr_wall!r} s); K1 launches "
+          f"{[o['nr'][2]['K1'] for o in outs]}; peaks {peaks('nr')} GB")
+    print(f"phase 20 (b) SE fleet x{SE_FLEET}: states vs the single "
+          f"process {d_se!r}, same counts; walls {walls('se')} s (single "
+          f"process {se_wall!r} s); K3 launches "
+          f"{[o['se'][2]['K3'] for o in outs]}; peaks {peaks('se')} GB")
+    print(f"phase 20 (b) bbd_solve_sharded, {GRID[0]}x{GRID[1]} DC at "
+          f"{ranks} blocks (ni "
+          f"{int(np.bincount(block_of[block_of >= 0]).max())}, border "
+          f"{len(border)}): vs bbd_solve {d_x!r}, |A x - r| {resid!r}; "
+          f"walls {walls('schur')} s (single process {schur_wall!r} s); "
+          f"peaks {peaks('schur')} GB")
+    mesh_opf_gate(outs, opf_ref, ranks)
+    return totals, errs
+
+
+def mesh_opf_gate(outs, ref, ranks):
+    """Phase 20's AC OPF over the mesh against the single-process solve at
+    the same block count: phase 18's BBD gates, balance and limits."""
+    got = outs[0]["opf"]
+    scale = max(1.0, ref["dx"].abs().max().item())
+    ddx = (got["dx"] - ref["dx"]).abs().max().item() / scale
+    dobj = abs(got["objective"] - ref["objective"]) / max(
+        1.0, abs(ref["objective"]))
+    dstate = max(np.abs(got["vm"] - ref["vm"]).max(),
+                 np.abs(got["va"] - ref["va"]).max())
+    balance, volt, power, flow, angle = got["feasible"]
+    check(ddx <= BBD_DENSE_STEP_TOL and got["status"] == ref["status"]
+          and got["status"] in ("optimal", "acceptable")
+          and dobj <= BBD_DENSE_OBJ_RTOL and dstate <= BBD_DENSE_STATE_TOL
+          and balance <= KKT_BALANCE_TOL
+          and max(volt, power, flow, angle) <= AC_FEAS_LIMIT_TOL,
+          f"phase 20 AC OPF over the mesh: step dx {ddx:.3e} of its scale, "
+          f"status {got['status']} vs {ref['status']}, objective rel "
+          f"{dobj:.3e}, V/θ {dstate:.3e}, balance {balance:.3e}, limits "
+          f"V {volt:.3e} PQ {power:.3e} flow {flow:.3e} angle {angle:.3e}")
+    it = got["iterations"]
+    reduce = [o["opf"]["split"].get("all-reduce", (0, 0.0)) for o in outs]
+    k5_k7 = [(o["opf"]["launches"]["K5"], o["opf"]["launches"]["K7"])
+             for o in outs]
+    print(f"phase 20 (b) {KKT_GRID[0]}x{KKT_GRID[1]} AC OPF, "
+          f"kkt_blocks={ranks} over the {ranks}-rank block mesh "
+          f"({got['layout']}): {got['status']} in {it} iterations (single "
+          f"process {ref['status']} in {ref['iterations']}), objective "
+          f"{got['objective']!r} rel {dobj!r}, V/θ {dstate!r}, one step's "
+          f"dx {ddx!r} of its scale; balance {balance!r} p.u. (raw Y bus), "
+          f"limits V {volt!r} Pg/Qg {power!r} flow {flow!r} angle "
+          f"{angle!r}; walls after a {MESH_WARM_ITER}-iteration warm-up "
+          f"{[o['opf']['wall'] for o in outs]} s (single process "
+          f"{ref['wall']!r} s); all-reduce ms an iteration "
+          f"{[ms / it for _, ms in reduce]} ({reduce[0][0]} calls); "
+          f"K5/K7 launches {k5_k7} "
+          f"(single process {ref['launches']['K5']}/{ref['launches']['K7']});"
+          f" peaks {[o['opf']['peak'] for o in outs]} GB (single process "
+          f"{ref['peak']!r} GB)")
+    print(f"phase 20 (b) AC OPF rank 0 per iteration (CUDA events, ranks "
+          f"sharing one card): {stage_ms(got['split'], it)}")
+    print(f"phase 20 single-process AC OPF per iteration (CUDA events): "
+          f"{stage_ms(ref['split'], ref['iterations'])}")
+
+
 def activsg10k_acopf(max_seconds=300.0, verbose=1):
     """The AC OPF of the real ACTIVSg10k grid on the card, which ``main``
     does not run (it stops short of acceptable; see PERF.md). Run it from
@@ -3794,6 +4196,13 @@ def main():
                                    dc_10k, pegase)
     k1_launches += k1_surface
     k3_launches += k3_surface
+    mesh, (k7_mesh_err, k5_mesh_err) = timed(phase20)
+    k7_err = max(k7_err, k7_mesh_err)
+    k5_err = max(k5_err, k5_mesh_err)
+    k1_launches += mesh["K1"]
+    k3_launches += mesh["K3"]
+    k5_launches += mesh["K5"]
+    k7_launches += mesh["K7"]
     print("phase walls: " + ", ".join(f"{name} {seconds!r} s"
                                       for name, seconds in walls.items())
           + f"; whole run wall {time.perf_counter() - t0!r} s")

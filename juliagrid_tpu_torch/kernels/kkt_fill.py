@@ -63,15 +63,18 @@ class KktTable(NamedTuple):
     cols: torch.Tensor      # i32[E] COO column
     erow: torch.Tensor      # i32[E] its row, -1 for a cross-interior zero
     eflat: torch.Tensor     # i64[E] its element in the flat block buffer
+    #                         (-1: a block another rank's buffer holds)
     yrow: torch.Tensor      # i32[nnz] the row bus of each Y-bus entry
     gbus: torch.Tensor      # i32[g] each generator's bus
     unit_pos: torch.Tensor  # i32[2, U] the unit rows of J_E, and transposes
     dest_off: torch.Tensor  # i64[D] each destination element ...
     dest_ptr: torch.Tensor  # i32[D + 1] ... and its entries
-    dest_ent: torch.Tensor  # i32[E] ascending within a destination
+    dest_ent: torch.Tensor  # i32[E'] ascending within a destination (E'
+    #                         the entries of the buffer's blocks)
     pad_off: torch.Tensor   # i64[P] the padded interior diagonal
     base: tuple             # COO bases of BASES
-    size: dict              # SIZES, and the layout's k, ni, mb, mbl, n_w
+    size: dict              # SIZES, and the buffer's k, ni, mb, mbl, n_w,
+    #                         block (its one block in the mesh mode, or -1)
     unit_groups: tuple      # lengths of J_E's unit-row groups, in order
 
 
@@ -88,8 +91,13 @@ def _block_sizes(k, ni, mb, mbl):
     return (k * ni * ni, k * ni * mbl, k * mbl * ni, mb * mb)
 
 
-def kkt_fill_table(lay) -> dict:
-    """Numpy fields of ``KktTable`` from an ``AcKktBbd`` layout ``lay``."""
+def kkt_fill_table(lay, block: int | None = None) -> dict:
+    """Numpy fields of ``KktTable`` from an ``AcKktBbd`` layout ``lay``.
+    With ``block``, one rank's tables in the mesh mode: the value launch
+    is the whole KKT's (every rank needs every value, d and the row
+    maxima), while the block buffer holds interior block ``block`` alone
+    (``k`` 1) and ``a_bb``; the other blocks' entries have element -1 and
+    no destination."""
     spec = lay.spec
     n, g = int(spec.n), int(spec.g)
     rows, cols = lay.rows, lay.cols
@@ -98,22 +106,38 @@ def kkt_fill_table(lay) -> dict:
         raise ValueError(f"{e_count} COO entries do not fit K7's int32 "
                          "tables")
     k, ni, mb, mbl = lay.k, lay.ni, lay.mb, lay.mbl
-    o_ii, o_ib, o_bi, o_bb = np.cumsum((0,) + _block_sizes(k, ni, mb,
+    if block is not None and not 0 <= block < k:
+        raise ValueError(f"block {block} is not one of the layout's {k}")
+    kb = k if block is None else 1
+    o_ii, o_ib, o_bi, o_bb = np.cumsum((0,) + _block_sizes(kb, ni, mb,
                                                            mbl)[:3])
-    eflat = np.zeros(e_count, dtype=np.int64)
+
+    def own(blk):
+        """The blocks' places in the buffer and the entries it keeps."""
+        if block is None:
+            return blk, np.ones(blk.shape, dtype=bool)
+        return np.zeros_like(blk), blk == block
+
+    eflat = np.full(e_count, -1, dtype=np.int64)
     s, blk, r_, c_ = lay.ii
-    eflat[s] = o_ii + (blk * ni + r_) * ni + c_
+    b, keep = own(blk)
+    eflat[s[keep]] = (o_ii + (b * ni + r_) * ni + c_)[keep]
     s, blk, r_, c_ = lay.ib
-    eflat[s] = o_ib + (blk * ni + r_) * mbl + c_
+    b, keep = own(blk)
+    eflat[s[keep]] = (o_ib + (b * ni + r_) * mbl + c_)[keep]
     s, blk, r_, c_ = lay.bi
-    eflat[s] = o_bi + (blk * mbl + r_) * ni + c_
+    b, keep = own(blk)
+    eflat[s[keep]] = (o_bi + (b * mbl + r_) * ni + c_)[keep]
     s, r_, c_ = lay.bb
     eflat[s] = o_bb + r_ * mb + c_
     erow = rows.copy()
     erow[lay.cross] = -1
-    order = np.argsort(eflat, kind="stable")
+    kept = np.flatnonzero(eflat >= 0)
+    order = kept[np.argsort(eflat[kept], kind="stable")]
     dest_off, first = np.unique(eflat[order], return_index=True)
     pad_b, pad_s = lay.pad
+    b, keep = own(pad_b)
+    pad_b, pad_s = b[keep], pad_s[keep]
     size = {
         "n": n, "g": g, "n_x": int(spec.n_x), "m_e": int(spec.m_e),
         "m_i": int(spec.m_i), "nnz": int(np.asarray(spec.rows).size),
@@ -124,7 +148,8 @@ def kkt_fill_table(lay) -> dict:
         "n_an": len(spec.an_f), "n_pwp": len(spec.pwp[0]),
         "n_pwq": len(spec.pwq[0]), "n_lo": spec.ji_rows["fl_lo"][1],
         "n_hi": spec.ji_rows["fl_hi"][1], "n_unit": int(spec.m_e) - 2 * n,
-        "k": k, "ni": ni, "mb": mb, "mbl": mbl, "n_w": lay.n_w}
+        "k": kb, "ni": ni, "mb": mb, "mbl": mbl, "n_w": lay.n_w,
+        "block": -1 if block is None else int(block)}
     for name, group in (("cc_row", "cc"), ("flo_row", "fl_lo"),
                         ("fhi_row", "fl_hi"), ("an_lo_row", "an_lo"),
                         ("an_hi_row", "an_hi"), ("pwp_row", "pwp"),
@@ -141,7 +166,7 @@ def kkt_fill_table(lay) -> dict:
         yrow=np.asarray(spec.rows, dtype=np.int32),
         gbus=np.asarray(spec.gen_bus, dtype=np.int32),
         unit_pos=lay.unit_pos.astype(np.int32), dest_off=dest_off,
-        dest_ptr=np.append(first, e_count).astype(np.int32),
+        dest_ptr=np.append(first, kept.size).astype(np.int32),
         dest_ent=order.astype(np.int32),
         pad_off=(o_ii + (pad_b * ni + pad_s) * ni + pad_s).astype(np.int64),
         base=tuple(int(lay.bases.get(name, -1)) for name in BASES),
@@ -187,9 +212,11 @@ def launch_positions(tab: dict) -> np.ndarray:
 def check_route(tab: dict, lay) -> None:
     """Raise unless the tables give every COO value and every block
     element one writer: the value launch's items write every COO position
-    once; every COO entry sits in one destination's list, the lists are
-    ascending, each entry's element is its destination's, no element is a
-    destination twice, and the padded diagonal is no destination."""
+    once; every COO entry of the buffer's blocks (all of them, or in one
+    rank's tables those of its block and ``a_bb``) sits in one
+    destination's list and no other entry does, the lists are ascending,
+    each entry's element is its destination's, no element is a destination
+    twice, and the padded diagonal is no destination."""
     s = tab["size"]
     e_count = s["n_entries"]
     written = launch_positions(tab)
@@ -197,20 +224,28 @@ def check_route(tab: dict, lay) -> None:
             np.sort(written), np.arange(e_count)):
         raise ValueError("the value launch does not write every COO "
                          "position once")
+    in_buffer = np.ones(e_count, dtype=bool)
+    if s["block"] >= 0:
+        for group in (lay.ii, lay.ib, lay.bi):
+            in_buffer[group[0]] = group[1] == s["block"]
+    kept = np.flatnonzero(in_buffer)
+    if not np.array_equal(tab["eflat"] >= 0, in_buffer):
+        raise ValueError("the buffer's elements are not those of its "
+                         "blocks' entries")
     ptr = tab["dest_ptr"].astype(np.int64)
     ent = tab["dest_ent"].astype(np.int64)
     off = tab["dest_off"]
-    if ptr[0] != 0 or ptr[-1] != e_count or np.any(np.diff(ptr) < 1) or \
-            not np.array_equal(np.sort(ent), np.arange(e_count)):
-        raise ValueError("every COO entry must sit in one destination's "
-                         "list")
+    if ptr[0] != 0 or ptr[-1] != kept.size or np.any(np.diff(ptr) < 1) or \
+            not np.array_equal(np.sort(ent), kept):
+        raise ValueError("every COO entry of the buffer's blocks must sit "
+                         "in one destination's list")
     dest_of = np.repeat(np.arange(off.size), np.diff(ptr))
     if np.any(tab["eflat"][ent] != off[dest_of]):
         raise ValueError("a destination lists an entry of another element")
     same = dest_of[1:] == dest_of[:-1]
     if np.any(ent[1:][same] <= ent[:-1][same]):
         raise ValueError("a destination's entries are not ascending")
-    total = sum(_block_sizes(lay.k, lay.ni, lay.mb, lay.mbl))
+    total = sum(_block_sizes(s["k"], lay.ni, lay.mb, lay.mbl))
     pads = tab["pad_off"]
     if np.unique(off).size != off.size or np.unique(pads).size != \
             pads.size or np.intersect1d(off, pads).size or \
@@ -546,7 +581,11 @@ def kkt_fill_ref(tab: KktTable, arr, x, y, z, sigma, delta, sf, ge=None,
     d = 1.0 / torch.sqrt(rmax.clamp(min=1e-12))
     vals_s = vals * d[rows] * d[cols]
     flat = x.new_zeros(sum(_block_sizes(s["k"], s["ni"], s["mb"], s["mbl"])))
-    flat.index_put_((tab.eflat,), vals_s, accumulate=True)
+    if s["block"] >= 0:  # one rank's buffer: its block's entries alone
+        keep = tab.eflat >= 0
+        flat.index_put_((tab.eflat[keep],), vals_s[keep], accumulate=True)
+    else:
+        flat.index_put_((tab.eflat,), vals_s, accumulate=True)
     flat.index_put_((tab.pad_off,), x.new_ones(tab.pad_off.numel()),
                     accumulate=True)
     return KktFill(vals, d, *_blocks(tab, flat))

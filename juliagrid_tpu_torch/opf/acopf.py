@@ -721,15 +721,21 @@ def solve(analysis: AcOptimalPowerFlow, max_iter: int = 300,
     duals. ``kkt_blocks``: the number of interior blocks of the structured
     BBD KKT (``opf/kkt_bbd.py``); ``None`` picks the JAX package's rule,
     the dense f64 KKT below ``_KKT_BBD_AUTO`` buses and ``max(8, n // 512)``
-    blocks from there; ``0`` forces the dense KKT. The JAX package's
-    ``kkt_mesh`` (the KKT sharded over a device mesh) is not ported and
-    raises."""
+    blocks from there; ``0`` forces the dense KKT. ``kkt_mesh``: a
+    ``parallel/mesh.py`` mesh with a ``block`` axis of ``kkt_blocks``
+    ranks, each of which calls ``solve`` on the same analysis; the
+    structured KKT's interior blocks then factor one a rank with the Schur
+    reduction an all-reduce (``AcKktBbd(mesh=)``), and every rank ends at
+    the same bits. Like the JAX package's, the mesh serves the structured
+    KKT only (a dense KKT runs whole on each rank). A wall-clock budget
+    would stop the ranks at different iterations, so ``max_seconds`` and
+    ``kkt_mesh`` do not go together."""
     analysis._refresh_spec()
     spec = analysis._spec
-    if kkt_mesh is not None:
-        raise NotImplementedError(
-            "a KKT solve sharded over a device mesh is not ported (ROADMAP "
-            "item 15); leave kkt_mesh unset")
+    if kkt_mesh is not None and max_seconds is not None:
+        raise ValueError("max_seconds cannot bound a solve over a mesh: "
+                         "each rank's clock would stop it at another "
+                         "iteration")
     # dual carry and the structured KKT are valid only against the same
     # constraint layout (two structural edits can keep the counts and
     # permute the rows)
@@ -742,19 +748,20 @@ def solve(analysis: AcOptimalPowerFlow, max_iter: int = 300,
     kkt = None
     if kkt_blocks:
         # keyed by the spec (held, not its id), the layout, the cost terms'
-        # structure and the block count: a numeric live edit patches the
-        # spec in place and reuses the routed structure; a structural edit
-        # changes the layout (or rebuilds the spec) and re-routes
+        # structure, the block count and the mesh: a numeric live edit
+        # patches the spec in place and reuses the routed structure; a
+        # structural edit changes the layout (or rebuilds the spec) and
+        # re-routes
         costs = tuple((key, tuple(np.asarray(idx).tolist()))
                       for key, idx in zip(spec.poly_keys, spec.poly_idx))
+        cache_key = (layout, costs, kkt_blocks, kkt_mesh)
         cache = getattr(analysis, "_kkt_cache", None)
-        if cache is not None and cache[0] is spec and \
-                cache[1] == (layout, costs, kkt_blocks):
+        if cache is not None and cache[0] is spec and cache[1] == cache_key:
             kkt = cache[2]
         else:
             from .kkt_bbd import AcKktBbd
-            kkt = AcKktBbd(spec, kkt_blocks)
-            analysis._kkt_cache = (spec, (layout, costs, kkt_blocks), kkt)
+            kkt = AcKktBbd(spec, kkt_blocks, mesh=kkt_mesh)
+            analysis._kkt_cache = (spec, cache_key, kkt)
     has_ineq = spec.m_i > 0
     problem = NlpProblem(objective=spec.objective, eq=spec.eq,
                          ineq=spec.ineq if has_ineq else None,

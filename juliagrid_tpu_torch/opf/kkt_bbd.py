@@ -31,8 +31,18 @@ the BBD power flow (``ops/bbd.py``) carries it:
 The JAX package's f32 factorizations with refinement and its f64 LDLᵀ
 endgame (``solve_f64``, ``bbd_solve_local_f64``) are TPU precision
 machinery: the port factors in f64 with partial pivoting throughout, so
-``solve`` is its one solve. The device-mesh mode (``mesh=``) is ROADMAP
-item 15 and not ported.
+``solve`` is its one solve, in the mesh mode too.
+
+The mesh mode (``mesh=``, a ``parallel/mesh.py`` mesh whose axis size is the
+block count) puts one interior block on each rank: every rank runs K7's
+value launch over the whole KKT (its inputs are replicated, and every rank
+needs every value and the equilibration), while K7's block launch fills
+that rank's block and ``a_bb`` alone (``kkt_fill_table(lay, block=)``), so
+a rank holds one block's memory; it factors its block and has K5 gather
+the block's Schur contribution; ``ops/bbd.py::bbd_solve_local_sharded``
+all-reduces the border system and the solution. The layout stays
+locality-compressed (the JAX package's mesh mode widens the border strips
+to the whole border for its ``psum``).
 """
 
 from __future__ import annotations
@@ -48,7 +58,8 @@ from ..kernels.kkt_fill import (check_route, je_groups, kkt_fill,
                                 kkt_fill_table, kkt_fill_table_tensors)
 from ..kernels.opf_fill import _flow_args, flow_row_value
 from ..kernels.schur_gather import schur_route
-from ..ops.bbd import BbdLocalArrays, bbd_solve_local
+from ..ops.bbd import (BbdLocalArrays, bbd_solve_local,
+                       bbd_solve_local_sharded)
 from ..ops.partition import nd_partition
 from ..ops.segments import segment_sum
 from ..utils.profiling import mark
@@ -62,10 +73,27 @@ class AcKktBbd:
     read from the spec's current tensors at every call. Implements the
     ``NlpProblem.kkt`` protocol: ``solve(x, y_s, z_s, sigma, delta, rhs_x,
     rhs_e, pk)`` and ``row_maxes(x)``, ``pk`` holding the interior point's
-    objective scale ``sf`` and its row scales ``ge``/``gi`` (None: 1)."""
+    objective scale ``sf`` and its row scales ``ge``/``gi`` (None: 1).
 
-    def __init__(self, spec, n_blocks: int):
+    ``mesh``: a ``parallel/mesh.py`` mesh whose ``mesh_axis`` has
+    ``n_blocks`` ranks, on the spec's device. The interior blocks then
+    fill (K7's block launch) and factor one a rank, the Schur reduction an
+    all-reduce over the mesh; every
+    rank must build the same spec and call ``solve`` with the same
+    arguments, and gets the same bits back."""
+
+    def __init__(self, spec, n_blocks: int, mesh=None,
+                 mesh_axis: str = "block"):
         t0 = time.perf_counter()
+        if mesh is not None and mesh.shape.get(mesh_axis) != n_blocks:
+            raise ValueError(
+                f"n_blocks={n_blocks} must equal mesh axis '{mesh_axis}' "
+                f"size {mesh.shape.get(mesh_axis)}")
+        if mesh is not None and mesh.device != spec.arrays.rows.device:
+            raise ValueError(f"the mesh's rank runs on {mesh.device}, the "
+                             f"spec's tensors are on "
+                             f"{spec.arrays.rows.device}")
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self.spec = spec
         n, g = spec.n, spec.g
         self.n_x, self.m_e, self.m_i = spec.n_x, spec.m_e, spec.m_i
@@ -192,17 +220,22 @@ class AcKktBbd:
         # ---- K7's tables and the solve's index tensors, on the device ----
         dev = spec.device
         self.device = dev
-        host = kkt_fill_table(self)
+        # the blocks this process fills and factors: all of them, or in the
+        # mesh mode its rank's one (K7's buffer, the solve's index tensors
+        # and K5's route alike)
+        own = slice(None) if mesh is None else slice(mesh.rank,
+                                                     mesh.rank + 1)
+        host = kkt_fill_table(self, None if mesh is None else mesh.rank)
         check_route(host, self)
         self.table = kkt_fill_table_tensors(host, self, dev)
         self._rows = torch.as_tensor(rows, device=dev)
         self._cols = torch.as_tensor(cols, device=dev)
-        self._interior_idx = torch.as_tensor(interior_idx, device=dev)
-        self._interior_mask = torch.as_tensor(interior_mask, device=dev)
+        self._interior_idx = torch.as_tensor(interior_idx[own], device=dev)
+        self._interior_mask = torch.as_tensor(interior_mask[own], device=dev)
         self._border_idx = torch.as_tensor(bdr, device=dev)
-        self._bsel = torch.as_tensor(bsel, device=dev)
-        self._bmask = torch.as_tensor(bmask, device=dev)
-        self.route = schur_route(bsel, mb, dev)
+        self._bsel = torch.as_tensor(bsel[own], device=dev)
+        self._bmask = torch.as_tensor(bmask[own], device=dev)
+        self.route = schur_route(bsel[own], mb, dev)
         #: seconds of this host build (partition, routing, K7's tables)
         self.build_s = time.perf_counter() - t0
 
@@ -369,8 +402,12 @@ class AcKktBbd:
         the interior point escalates δ."""
         vals, d, arr = self._assemble(x, y_s, z_s, sigma, delta, pk)
         rhs = torch.cat([rhs_x, rhs_e])
-        sol = d * bbd_solve_local(arr, rhs * d, check=False)
-        return self._finish(vals, rhs, sol)
+        if self.mesh is None:
+            sol = bbd_solve_local(arr, rhs * d, check=False)
+        else:
+            sol = bbd_solve_local_sharded(self.mesh, arr, rhs * d,
+                                          check=False, axis=self.mesh_axis)
+        return self._finish(vals, rhs, d * sol)
 
     def row_maxes(self, x):
         """Per-row max|J| of the raw equality and inequality Jacobians at

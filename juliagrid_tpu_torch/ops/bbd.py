@@ -23,10 +23,17 @@ only the border columns it touches) the border system is assembled by K5
 ``bbd_partition`` (BFS region growing, a copy of the JAX package's) here,
 ``partition.nd_partition`` (spectral nested dissection) beside it.
 
+Over a ``block`` mesh of ranks (``parallel/mesh.py``), ``bbd_solve_sharded``
+and ``bbd_solve_local_sharded`` give each rank one interior block: it
+factors its block and forms its Schur contribution, one all-reduce (sum)
+builds the border system on every rank, each rank solves it, and a second
+all-reduce assembles the whole solution from the ranks' back-substitutions
+(where the JAX package has ``psum`` over a ``shard_map``).
+
 Not ported here: ``bbd_solve_f64``/``bbd_solve_local_f64``, the JAX
 package's f64 unpivoted LDLᵀ endgame for its f32 factors (the AC OPF's BBD
 KKT, ``opf/kkt_bbd.py``, factors with ``bbd_solve_local``'s pivoted f64 LU
-throughout), and ``bbd_solve_sharded`` (the multi-device item 15).
+throughout).
 """
 
 from __future__ import annotations
@@ -236,6 +243,95 @@ def bbd_solve_local(arr: BbdLocalArrays, rhs, check: bool = True):
     x_i = y - _vec(z, local_border(x_b, arr.bsel, arr.bmask))
     return _write_back(rhs.shape[0], x_i, x_b, arr.interior_idx,
                        arr.interior_mask, arr.border_idx)
+
+
+def _block_rank(mesh, k: int, axis: str) -> int:
+    """This rank's block: the block count must equal the axis size."""
+    if mesh.shape.get(axis) != k:
+        raise ValueError(f"{k} blocks must equal the size of mesh axis "
+                         f"{axis!r} ({mesh.shape})")
+    return mesh.rank
+
+
+def _assemble_sharded(mesh, n, x_i, x_b, interior_idx, interior_mask,
+                      border_idx):
+    """The whole solution on every rank from this rank's interior block
+    ``x_i [1, ni]`` and the replicated border ``x_b``: the interiors summed
+    into zeros by one all-reduce (each bus gets its owner's value plus
+    zeros, so exact), then the border set."""
+    x = x_b.new_zeros(n)
+    x.index_put_((interior_idx.reshape(-1),),
+                 (x_i * interior_mask).reshape(-1), accumulate=True)
+    mesh.all_reduce(x)
+    mark("back-sub")
+    x[border_idx] = x_b
+    return x
+
+
+def bbd_solve_sharded(mesh, arr: BbdArrays, rhs, axis: str = "block"):
+    """``bbd_solve`` with the interior blocks over the ranks of ``mesh``:
+    called by every rank with the whole ``arr`` and ``rhs``, block r on
+    rank r (the block count must equal the axis size). Rank r factors its
+    block and forms ``a_bi @ z`` and ``a_bi @ y`` at the border's width;
+    one all-reduce (sum) gives every rank the Schur complement and the
+    border right-hand side, each rank solves the border system, and the
+    back-substitutions are assembled by a second all-reduce. Returns the
+    whole solution on every rank."""
+    r = _block_rank(mesh, arr.a_ii.shape[0], axis)
+    blk = slice(r, r + 1)
+    idx, msk = arr.interior_idx[blk], arr.interior_mask[blk]
+    y, z = linalg.batched_lu_solve2(arr.a_ii[blk], rhs[idx] * msk,
+                                    arr.a_ib[blk])
+    mark("Schur products")
+    m = arr.a_bb.shape[0]
+    part = torch.cat([(arr.a_bi[blk] @ z)[0].reshape(-1),
+                      _vec(arr.a_bi[blk], y)[0]])
+    mesh.all_reduce(part)
+    mark("border LU")
+    schur = arr.a_bb - part[:m * m].view(m, m)
+    rhs_b = rhs[arr.border_idx] - part[m * m:]
+    x_b = linalg.solve(linalg.factorize(schur, linalg.LU), rhs_b)
+    mark("back-sub")
+    x_i = y - z @ x_b
+    return _assemble_sharded(mesh, rhs.shape[0], x_i, x_b, idx, msk,
+                             arr.border_idx)
+
+
+def bbd_solve_local_sharded(mesh, arr: BbdLocalArrays, rhs,
+                            check: bool = True, axis: str = "block"):
+    """``bbd_solve_local`` with the interior blocks over the ranks of
+    ``mesh``: ``arr`` holds this rank's one block (``a_ii``, ``a_ib``,
+    ``a_bi``, ``bsel``, ``bmask``, ``interior_idx`` and ``interior_mask``
+    with a leading 1, block r on rank r of the axis, whose size is the
+    block count), the replicated ``a_bb`` and ``border_idx``, and as its
+    ``route`` K5's route of the one block (``schur_route(bsel[r:r + 1],
+    mb)``). Rank r factors its block, K5 gathers the block's contributions
+    into a zero border, one all-reduce (sum) adds the ranks' borders, and
+    ``a_bb`` and ``r_b`` are added once, after it; then the border solve,
+    this block's back-substitution and the solution's all-reduce, as
+    ``bbd_solve_sharded``. ``check`` as in ``bbd_solve_local``."""
+    if axis not in mesh.shape or arr.a_ii.shape[0] != 1:
+        raise ValueError(f"bbd_solve_local_sharded takes one block a rank "
+                         f"of mesh axis {axis!r} ({mesh.shape}), got "
+                         f"{arr.a_ii.shape[0]}")
+    idx, msk = arr.interior_idx, arr.interior_mask
+    r_b = rhs[arr.border_idx]
+    y, z = linalg.batched_lu_solve2(arr.a_ii, rhs[idx] * msk, arr.a_ib,
+                                    check)
+    mark("Schur products")
+    contrib, parts = arr.a_bi @ z, _vec(arr.a_bi, y)
+    mark("K5")
+    schur, rhs_part = schur_gather(arr.route, contrib, parts, scale=-1.0)
+    mb = schur.shape[0]
+    part = mesh.all_reduce(torch.cat([schur.reshape(-1), rhs_part]))
+    mark("border LU")
+    schur = arr.a_bb + part[:mb * mb].view(mb, mb)
+    x_b = linalg.solve(linalg.factorize(schur, linalg.LU, check=check),
+                       r_b + part[mb * mb:])
+    mark("back-sub")
+    x_i = y - _vec(z, local_border(x_b, arr.bsel, arr.bmask))
+    return _assemble_sharded(mesh, rhs.shape[0], x_i, x_b, idx, msk,
+                             arr.border_idx)
 
 
 class BbdFactors(NamedTuple):

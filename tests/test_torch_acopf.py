@@ -102,14 +102,25 @@ def test_case30_converges_with_fixed_q_generators(data_path):
     assert analysis._spec.fix_q
 
 
-def test_dense_kkt_only(data_path, monkeypatch):
+def test_dense_kkt_only(data_path, monkeypatch, tmp_path):
     """kkt_blocks=0 is the dense KKT only, even at the BBD size (no
-    structured KKT is built). The KKT sharded over a device mesh (item 15)
-    is not ported: asking for it raises."""
+    structured KKT is built). A KKT mesh whose axis size is not the block
+    count raises, as in the JAX package (a one-rank gloo group of this
+    process, ended before the solves)."""
+    import torch.distributed as dist
+
+    from juliagrid_tpu_torch.parallel import scenario_mesh
+
     system = jgt.power_system(str(data_path / "case14optimal.m"))
     analysis = jgt.ac_optimal_power_flow(system, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        acopf.solve(analysis, kkt_mesh=object())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = scenario_mesh(axis="block", device="cpu")
+        with pytest.raises(ValueError, match="must equal mesh axis"):
+            acopf.solve(analysis, kkt_blocks=2, kkt_mesh=mesh)
+    finally:
+        dist.destroy_process_group()
     monkeypatch.setattr(acopf, "_KKT_BBD_AUTO", 10)
     acopf.solve(analysis, kkt_blocks=0, max_iter=2)
     assert analysis.method.iteration == 2

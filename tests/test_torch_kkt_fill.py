@@ -228,6 +228,61 @@ def test_walk_matches_ref(data_path, case, cls, flat):
     assert flat_ref.numel() == blocks.size
 
 
+@pytest.mark.parametrize("case,cls", [("case14edited", 0),
+                                      ("case30test", 2)])
+def test_block_table_fills_one_block(data_path, case, cls):
+    """One rank's tables in the mesh mode (``kkt_fill_table(lay,
+    block=r)``): the route check holds; the plain version gives the whole
+    table's values and d, and in its one-block buffer block r and a_bb of
+    the whole table's blocks, bit for bit; the kernel's walk of the rank's
+    tables agrees with it to the row tolerance."""
+    _, ts = _systems(data_path, case, cls)
+    spec = acopf._AcSpec(ts, device="cpu")
+    lay = AcKktBbd(spec, 3)
+    x, y, z, sigma, sf, ge, gi = _random_iterate(spec, spec.start(ts), 5)
+    t = torch.tensor
+    args = (spec.arrays, t(x), t(y), t(z), t(sigma), 1e-6, sf, t(ge), t(gi))
+    whole = k7.kkt_fill_ref(lay.table, *args)
+    for r in range(lay.k):
+        host = k7.kkt_fill_table(lay, block=r)
+        k7.check_route(host, lay)
+        assert host["size"]["k"] == 1 and host["size"]["block"] == r
+        tab = k7.kkt_fill_table_tensors(host, lay, "cpu")
+        one = k7.kkt_fill_ref(tab, *args)
+        assert torch.equal(one.vals, whole.vals)
+        assert torch.equal(one.d, whole.d)
+        for name in ("a_ii", "a_ib", "a_bi"):
+            assert torch.equal(getattr(one, name),
+                               getattr(whole, name)[r:r + 1]), name
+        assert torch.equal(one.a_bb, whole.a_bb)
+        _, _, blocks = _walk(host, spec, x, y, z, sigma, 1e-6, sf, ge, gi)
+        for got, want in zip(k7._blocks(tab, torch.tensor(blocks)),
+                             (one.a_ii, one.a_ib, one.a_bi, one.a_bb)):
+            want = want.numpy()
+            _close_rows(got.numpy(), want,
+                        np.abs(want).max(axis=-1, keepdims=True))
+    with pytest.raises(ValueError, match="not one of"):
+        k7.kkt_fill_table(lay, block=lay.k)
+
+
+def test_check_route_refuses_a_foreign_block_entry(data_path):
+    """A rank's tables that list another block's entry, or drop one of
+    their own, fail the route check."""
+    spec = acopf._AcSpec(jgt.power_system(str(data_path / "case30test.m")),
+                         device="cpu")
+    lay = AcKktBbd(spec, 3)
+    good = k7.kkt_fill_table(lay, block=1)
+    k7.check_route(good, lay)
+    foreign = lay.ii[0][lay.ii[1] == 0][0]
+    own = lay.ii[0][lay.ii[1] == 1][0]
+    for pos, value in ((foreign, 0), (own, -1)):
+        tab = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+               for k, v in good.items()}
+        tab["eflat"][pos] = value
+        with pytest.raises(ValueError, match="blocks' entries"):
+            k7.check_route(tab, lay)
+
+
 def test_cross_interior_entry_is_zero_and_no_max(data_path):
     """An entry marked cross-interior (erow -1: a structural zero between
     two interiors) comes out 0.0 and takes no part in its row's maximum,
