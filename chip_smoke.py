@@ -5,10 +5,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels K1 (``nr_fill``), K3 (``se_fill``), K4
-(``gs_sweep``), K5 (``schur_gather``), K6 (``opf_fill``) and K7
-(``kkt_fill``) from the sources in the checkout and holds each against its
-plain PyTorch version;
+It builds the port's CUDA kernels K1 (``nr_fill``), K2 (``fleet_solve``),
+K3 (``se_fill``), K4 (``gs_sweep``), K5 (``schur_gather``), K6
+(``opf_fill``) and K7 (``kkt_fill``) from the sources in the checkout and
+holds each against its plain PyTorch version;
 each K3, K5 and K6 call (phases 5, 13, 15, 17) is captured once in a CUDA
 graph to show that it puts one kernel and no memset or memcpy on the card,
 and is timed with its device time alone (queued behind a sleep kernel) and
@@ -17,7 +17,15 @@ drives the
 Newton-Raphson main path — ``power_system`` -> ``newton_raphson`` ->
 ``power_flow`` — on a 10,000-bus grid, checked against the independent
 scipy oracle, a 1024-scenario case118 fleet and a case14 fleet with one
-singular scenario (phases 1-4).
+singular scenario (phases 1-4). Phase 4 also holds K2's LU mode against
+its plain version on K1's Jacobians of case14, case30 and case118 at 1, 8
+and 1,024 scenarios, on random order-256 inputs and on the singular fleet
+(equal ``info``), times it beside the library route it replaced and one
+``torch.linalg.solve_ex``, and splits the NR fleet's lockstep iteration
+(K1, the solve, the update, the readback) for K2 and for the library
+route (``library_route``); phase 7 does the same for K2's Cholesky mode on
+the SE gains and the SE fleet. No solve of the main paths may reach K2's
+plain version (``k2_plain_barred``).
 Then the Gauss-Newton WLS state-estimation path
 — ``measurement`` + ``add_*`` -> ``gauss_newton`` -> ``state_estimation`` —
 on a 1,369-bus grid against the scipy oracle and on case14/30 with every row
@@ -122,12 +130,14 @@ machine has no h5py).
 The last lines are each phase's wall time and the whole run's, the card's
 ``nvidia-smi`` name and power limit
 and a JSON object with each kernel's launches on the main paths, error
-against its plain version, times and least possible time; the last line is
+against its plain version (``max_abs_err``, and ``rel_err`` in the measure
+its gate uses), times and least possible time; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import subprocess
@@ -186,6 +196,7 @@ from juliagrid_tpu_torch.estimation.pmuse import (_pmuse_host,
 from juliagrid_tpu_torch.entry import entry
 from juliagrid_tpu_torch.measurement import devices as meter_devices
 from juliagrid_tpu_torch.estimation.takahashi import projection_diag_sparse
+from juliagrid_tpu_torch.kernels import fleet_solve as k2
 from juliagrid_tpu_torch.kernels import gs_sweep as k4
 from juliagrid_tpu_torch.kernels import kkt_fill as k7
 from juliagrid_tpu_torch.kernels import nr_fill as k1
@@ -205,8 +216,9 @@ from juliagrid_tpu_torch.oracle import (oracle_dc, oracle_fdpf, oracle_nr,
 from juliagrid_tpu_torch.parallel import (batched_dc_solve, batched_nr_solve,
                                           batched_se_solve, launch,
                                           sharded_nr_solve, sharded_se_solve)
-from juliagrid_tpu_torch.powerflow.ac import (_max_mismatch, _nr_solve,
-                                              _nr_update, compile_ac_arrays)
+from juliagrid_tpu_torch.powerflow.ac import (_masks, _max_mismatch,
+                                              _nr_solve, _nr_update,
+                                              compile_ac_arrays)
 from juliagrid_tpu_torch.powerflow.dc import _dc_solve
 from juliagrid_tpu_torch.postprocessing import ac as ac_post
 from juliagrid_tpu_torch.powerflow.fast_decoupled import (
@@ -335,6 +347,11 @@ RESIDUAL_TABLE_TOL = 1e-12
 #: above tells a right column from one of zeros
 NOISY_RESIDUAL_MIN = 1e-6
 #: published peaks of the card (NVIDIA data sheet, H100 SXM, 700 W)
+K2_X_TOL = 1e-11           # K2's x vs its plain version, of the scenario's max|x|
+K2_BACKWARD_TOL = 1e-14    # ||A x - b||inf / (||A||inf ||x||inf), every scenario
+K2_FACTOR_TOL = 1e-10      # K2's LU factors vs getrf's, of the scenario's max
+K2_BATCHES = (1, 8, 1024)  # K2's checks at case14, case30 and case118
+K2_CAP_SEED = 14           # the random order-256 inputs of K2's checks
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 67e12
 #: f64 operations of each kernel, estimated from its source (a sine or
@@ -362,6 +379,15 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+#: each kernel's worst relative error against its plain version, in the
+#: measure its gate uses (``note_rel``), for the kernels line
+REL_ERR = {}
+
+
+def note_rel(name, rel):
+    REL_ERR[name] = max(REL_ERR.get(name, 0.0), float(rel))
 
 
 def cuda_ms(fn, reps):
@@ -502,6 +528,7 @@ def compare_k1(label, arr, inputs):
         del diff
     check(worst_rel <= K1_REL_TOL,
           f"{label}: K1 disagrees with nr_fill_ref, rel {worst_rel:.3e}")
+    note_rel("nr_fill", worst_rel)
     check(torch.equal(got.jac != 0, ref.jac != 0),
           f"{label}: K1 Jacobian pattern differs from nr_fill_ref")
     b, n = inputs[0].shape
@@ -574,14 +601,14 @@ def phase0():
     card = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(max_workers=6) as pool:
-        for build in [pool.submit(k._library)
-                      for k in (k1, k3, k4, k5, k6, k7)]:
+    kernels = (k1, k2, k3, k4, k5, k6, k7)
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        for build in [pool.submit(k._library) for k in kernels]:
             build.result()
     build_s = time.perf_counter() - t0
     print(f"phase 0 device: {torch.cuda.get_device_name(0)} ({card}), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"K1, K3, K4, K5, K6 and K7 build+load {build_s!r} s")
+          f"K1-K7 build+load {build_s!r} s")
     return card
 
 
@@ -691,11 +718,248 @@ def nr_fleet_inputs():
                  arr.p_sched[None] * scale, arr.q_sched[None] * scale)
 
 
+# ---- K2: the fleets' dense solves --------------------------------------------
+
+def k2_pair(chol):
+    """K2's wrapper and its plain version in one mode."""
+    if chol:
+        return k2.fleet_cholesky_solve, k2.fleet_cholesky_solve_ref
+    return k2.fleet_lu_solve, k2.fleet_lu_solve_ref
+
+
+def k2_name(chol):
+    return "fleet_cholesky_solve" if chol else "fleet_lu_solve"
+
+
+@contextlib.contextmanager
+def k2_plain_barred():
+    """While active, a CUDA tensor that reaches K2's plain versions fails
+    the run: the main path must launch K2 for every solve it sends K2."""
+    saved = k2.fleet_lu_solve_ref, k2.fleet_cholesky_solve_ref
+
+    def barred(fn):
+        def guard(a, *args, **kw):
+            check(a.device.type != "cuda",
+                  f"{fn.__name__} got a CUDA tensor on the main path")
+            return fn(a, *args, **kw)
+        return guard
+
+    k2.fleet_lu_solve_ref, k2.fleet_cholesky_solve_ref = map(barred, saved)
+    try:
+        yield
+    finally:
+        k2.fleet_lu_solve_ref, k2.fleet_cholesky_solve_ref = saved
+
+
+@contextlib.contextmanager
+def library_route():
+    """While active, the call sites' K2 solves go to K2's plain versions,
+    the library route they took before K2 (``lu_factor_ex`` + ``lu_solve``,
+    ``cholesky_ex`` + ``cholesky_solve``): the yardstick of phases 4 and 7,
+    never the main path."""
+    saved = k2.fleet_lu_solve, k2.fleet_cholesky_solve
+    k2.fleet_lu_solve = k2.fleet_lu_solve_ref
+    k2.fleet_cholesky_solve = k2.fleet_cholesky_solve_ref
+    try:
+        yield
+    finally:
+        k2.fleet_lu_solve, k2.fleet_cholesky_solve = saved
+
+
+def backward_error(a, x, b):
+    """Each scenario's ||A x - b||inf / (||A||inf ||x||inf)."""
+    r = (a @ x[..., None])[..., 0] - b
+    return r.abs().amax(-1) / (a.abs().sum(-1).amax(-1)
+                               * x.abs().amax(-1))
+
+
+def same_bits_of(x, y):
+    return torch.equal(x.view(torch.int64), y.view(torch.int64))
+
+
+def compare_k2(label, chol, a, b, phase):
+    """K2 against its plain version on the same inputs: equal info; where
+    both factor, x within K2_X_TOL of the scenario's max|x| and a backward
+    error within K2_BACKWARD_TOL; two launches the same bits; the LU's
+    pivots, written, equal to getrf's and its factors within K2_FACTOR_TOL
+    of the scenario's largest. Returns the worst abs and relative x
+    differences."""
+    solve, plain = k2_pair(chol)
+    x, info = solve(a, b)
+    again, _ = solve(a, b)
+    ref, rinfo = plain(a, b)
+    extra = ""
+    if not chol:
+        lu, rlu = torch.empty_like(a), torch.empty_like(a)
+        piv = torch.empty(a.shape[:2], dtype=torch.int32, device=a.device)
+        rpiv = torch.empty_like(piv)
+        solve(a, b, lu=lu, piv=piv)
+        plain(a, b, lu=rlu, piv=rpiv)
+    torch.cuda.synchronize()
+    check(torch.equal(info, rinfo), f"{label}: K2's info "
+          f"{info.tolist()[:8]} against {rinfo.tolist()[:8]}")
+    check(same_bits_of(x, again), f"{label}: two K2 launches differ")
+    good = info == 0
+    worst_abs = worst_rel = worst_bwd = 0.0
+    if good.any():
+        diff = (x[good] - ref[good]).abs()
+        worst_abs = diff.max().item()
+        worst_rel = (diff.amax(-1) / ref[good].abs().amax(-1)).max().item()
+        worst_bwd = backward_error(a[good], x[good], b[good]).max().item()
+    check(worst_rel <= K2_X_TOL and worst_bwd <= K2_BACKWARD_TOL,
+          f"{label}: K2's x {worst_rel:.3e} of max|x| off its plain "
+          f"version, backward error {worst_bwd:.3e}")
+    if not chol:
+        check(torch.equal(piv[good], rpiv[good]), f"{label}: K2's pivots "
+              "differ from getrf's")
+        if good.any():
+            ferr = ((lu[good] - rlu[good]).abs().amax((-2, -1))
+                    / rlu[good].abs().amax((-2, -1))).max().item()
+            check(ferr <= K2_FACTOR_TOL,
+                  f"{label}: K2's factors {ferr:.3e} off getrf's")
+            extra = f", pivots equal, factors {ferr!r} of their scale"
+        del lu, rlu
+    note_rel(k2_name(chol), worst_rel)
+    print(f"phase {phase} K2 {'Cholesky' if chol else 'LU'} {label} "
+          f"B={a.shape[0]} N={a.shape[1]}: info equal "
+          f"({int((~good).sum())} not factored), max abs diff "
+          f"{worst_abs!r}, max rel diff {worst_rel!r} of max|x|, backward "
+          f"error {worst_bwd!r}, two launches the same bits{extra}")
+    return worst_abs, worst_rel
+
+
+def k2_bound(chol, a):
+    """K2's least time: A and b read once, x and info written once, or
+    the factorization's operations (LU 2N³/3, Cholesky N³/3) and the two
+    triangular solves' 2N² over the f64 peak."""
+    batch, n = a.shape[:2]
+    nbytes = batch * (8 * (n * n + 2 * n) + 4)
+    flops = batch * ((n ** 3 / 3 if chol else 2 * n ** 3 / 3) + 2 * n * n)
+    return bound(nbytes, flops)
+
+
+def k2_times(label, chol, a, b, phase, reps=10):
+    """K2's ms beside its plain version (the library route of two calls)
+    and one library call computing the same x (``torch.linalg.solve_ex``),
+    in turns, and K2's device ms alone (``queued_ms``); ``(ms, plain_ms,
+    bound), library_ms``."""
+    solve, plain = k2_pair(chol)
+    ms = cuda_ms(lambda: solve(a, b), reps)
+    plain_ms = cuda_ms(lambda: plain(a, b), reps)
+    library_ms = cuda_ms(lambda: torch.linalg.solve_ex(a, b), reps)
+    ms = min(ms, cuda_ms(lambda: solve(a, b), reps))
+    device_ms = queued_ms(lambda: solve(a, b), reps)
+    least = k2_bound(chol, a)
+    n = a.shape[1]
+    print(f"phase {phase} K2 {'Cholesky' if chol else 'LU'} {label} "
+          f"B={a.shape[0]} N={n} (a {k2.fleet_plan(n).cluster}-block "
+          f"cluster, {k2.active_clusters(n, None, chol)} clusters at "
+          f"once): K2 {ms!r} ms (device {device_ms!r} ms), plain (library "
+          f"route) {plain_ms!r} ms, torch.linalg.solve_ex {library_ms!r} "
+          f"ms; bound {least[0]!r} ms by {least[1]} "
+          f"({100 * least[0] / ms!r}%)")
+    return (ms, plain_ms, least), library_ms
+
+
+def k2_random(n, batch, chol, seed):
+    """Random order-``n`` inputs from a seeded generator on the card: for
+    the LU ``2 I + N(0, 1/n)`` with its rows shuffled (every column
+    pivots), for the Cholesky ``m mᵀ / n + I``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    m = torch.randn(batch, n, n, dtype=torch.float64, device="cuda",
+                    generator=gen)
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")
+    if chol:
+        a = m @ m.mT / n + eye
+    else:
+        perm = torch.rand(batch, n, device="cuda", generator=gen).argsort(-1)
+        a = (m / n ** 0.5 + 2 * eye).gather(
+            1, perm[..., None].expand(-1, -1, n))
+    b = torch.randn(batch, n, dtype=torch.float64, device="cuda",
+                    generator=gen)
+    return a.contiguous(), b
+
+
+def k2_nr_inputs(case, batch, rng):
+    """NR Jacobians and mismatches of ``case`` from K1 at ``batch`` random
+    states (``random_inputs``)."""
+    system = case_system(case)
+    arr = compile_ac_arrays(system, "cuda")
+    res = k1.nr_fill(arr, *random_inputs(arr, system.bus.number, batch,
+                                         rng), jacobian=True)
+    return res.jac, torch.cat([res.mp, res.mq], -1)
+
+
+def k2_lu_checks():
+    """Phase 4: K2's LU mode against its plain version on K1's Jacobians
+    of case14, case30 and case118 at K2_BATCHES scenarios and on random
+    order-256 inputs, timed at case118 x1024, case14 x4 and on the random
+    inputs."""
+    rng = np.random.default_rng(SEED)
+    err = 0.0
+    for case in ("case14test", "case30test", "case118"):
+        for batch in K2_BATCHES:
+            a, b = k2_nr_inputs(case, batch, rng)
+            err = max(err, compare_k2(case, False, a, b, 4)[0])
+    times = k2_times("case118", False, a, b, 4)
+    k2_times("case14test", False, *k2_nr_inputs("case14test", 4, rng), 4)
+    a, b = k2_random(k2.CAP, FLEET, False, K2_CAP_SEED)
+    err = max(err, compare_k2("random", False, a, b, 4)[0])
+    k2_times("random", False, a, b, 4)
+    return err, times
+
+
+def fleet_nr_split(arr, inputs, solve):
+    """``batched_nr_solve``'s loop built from its pieces with ``solve`` for
+    the step's solves (K2 or the library route), CUDA events around K1,
+    the solve, the state update and the readback. Returns the lockstep
+    iterations and the split's ms per iteration."""
+    vm, va, ps, qs = inputs
+    n = vm.shape[1]
+    not_slack, is_pq = _masks(arr, n)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    split = dict.fromkeys(("K1", "solve", "update", "readback"), 0.0)
+    res = k1.nr_fill(arr, vm, va, ps, qs, jacobian=True)
+    dpq = _max_mismatch(res)
+    active = ~((dpq[:, 0] < TOL) & (dpq[:, 1] < TOL))
+    go = bool(active.any())
+    it = 0
+    while it < 20 and go:
+        ev[0].record()
+        dx, _ = solve(res.jac, torch.cat([res.mp, res.mq], -1))
+        ev[1].record()
+        vm = torch.where(active[:, None],
+                         vm - torch.where(is_pq, dx[:, n:], 0.0), vm)
+        va = torch.where(active[:, None],
+                         va - torch.where(not_slack, dx[:, :n], 0.0), va)
+        ev[2].record()
+        res = k1.nr_fill(arr, vm, va, ps, qs, jacobian=True)
+        ev[3].record()
+        dpq = _max_mismatch(res)
+        active &= ~((dpq[:, 0] < TOL) & (dpq[:, 1] < TOL))
+        go = bool(active.any())
+        ev[4].record()
+        torch.cuda.synchronize()
+        for key, i in (("solve", 0), ("update", 1), ("K1", 2),
+                       ("readback", 3)):
+            split[key] += ev[i].elapsed_time(ev[i + 1])
+        it += 1
+    return it, {k: v / max(it, 1) for k, v in split.items()}
+
+
 def phase4():
     arr, inputs = nr_fleet_inputs()
-    batched_nr_solve(arr, *inputs)      # warm-up: cuSOLVER's batched setup
+    batched_nr_solve(arr, *inputs)      # warm-up
+    k2_err, k2_times_ = k2_lu_checks()
     runs = []
-    for fill in (k1.nr_fill, k1.nr_fill_ref, k1.nr_fill_ref, k1.nr_fill):
+    k2.fleet_lu_solve.launches = 0
+    with k2_plain_barred():
+        seconds, out = wall_s(lambda: batched_nr_solve(arr, *inputs))
+    launches = k2.fleet_lu_solve.launches
+    check(launches > 0, "fleet: the NR fleet launched no K2")
+    runs.append((True, seconds, out))
+    for fill in (k1.nr_fill_ref, k1.nr_fill_ref, k1.nr_fill):
         seconds, out = wall_s(lambda: batched_nr_solve(arr, *inputs,
                                                        fill=fill))
         runs.append((fill is k1.nr_fill, seconds, out))
@@ -711,11 +975,36 @@ def phase4():
     total = int(ker[2].sum())
     rates = [(("K1" if is_k1 else "nr_fill_ref"), total / s)
              for is_k1, s, _ in runs]
+    routes = []
+    for library in (False, True, True, False):
+        with library_route() if library else contextlib.nullcontext():
+            seconds, out = wall_s(lambda: batched_nr_solve(arr, *inputs))
+        check(torch.equal(out[2], ker[2]), "fleet: the library route "
+              "takes other iteration counts")
+        routes.append(("library" if library else "K2", total / seconds))
+        if library:
+            lib = out
+    dlib = max((lib[0] - ker[0]).abs().max().item(),
+               (lib[1] - ker[1]).abs().max().item())
+    check(dlib <= TWIN_STATE_TOL, f"fleet: the library route's state "
+          f"differs by {dlib:.3e}")
     print(f"phase 4 case118 fleet x{FLEET}: all converged, "
           f"{total} NR iterations (max {int(ker[2].max())}), state vs "
-          f"nr_fill_ref {dstate!r}; NR iterations/s "
-          + ", ".join(f"{name} {rate!r}" for name, rate in rates))
-    singular_fleet()
+          f"nr_fill_ref {dstate!r}, vs the library route {dlib!r}; K2 "
+          f"launches {launches}; NR iterations/s "
+          + ", ".join(f"{name} {rate!r}" for name, rate in rates)
+          + "; by the step's solve (K1 fill) "
+          + ", ".join(f"{name} {rate!r}" for name, rate in routes))
+    for name, solve in (("K2", k2.fleet_lu_solve),
+                        ("library", k2.fleet_lu_solve_ref)):
+        fleet_nr_split(arr, inputs, solve)
+        it, split = fleet_nr_split(arr, inputs, solve)
+        print(f"phase 4 case118 fleet x{FLEET} per lockstep iteration "
+              f"({name} solve, {it} iterations, CUDA events): "
+              + ", ".join(f"{k} {v!r} ms" for k, v in split.items())
+              + f"; sum {sum(split.values())!r} ms")
+    launches += singular_fleet()
+    return launches, k2_err, k2_times_
 
 
 def singular_fleet():
@@ -729,9 +1018,21 @@ def singular_fleet():
         arr = analysis.arrays
         vm, va = (x.expand(4, -1).clone() for x in analysis._state())
         vm[1] = 0.0
-        runs.append(batched_nr_solve(arr, vm, va,
-                                     arr.p_sched.expand(4, -1).contiguous(),
-                                     arr.q_sched.expand(4, -1).contiguous()))
+        ps = arr.p_sched.expand(4, -1).contiguous()
+        qs = arr.q_sched.expand(4, -1).contiguous()
+        if device == "cuda":
+            res = k1.nr_fill(arr, vm, va, ps, qs, jacobian=True)
+            a, b = res.jac, torch.cat([res.mp, res.mq], -1)
+            compare_k2("case14 x4, scenario 1 singular", False, a, b, 4)
+            info = k2.fleet_lu_solve(a, b)[1].tolist()
+            check(info[1] != 0 and info[0] == info[2] == info[3] == 0,
+                  f"singular fleet: K2's info {info}")
+            k2.fleet_lu_solve.launches = 0
+            with k2_plain_barred():
+                runs.append(batched_nr_solve(arr, vm, va, ps, qs))
+            launches = k2.fleet_lu_solve.launches
+        else:
+            runs.append(batched_nr_solve(arr, vm, va, ps, qs))
     (vm, va, iters, conv), cpu = runs
     counts, flags = SINGULAR_FLEET
     check(iters.tolist() == counts and conv.tolist() == flags,
@@ -743,7 +1044,9 @@ def singular_fleet():
     check(dstate <= CARD_CPU_TOL, f"singular fleet: {dstate:.3e} off the CPU")
     print(f"phase 4 case14 x4 with a singular scenario: iterations "
           f"{iters.tolist()}, converged {conv.tolist()} (JAX {counts}, "
-          f"{flags}), good states vs the CPU run {dstate!r}")
+          f"{flags}), good states vs the CPU run {dstate!r}; K2's info at "
+          f"the start {info}, K2 launches {launches}")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -849,6 +1152,7 @@ def compare_k3(label, arr, net, vm, va, mean):
     check(worst_rel <= K3_REL_TOL,
           f"{label}: K3 disagrees with se_fill_ref, rel {worst_rel:.3e} "
           f"at {where}")
+    note_rel("se_fill", worst_rel)
     check(pattern, f"{label}: K3 Jacobian pattern differs from se_fill_ref")
     lean = k3.se_fill(arr, net, vm, va, mean, jacobian=False)
     check(torch.equal(lean.h, got.h) and torch.equal(lean.r, got.r),
@@ -1030,9 +1334,42 @@ def phase6():
     return launches, main_se, main_mon
 
 
+def k2_se_inputs(case, batch, rng):
+    """Gains and right-hand sides ``(W½H)ᵀ(W½H)``, ``HᵀW r`` of ``case``'s
+    phase-7 measurement set (``scada_pmu``) from K3 at ``batch`` random
+    states and means (``k3_inputs``)."""
+    system = case_system(case)
+    mon, pf = scada_pmu(system)
+    arr, net, _, state = k3_inputs(system, mon, pf, batch, rng)
+    return _normal_equations(arr, k3.se_fill(arr, net, *state))
+
+
+def k2_cholesky_checks():
+    """Phase 7: K2's Cholesky mode against its plain version on the SE
+    gains of case14, case30 and case118 at K2_BATCHES scenarios and on
+    random order-256 inputs, timed at case118 x1024, case14 x4 and on the
+    random inputs."""
+    rng = np.random.default_rng(SEED)
+    err = 0.0
+    for case in ("case14test", "case30test", "case118"):
+        for batch in K2_BATCHES:
+            a, b = k2_se_inputs(case, batch, rng)
+            err = max(err, compare_k2(case, True, a, b, 7)[0])
+    times = k2_times("case118", True, a, b, 7)
+    k2_times("case14test", True, *k2_se_inputs("case14test", 4, rng), 7)
+    a, b = k2_random(k2.CAP, SE_FLEET, True, K2_CAP_SEED)
+    err = max(err, compare_k2("random", True, a, b, 7)[0])
+    k2_times("random", True, a, b, 7)
+    return err, times
+
+
 def fleet_runs(label, arr, net, vm0, va0, means, chunk):
     """Phase 7: warm-up, then K3, se_fill_ref, se_fill_ref, K3 over all
-    chunks; checks, and prints the split of one increment and the rates."""
+    chunks (the first run the main path: its K2 launches are counted and
+    no solve may reach K2's plain version); where the gain's order is
+    within K2's cap, K2 against the library route (K2, library, library,
+    K2, each with K3); checks, and prints the split of one increment and
+    the rates. Returns the main path's K2 launches."""
     def run(fill):
         out = []
         for k in range(0, means.shape[0], chunk):
@@ -1046,7 +1383,12 @@ def fleet_runs(label, arr, net, vm0, va0, means, chunk):
     run(k3.se_fill)
     run(k3.se_fill_ref)
     runs = []
-    for fill in (k3.se_fill, k3.se_fill_ref, k3.se_fill_ref, k3.se_fill):
+    k2.fleet_cholesky_solve.launches = 0
+    with k2_plain_barred():
+        seconds, out = wall_s(lambda: run(k3.se_fill))
+    launches = k2.fleet_cholesky_solve.launches
+    runs.append(("K3", seconds, out))
+    for fill in (k3.se_fill_ref, k3.se_fill_ref, k3.se_fill):
         seconds, out = wall_s(lambda: run(fill))
         runs.append(("K3" if fill is k3.se_fill else "se_fill_ref", seconds,
                      out))
@@ -1065,10 +1407,36 @@ def fleet_runs(label, arr, net, vm0, va0, means, chunk):
     # lockstep increments per run: each chunk runs max(iterations) + 1
     steps = sum(int(it.max()) + 1 for it in ker[2].split(chunk))
     wall_ms = 1e3 * min(seconds for _, seconds, _ in runs[::3]) / steps
+    solver = (f"K2 ({launches} launches)" if launches
+              else "torch.linalg (order above K2's cap)")
     print(f"phase 7 {label} one lockstep increment of a chunk (CUDA "
-          "events): " + ", ".join(f"{k} {v!r} ms" for k, v in split.items())
+          f"events; {solver}): "
+          + ", ".join(f"{k} {v!r} ms" for k, v in split.items())
           + f"; K3 run wall per increment {wall_ms!r} ms over {steps} "
           "increments")
+    if launches:
+        routes = []
+        for library in (False, True, True, False):
+            with library_route() if library else contextlib.nullcontext():
+                seconds, out = wall_s(lambda: run(k3.se_fill))
+            check(torch.equal(out[2], ker[2]) and torch.equal(out[3],
+                                                               ker[3]),
+                  f"{label}: the library route takes other counts")
+            routes.append(("library" if library else "K2", seconds))
+            if library:
+                lib = out
+        dlib = max((lib[0] - ker[0]).abs().max().item(),
+                   (lib[1] - ker[1]).abs().max().item())
+        check(dlib <= TWIN_STATE_TOL,
+              f"{label}: the library route's state differs by {dlib:.3e}")
+        with library_route():
+            lsplit = fleet_split(arr, net, vm0, va0, means[:chunk])
+        print(f"phase 7 {label} the library route (cholesky_ex + "
+              f"cholesky_solve), one lockstep increment (CUDA events): "
+              + ", ".join(f"{k} {v!r} ms" for k, v in lsplit.items())
+              + f"; state vs K2's {dlib!r}; GN iterations/s by the "
+              "increment's solve (K3 fill) "
+              + ", ".join(f"{name} {total / sec!r}" for name, sec in routes))
     print(f"phase 7 {label} x{nscen} (chunks of {chunk}): all converged, "
           f"{total} GN iterations (max {int(ker[2].max())}), state vs "
           f"se_fill_ref {dstate!r}; peak device memory {peak_gb!r} GB; "
@@ -1076,6 +1444,7 @@ def fleet_runs(label, arr, net, vm0, va0, means, chunk):
                                       for name, s, _ in runs)
           + "; GN iterations/s " + ", ".join(f"{name} {total / s!r}"
                                              for name, s, _ in runs))
+    return launches
 
 
 def fleet_split(arr, net, vm, va, mean):
@@ -1114,13 +1483,17 @@ def fleet_inputs(system, nscen, chunk):
 
 
 def phase7():
+    k2_err, k2_times_ = k2_cholesky_checks()
     system = power_system(str(DATA / "case118.m"))
-    fleet_runs("case118 SE fleet", *fleet_inputs(system, SE_FLEET, SE_FLEET),
-               chunk=SE_FLEET)
+    launches = fleet_runs("case118 SE fleet",
+                          *fleet_inputs(system, SE_FLEET, SE_FLEET),
+                          chunk=SE_FLEET)
+    check(launches > 0, "case118 SE fleet: launched no K2")
     system = synthetic_grid(*SE_GRID)
     fleet_runs(f"{SE_GRID[0]}x{SE_GRID[1]} SE fleet",
                *fleet_inputs(system, SE_CHUNK * SE_CHUNKS, SE_CHUNK),
                chunk=SE_CHUNK)
+    return launches, k2_err, k2_times_
 
 
 # --------------------------------------------------------------------------
@@ -1216,6 +1589,7 @@ def compare_k4(label, arr, rng):
                                    (ref.vre, ref.vim, ref.mismatch))
     check(worst_rel <= K4_REL_TOL,
           f"{label}: K4 disagrees with gs_sweep_ref, rel {worst_rel:.3e}")
+    note_rel("gs_sweep", worst_rel)
     check(got.info[2:].tolist() == [1.0, 0.0],
           f"{label}: K4 reports {got.info[2:].tolist()} for one sweep")
     # a one-sweep launch reads the table three times: the mismatch, the
@@ -1809,9 +2183,13 @@ def phase12():
     _, mon, want = config4()
     se = gauss_newton(mon, device="cuda")
     k3.se_fill.launches = 0
-    t_lnr, labels = wall_s(lambda: lnr_removal(se, THRESHOLD, 10))
+    k2.fleet_cholesky_solve.launches = 0
+    with k2_plain_barred():
+        t_lnr, labels = wall_s(lambda: lnr_removal(se, THRESHOLD, 10))
     launches += k3.se_fill.launches
-    check(k3.se_fill.launches > 0, "config 4: lnr_removal launched no K3")
+    k2_launches = k2.fleet_cholesky_solve.launches
+    check(k3.se_fill.launches > 0 and k2_launches > 0,
+          "config 4: lnr_removal launched no K3 or no K2")
     _, mon_a, _ = config4()
     se_a = gauss_newton(mon_a, device="cuda")
     k3.se_fill.launches = 0
@@ -1833,8 +2211,9 @@ def phase12():
     print(f"phase 12 config 4 (case118, wattmeters 3 and 40 planted): "
           f"lnr_removal, the stepwise loop and the scipy loop removed "
           f"{labels}; state vs stepwise {dstate!r}; wall: lnr_removal "
-          f"{t_lnr!r} s, stepwise {t_step!r} s, scipy {t_scipy!r} s; per "
-          "round (CUDA events, solve / detect ms): "
+          f"{t_lnr!r} s, stepwise {t_step!r} s, scipy {t_scipy!r} s; K2 "
+          f"launches {k2_launches}; per round (CUDA events, solve / detect "
+          "ms): "
           + ", ".join(f"{s!r} / {d!r}" for s, d in rounds))
 
     # the 1,369-bus set of phase 6 with three planted wattmeter errors
@@ -1882,7 +2261,7 @@ def phase12():
           f"{dense.max_normalized_residual!r} / "
           f"{sparse.max_normalized_residual!r}; lnr_removal removed "
           f"{labels} in {t_lnr!r} s; K3 launches {launches}")
-    return launches
+    return launches, k2_launches
 
 
 # --------------------------------------------------------------------------
@@ -1914,6 +2293,7 @@ def compare_k1_routed(label, arr, rng):
     check(worst_rel <= K1_REL_TOL,
           f"{label}: K1 routed disagrees with its plain version, rel "
           f"{worst_rel:.3e}")
+    note_rel("nr_fill_routed", worst_rel)
     check(torch.equal(got.buf != 0, ref.buf != 0),
           f"{label}: K1 routed pattern differs from its plain version")
     least = bound(tensor_bytes(net.row_ptr, net.cols, net.yg, net.yb,
@@ -1978,6 +2358,7 @@ def compare_k5(label, route, base=True, phase=13, sign=None):
     worst_abs, worst_rel = rel_err(got, ref)
     check(worst_rel <= K5_REL_TOL,
           f"{label}: K5 disagrees with schur_gather_ref, rel {worst_rel:.3e}")
+    note_rel("schur_gather", worst_rel)
     check(all(torch.equal(a, b) for a, b in zip(got, lists)),
           f"{label}: K5 is not bit for bit schur_gather_lists, max abs diff "
           f"{rel_err(got, lists)[0]!r}")
@@ -2171,6 +2552,7 @@ def compare_k3_routed(label, sb, lay, vm, va):
     check(worst_rel <= K3_REL_TOL,
           f"{label}: K3 routed disagrees with its plain version, rel "
           f"{worst_rel:.3e}")
+    note_rel("se_fill_routed", worst_rel)
     check(torch.equal(got.jac != 0, ref.jac != 0),
           f"{label}: K3 routed pattern differs from its plain version")
     net = sb.net
@@ -2762,6 +3144,7 @@ def compare_k6(label, arr, points):
     check(worst_rel <= K6_REL_TOL,
           f"{label}: K6 disagrees with opf_fill_ref, rel {worst_rel:.3e} of "
           f"the row at {where}")
+    note_rel("opf_fill", worst_rel)
     return worst_abs, worst_rel, worst_entry
 
 
@@ -3154,6 +3537,7 @@ def compare_k7(label, kkt, point, table=None):
     check(worst_rel <= K7_REL_TOL,
           f"{label}: K7 disagrees with kkt_fill_ref, rel {worst_rel:.3e} of "
           f"the row at {where}")
+    note_rel("kkt_fill", worst_rel)
     return worst_abs, worst_rel
 
 
@@ -3746,7 +4130,8 @@ def phase19(nr, se, se_mon, dc_10k, pegase):
 # ---- phase 20: the mesh path, ranks that share the card ---------------------
 
 #: the kernels a rank of phase 20 counts
-MESH_KERNELS = {"K1": k1.nr_fill, "K3": k3.se_fill,
+MESH_KERNELS = {"K1": k1.nr_fill, "K2": k2.fleet_lu_solve,
+                "K2c": k2.fleet_cholesky_solve, "K3": k3.se_fill,
                 "K5": k5.schur_gather, "K7": k7.kkt_fill}
 
 
@@ -3949,8 +4334,9 @@ def phase20(ranks=MESH_RANKS):
     plain versions at the shapes the ranks give them (``mesh_kernels``).
     Every rank's results must have the same bits. Prints the walls, the
     all-reduce stage's ms an iteration and each rank's peak memory, all
-    of ranks that share one card. Returns the ranks' K1, K3, K5 and K7
-    launches and the worst K7 and K5 abs errors."""
+    of ranks that share one card. Returns the ranks' K1, K2 (LU, "K2";
+    Cholesky, "K2c"), K3, K5 and K7 launches and the worst K7 and K5 abs
+    errors."""
     totals = dict.fromkeys(MESH_KERNELS, 0)
 
     def count(launches):
@@ -4008,10 +4394,11 @@ def phase20(ranks=MESH_RANKS):
         for name in ("nr", "se", "schur"):
             count(o[name][2])
         count(o["opf"]["launches"])
-    check(one["launches"]["K1"] and all(
-        o["nr"][2]["K1"] and o["se"][2]["K3"] and o["opf"]["launches"]["K5"]
+    check(one["launches"]["K1"] and one["launches"]["K2"] and all(
+        o["nr"][2]["K1"] and o["nr"][2]["K2"] and o["se"][2]["K3"]
+        and o["se"][2]["K2c"] and o["opf"]["launches"]["K5"]
         and o["opf"]["launches"]["K7"] for o in outs),
-        "phase 20: a rank launched no K1, K3, K5 or K7 on its path")
+        "phase 20: a rank launched no K1, K2, K3, K5 or K7 on its path")
 
     def walls(name):
         return ", ".join(f"{o[name][1]!r}" for o in outs)
@@ -4031,11 +4418,14 @@ def phase20(ranks=MESH_RANKS):
           f"{launch_wall!r} s): NR fleet x{FLEET} states vs the single "
           f"process {d_nr!r}, same counts; walls {walls('nr')} s (single "
           f"process {nr_wall!r} s); K1 launches "
-          f"{[o['nr'][2]['K1'] for o in outs]}; peaks {peaks('nr')} GB")
+          f"{[o['nr'][2]['K1'] for o in outs]}, K2 (LU, "
+          f"{FLEET // ranks} scenarios a rank) "
+          f"{[o['nr'][2]['K2'] for o in outs]}; peaks {peaks('nr')} GB")
     print(f"phase 20 (b) SE fleet x{SE_FLEET}: states vs the single "
           f"process {d_se!r}, same counts; walls {walls('se')} s (single "
           f"process {se_wall!r} s); K3 launches "
-          f"{[o['se'][2]['K3'] for o in outs]}; peaks {peaks('se')} GB")
+          f"{[o['se'][2]['K3'] for o in outs]}, K2 (Cholesky) "
+          f"{[o['se'][2]['K2c'] for o in outs]}; peaks {peaks('se')} GB")
     print(f"phase 20 (b) bbd_solve_sharded, {GRID[0]}x{GRID[1]} DC at "
           f"{ranks} blocks (ni "
           f"{int(np.bincount(block_of[block_of >= 0]).max())}, border "
@@ -4149,12 +4539,18 @@ def activsg10k_acopf(max_seconds=300.0, verbose=1):
 
 def kernel_entry(name, replaces, launches, err, times, source=None,
                  library_ms=None):
+    """One entry of the kernels line; ``rel_err`` is the worst relative
+    error against the plain version in the measure the kernel's gate uses
+    (``note_rel``): of max(1, |plain|) for K1, K3, K4 and K5 and their
+    routed modes, of the row's largest for K6 and K7, of the scenario's
+    max|x| for K2."""
     ms, plain_ms, (bound_ms, bound_by) = times
     return {"name": name, "route": "cuda",
             "source": f"juliagrid_tpu_torch/kernels/csrc/{source or name}.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "rel_err": REL_ERR[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def main():
@@ -4171,15 +4567,17 @@ def main():
     k1_err, *k1_times = timed(phase1)
     timed(phase2)
     k1_launches, dense_10k = timed(phase3)
-    timed(phase4)
+    k2_lu_launches, k2_lu_err, (k2_lu_times, k2_lu_library) = timed(phase4)
     k3_err, k3_times = timed(phase5)
     k3_launches, se_1369, mon_1369 = timed(phase6)
-    timed(phase7)
+    k2_ch_launches, k2_ch_err, (k2_ch_times, k2_ch_library) = timed(phase7)
     k4_err, k4_times = timed(phase8)
     k4_launches = timed(phase9)
     timed(phase10)
     timed(phase11)
-    k3_launches += timed(phase12)
+    k3_lnr, k2_lnr = timed(phase12)
+    k3_launches += k3_lnr
+    k2_ch_launches += k2_lnr
     (k1r_err, *k1r_times), (k5_err, *k5_times) = timed(phase13)
     k5_library_ms = k5_times.pop()
     nr_bbd, (k1r_launches, k5_launches) = timed(phase14, dense_10k)
@@ -4200,6 +4598,8 @@ def main():
     k7_err = max(k7_err, k7_mesh_err)
     k5_err = max(k5_err, k5_mesh_err)
     k1_launches += mesh["K1"]
+    k2_lu_launches += mesh["K2"]
+    k2_ch_launches += mesh["K2c"]
     k3_launches += mesh["K3"]
     k5_launches += mesh["K5"]
     k7_launches += mesh["K7"]
@@ -4209,12 +4609,24 @@ def main():
     print(card)
     # no single PyTorch call computes K1's, K3's, K4's, K6's or K7's
     # function, or the routed modes': library_ms is null; K5's is one
-    # index_put_. K6's times are those of one Jacobian and one Hessian
-    # launch, the pair an interior-point iteration takes; K7's those of one
-    # call (two memsets, two launches) at the 10k cell
+    # index_put_, K2's one torch.linalg.solve_ex of the same systems (its
+    # plain version is the two-call library route it replaced). K6's times
+    # are those of one Jacobian and one Hessian launch, the pair an
+    # interior-point iteration takes; K7's those of one call (two memsets,
+    # two launches) at the 10k cell; K2's those of case118 x1024. No TPU
+    # kernel computed K2's function: "replaces" names the JAX package's
+    # per-scenario solves (an f32 LU refined in f64, and the SE gain's f32
+    # LU)
     print(json.dumps({"kernels": [
         kernel_entry("nr_fill", "juliagrid_tpu/powerflow/ac.py:92",
                      k1_launches, k1_err, k1_times),
+        kernel_entry("fleet_lu_solve", "juliagrid_tpu/ops/linalg.py:147",
+                     k2_lu_launches, k2_lu_err, k2_lu_times,
+                     source="fleet_solve", library_ms=k2_lu_library),
+        kernel_entry("fleet_cholesky_solve",
+                     "juliagrid_tpu/estimation/acse.py:671", k2_ch_launches,
+                     k2_ch_err, k2_ch_times, source="fleet_solve",
+                     library_ms=k2_ch_library),
         kernel_entry("se_fill", "juliagrid_tpu/estimation/acse.py:463",
                      k3_launches, k3_err, k3_times),
         kernel_entry("gs_sweep", "juliagrid_tpu/powerflow/gauss_seidel.py:97",

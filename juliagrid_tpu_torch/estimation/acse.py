@@ -8,8 +8,9 @@ kernel K3 (``kernels/se_fill.py``). Each Gauss-Newton iteration is one K3
 launch — h(x), the residuals and the dense f64 Jacobian H with inactive rows
 and the slack column masked — then the gain ``(W½H)ᵀ(W½H)`` as one
 ``torch.matmul`` plus the correlated-PMU pair terms, and an f64 Cholesky
-(Normal equations), or QR / Peters-Wilkinson on W½H (Orthogonal, reference
-:906-971). The H100 has native f64, so the JAX package's f32 gain and its
+solve (Normal equations; one launch of kernel K2, ``kernels/fleet_solve.py``,
+up to 256 unknowns, ``torch.linalg`` above), or QR / Peters-Wilkinson on
+W½H (Orthogonal, reference :906-971). The H100 has native f64, so the JAX package's f32 gain and its
 residual-gated f64 refinement are gone; ``rel``, the relative residual of
 the normal equations, stays and still escalates an ill-conditioned solve
 to QR.
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..kernels import fleet_solve
 from ..kernels.se_fill import SeFillTable, se_fill
 from ..ops import equations as eq
 from ..ops import linalg
@@ -614,9 +616,14 @@ def _normal_equations(arr: SeArrays, res):
 def _solve_normal(arr: SeArrays, gain, rhs):
     """f64 Cholesky solve of the normal equations: ``dx [B, 2n]``,
     ``max|dx| [B]`` and ``rel [B]`` = ‖rhs − G dx‖ / ‖rhs‖ (inf where the
-    factorization fails)."""
-    chol, info = torch.linalg.cholesky_ex(gain)
-    dx = torch.cholesky_solve(rhs[..., None], chol)[..., 0]
+    factorization fails). Up to ``fleet_solve.CAP`` unknowns one K2 launch
+    (``fleet_cholesky_solve``; its plain version on the CPU), above it
+    ``torch.linalg`` (cuSOLVER on the card)."""
+    if gain.shape[-1] <= fleet_solve.CAP:
+        dx, info = fleet_solve.fleet_cholesky_solve(gain, rhs)
+    else:
+        chol, info = torch.linalg.cholesky_ex(gain)
+        dx = torch.cholesky_solve(rhs[..., None], chol)[..., 0]
     resid = rhs - (gain @ dx[..., None])[..., 0]
     rel = resid.norm(dim=-1) / (rhs.norm(dim=-1) + 1e-300)
     rel = torch.where(info != 0, torch.inf, rel)

@@ -4,10 +4,12 @@ estimation over a fleet of scenarios, on one device or sharded over a mesh.
 The reference runs scenario studies by re-running scripts. Here the scenario
 axis is a leading tensor dimension: K1 and K3 run with scenarios on their
 launch grids (one warp per scenario and bus, or scenario and measurement
-row), the NR Jacobians factor in one batched f64
-``torch.linalg.lu_factor_ex``/``lu_solve``, the SE gains form in one
-batched matmul and factor in one batched f64 Cholesky, and the DC fleet
-shares one factorization of B and solves every scenario in one call.
+row), every scenario's NR Jacobian is factored and solved in one launch of
+K2 (``kernels/fleet_solve.py``: f64 LU with partial pivoting, a scenario a
+thread-block cluster), the SE gains form in one batched matmul and are
+solved in one K2 launch in its Cholesky mode (both up to K2's order cap of
+256, the batched ``torch.linalg`` calls above it), and the DC fleet shares
+one factorization of B and solves every scenario in one call.
 
 Across ranks (``sharded_nr_solve``, ``sharded_se_solve`` over a
 ``parallel/mesh.py`` mesh) each rank takes its contiguous share of the
@@ -76,8 +78,8 @@ def batched_se_solve(arr: SeArrays, net: AcArrays, vm0, va0, means,
 
     ``means`` is ``[B, m]`` and ``vm0, va0`` are ``[B, n]``; the measurement
     pattern, weights and network are shared. All scenarios iterate in
-    lockstep (one K3 launch, one batched gain and Cholesky, and one
-    readback per iteration) until every scenario's max|dx| is below ``tol``
+    lockstep (one K3 launch, one batched gain, one K2 Cholesky solve and
+    one readback per iteration) until every scenario's max|dx| is below ``tol``
     or the cap is hit; only scenarios still active advance, each with its
     own count. Returns (vm, va, iterations, converged), where a scenario
     whose normal equations were not solved to a relative residual of 1e-6

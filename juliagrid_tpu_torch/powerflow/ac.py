@@ -3,9 +3,11 @@
 Port of ``juliagrid_tpu/powerflow/ac.py`` (itself a redesign of JuliaGrid
 src/powerFlow/acPowerFlow.jl). The mismatch and the Jacobian come from one
 launch of the hand-written CUDA kernel K1 (``kernels/nr_fill.py``) over the
-Y-bus entry list, the linear solve is a dense f64 ``torch.linalg``
-factorization (``ops/linalg.py``), and the outer iteration is a host loop
-that reads back one pair of scalars per iteration.
+Y-bus entry list, the linear solve is one launch of K2
+(``kernels/fleet_solve.py``, a dense f64 LU and solve) up to its order cap
+and a dense f64 ``torch.linalg`` factorization (``ops/linalg.py``) above
+it, and the outer iteration is a host loop that reads back one pair of
+scalars per iteration.
 
 State formulation: the Jacobian is the full 2n x 2n polar Jacobian with
 inactive rows/columns (slack angle, non-PQ magnitudes) masked to identity,
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..kernels import fleet_solve
 from ..kernels.nr_fill import NrFill, nr_fill
 from ..ops import linalg
 from ..report.log import info
@@ -150,11 +153,24 @@ def _nr_update(arr: AcArrays, vm, va, res: NrFill, kind: str,
     """Newton step for ``[B, n]`` states from K1's output at those states.
 
     The right-hand side needs no mask: K1's mismatch is already zero at the
-    slack angle and at non-PQ magnitudes (rhs * m of ac.py:176). A singular
-    Jacobian raises unless ``check`` is off (``linalg.factorize``)."""
+    slack angle and at non-PQ magnitudes (rhs * m of ac.py:176). An LU of
+    order up to ``fleet_solve.CAP`` is one K2 launch (``fleet_lu_solve``,
+    no factors written; its plain version on the CPU), larger ones and the
+    other kinds go to ``linalg.factorize``/``solve`` (cuSOLVER on the card).
+    A singular Jacobian raises ``LinAlgError`` unless ``check`` is off:
+    then a singular scenario's step comes out inf or NaN."""
     n = vm.shape[-1]
     rhs = torch.cat([res.mp, res.mq], dim=-1)
-    dx = linalg.solve(linalg.factorize(res.jac, kind, check), rhs)
+    if kind in (linalg.LU, linalg.KLU) and 2 * n <= fleet_solve.CAP:
+        dx, bad = fleet_solve.fleet_lu_solve(res.jac, rhs)
+        if check and bool(bad.any()):
+            b = int(bad.ne(0).nonzero()[0, 0])
+            j = int(bad[b]) - 1
+            raise torch.linalg.LinAlgError(
+                f"the Jacobian of scenario {b} is singular: U[{j},{j}] is "
+                "zero")
+    else:
+        dx = linalg.solve(linalg.factorize(res.jac, kind, check), rhs)
     not_slack, is_pq = _masks(arr, n)
     va_new = va - torch.where(not_slack, dx[..., :n], 0.0)
     vm_new = vm - torch.where(is_pq, dx[..., n:], 0.0)
