@@ -829,11 +829,13 @@ def compare_k2(label, chol, a, b, phase):
 
 
 def k2_bound(chol, a):
-    """K2's least time: A and b read once, x and info written once, or
-    the factorization's operations (LU 2N³/3, Cholesky N³/3) and the two
+    """K2's least time: A (the Cholesky reads only its lower triangle,
+    N(N+1)/2 doubles) and b read once, x and info written once, or the
+    factorization's operations (LU 2N³/3, Cholesky N³/3) and the two
     triangular solves' 2N² over the f64 peak."""
     batch, n = a.shape[:2]
-    nbytes = batch * (8 * (n * n + 2 * n) + 4)
+    read = n * (n + 1) // 2 if chol else n * n
+    nbytes = batch * (8 * (read + 2 * n) + 4)
     flops = batch * ((n ** 3 / 3 if chol else 2 * n ** 3 / 3) + 2 * n * n)
     return bound(nbytes, flops)
 
@@ -841,23 +843,38 @@ def k2_bound(chol, a):
 def k2_times(label, chol, a, b, phase, reps=10):
     """K2's ms beside its plain version (the library route of two calls)
     and one library call computing the same x (``torch.linalg.solve_ex``),
-    in turns, and K2's device ms alone (``queued_ms``); ``(ms, plain_ms,
+    in turns twice (K2, route, solve_ex, K2, route, solve_ex; CUDA events,
+    each time the better of its two turns), and K2's device ms alone
+    (``queued_ms``); with the scenarios the card holds at once (blocks an
+    SM from the occupancy query, times the SMs) and the mode's registers
+    and local (spilled) bytes a thread as built. Returns ``(ms, plain_ms,
     bound), library_ms``."""
     solve, plain = k2_pair(chol)
-    ms = cuda_ms(lambda: solve(a, b), reps)
-    plain_ms = cuda_ms(lambda: plain(a, b), reps)
-    library_ms = cuda_ms(lambda: torch.linalg.solve_ex(a, b), reps)
-    ms = min(ms, cuda_ms(lambda: solve(a, b), reps))
+    turns = {"K2": [], "route": [], "solve_ex": []}
+    for _ in range(2):
+        turns["K2"].append(cuda_ms(lambda: solve(a, b), reps))
+        turns["route"].append(cuda_ms(lambda: plain(a, b), reps))
+        turns["solve_ex"].append(
+            cuda_ms(lambda: torch.linalg.solve_ex(a, b), reps))
+    ms, plain_ms, library_ms = (min(v) for v in turns.values())
     device_ms = queued_ms(lambda: solve(a, b), reps)
     least = k2_bound(chol, a)
     n = a.shape[1]
+    per_sm = k2.blocks_per_sm(n, chol)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    regs, local = k2.kernel_attributes(n, chol)
     print(f"phase {phase} K2 {'Cholesky' if chol else 'LU'} {label} "
-          f"B={a.shape[0]} N={n} (a {k2.fleet_plan(n).cluster}-block "
-          f"cluster, {k2.active_clusters(n, None, chol)} clusters at "
-          f"once): K2 {ms!r} ms (device {device_ms!r} ms), plain (library "
-          f"route) {plain_ms!r} ms, torch.linalg.solve_ex {library_ms!r} "
-          f"ms; bound {least[0]!r} ms by {least[1]} "
-          f"({100 * least[0] / ms!r}%)")
+          f"B={a.shape[0]} N={n} ({per_sm} blocks an SM, {per_sm * sms} "
+          f"scenarios in flight; {regs} registers, {local} local bytes a "
+          f"thread): in turns K2 "
+          + ", ".join(f"{t!r}" for t in turns["K2"])
+          + " ms, plain (library route) "
+          + ", ".join(f"{t!r}" for t in turns["route"])
+          + " ms, torch.linalg.solve_ex "
+          + ", ".join(f"{t!r}" for t in turns["solve_ex"])
+          + f" ms; K2 device {device_ms!r} ms; bound {least[0]!r} ms by "
+          f"{least[1]} ({100 * least[0] / ms!r}%); K2 / route "
+          f"{ms / plain_ms!r}, K2 / solve_ex {ms / library_ms!r}")
     return (ms, plain_ms, least), library_ms
 
 
@@ -894,15 +911,15 @@ def k2_nr_inputs(case, batch, rng):
 def k2_lu_checks():
     """Phase 4: K2's LU mode against its plain version on K1's Jacobians
     of case14, case30 and case118 at K2_BATCHES scenarios and on random
-    order-256 inputs, timed at case118 x1024, case14 x4 and on the random
-    inputs."""
+    order-256 inputs, timed at case14, case30 and case118 x1024 (the last
+    for the kernels line), case14 x4 and on the random inputs."""
     rng = np.random.default_rng(SEED)
     err = 0.0
     for case in ("case14test", "case30test", "case118"):
         for batch in K2_BATCHES:
             a, b = k2_nr_inputs(case, batch, rng)
             err = max(err, compare_k2(case, False, a, b, 4)[0])
-    times = k2_times("case118", False, a, b, 4)
+        times = k2_times(case, False, a, b, 4)
     k2_times("case14test", False, *k2_nr_inputs("case14test", 4, rng), 4)
     a, b = k2_random(k2.CAP, FLEET, False, K2_CAP_SEED)
     err = max(err, compare_k2("random", False, a, b, 4)[0])
@@ -1347,15 +1364,15 @@ def k2_se_inputs(case, batch, rng):
 def k2_cholesky_checks():
     """Phase 7: K2's Cholesky mode against its plain version on the SE
     gains of case14, case30 and case118 at K2_BATCHES scenarios and on
-    random order-256 inputs, timed at case118 x1024, case14 x4 and on the
-    random inputs."""
+    random order-256 inputs, timed at case14, case30 and case118 x1024 (the
+    last for the kernels line), case14 x4 and on the random inputs."""
     rng = np.random.default_rng(SEED)
     err = 0.0
     for case in ("case14test", "case30test", "case118"):
         for batch in K2_BATCHES:
             a, b = k2_se_inputs(case, batch, rng)
             err = max(err, compare_k2(case, True, a, b, 7)[0])
-    times = k2_times("case118", True, a, b, 7)
+        times = k2_times(case, True, a, b, 7)
     k2_times("case14test", True, *k2_se_inputs("case14test", 4, rng), 7)
     a, b = k2_random(k2.CAP, SE_FLEET, True, K2_CAP_SEED)
     err = max(err, compare_k2("random", True, a, b, 7)[0])

@@ -13,11 +13,14 @@ port solves in f64 directly. Two wrappers, one kernel:
   leaves the others untouched. The factors and the 1-based pivots are
   written into ``lu`` and ``piv`` when they are given.
 - ``fleet_cholesky_solve(g, b) -> (x, info)``: a symmetric positive
-  definite ``g`` without pivoting, ``info`` the first pivot that is not
+  definite ``g`` without pivoting, of which only the lower triangle is
+  read (as ``cholesky_ex`` reads it), ``info`` the first pivot that is not
   positive.
 
 A CUDA tensor goes to the kernel (``csrc/fleet_solve.cu``, which describes
-its mapping and what bounds it), and the call raises if the kernel does not
+its mapping and what bounds it: a block a scenario, the working matrix in
+device memory, a panel of ``PANEL`` columns in shared memory; ``fleet_plan``
+gives the layout), and the call raises if the kernel does not
 build or launch or if ``N`` is above ``CAP``; a CPU tensor goes to the plain
 versions ``fleet_lu_solve_ref`` (``lu_factor_ex`` + ``lu_solve``) and
 ``fleet_cholesky_solve_ref`` (``cholesky_ex`` + ``cholesky_solve``). Above
@@ -37,70 +40,55 @@ import torch
 
 from . import _build
 
-#: the largest N K2 takes (a thread a row while a panel is factored)
+#: the largest N K2 takes (``kMaxN``: a thread a row while a panel is
+#: factored, two rows a thread)
 CAP = 256
 #: columns of a panel (``kW`` in csrc/fleet_solve.cu)
-PANEL = 16
-#: the cluster sizes K2 chooses from, fewest first
-CLUSTERS = (1, 2, 4, 8)
-#: bytes of the small arrays at the front of a block's shared memory
-#: (``kSmallBytes``)
-SMALL_BYTES = 3328
+PANEL = 32
+#: threads of a block (``kThreads``)
+THREADS = 128
+#: columns of a warp's group of trailing columns (``kCols``)
+COLUMNS = 8
+#: doubles of the shared region that is first the pivot step's buffers
+#: (``PanelSmall``, 355 doubles) and then the warps' U12 blocks, the larger
+#: (``kRegion``)
+REGION = THREADS // 32 * PANEL * COLUMNS
 #: dynamic shared memory a block can take on an H100 (227 KB); the card's
 #: own figure is queried before a launch
 H100_ROOM = 232448
 
 
 class FleetPlan(NamedTuple):
-    """How K2 lays out a scenario of order ``n``."""
+    """How K2 lays out a scenario of order ``n``: one block a scenario."""
 
-    cluster: int       # blocks of a scenario's cluster
-    panel: int         # columns of a panel
-    ld: int            # leading dimension of a column in shared memory
-    columns: int       # columns (of the n + 1) of the widest block
-    shared_bytes: int  # dynamic shared memory of a block
-
-
-def block_columns(n: int, cluster: int, rank: int) -> int:
-    """Columns of ``[A | b]`` that block ``rank`` holds: the panels
-    ``rank, rank + cluster, ...`` of ``PANEL`` columns each, the last one
-    short."""
-    total = n + 1
-    panels = -(-total // PANEL)
-    return sum(min(PANEL, total - p * PANEL)
-               for p in range(rank, panels, cluster))
+    ld: int             # leading dimension of the panel in shared memory
+    shared_bytes: int   # dynamic shared memory of a block
+    scratch: bool       # whether a launch without factors needs a working
+                        # matrix in device memory (more than one panel)
 
 
-def shared_bytes(n: int, cluster: int) -> int:
-    """Dynamic shared memory of a block of an ``(n, cluster)`` launch: its
-    columns, a copy of another block's panel (``cluster > 1``), the back
-    substitution's vector and the reciprocals of U's diagonal, each
-    ``n | 1`` doubles long, after the small arrays."""
-    columns = max(block_columns(n, cluster, r) for r in range(cluster))
-    doubles = (n | 1) * (columns + (PANEL if cluster > 1 else 0) + 2)
-    return SMALL_BYTES + 8 * doubles
+def shared_bytes(n: int) -> int:
+    """Dynamic shared memory of an order-``n`` block: the panel (``PANEL``
+    columns of ``n | 1`` doubles), the shared region, the right-hand side
+    and 1 / U's diagonal, then the row permutation, the panel's pivots and
+    info (ints)."""
+    doubles = PANEL * (n | 1) + REGION + 2 * n
+    return 8 * doubles + 4 * (n + PANEL + 1)
 
 
-def fleet_plan(n: int, room: int = H100_ROOM,
-               cluster: int | None = None) -> FleetPlan:
+def fleet_plan(n: int, room: int = H100_ROOM) -> FleetPlan:
     """K2's layout for order ``n`` on a device whose blocks take ``room``
-    bytes of dynamic shared memory: the fewest blocks of ``CLUSTERS`` whose
-    share fits, unless ``cluster`` is given. Raises above ``CAP`` or where
-    nothing fits."""
+    bytes of dynamic shared memory. How many blocks an SM holds is the
+    card's answer (``blocks_per_sm``). Raises above ``CAP`` or where a block
+    does not fit."""
     if not 1 <= n <= CAP:
         raise ValueError(f"K2 solves orders 1 to {CAP}, not {n}; above "
                          f"{CAP} the call sites keep torch.linalg")
-    sizes = CLUSTERS if cluster is None else (cluster,)
-    if cluster is not None and cluster not in CLUSTERS:
-        raise ValueError(f"a K2 cluster has one of {CLUSTERS} blocks, not "
-                         f"{cluster}")
-    for c in sizes:
-        nbytes = shared_bytes(n, c)
-        if nbytes <= room:
-            columns = max(block_columns(n, c, r) for r in range(c))
-            return FleetPlan(c, PANEL, n | 1, columns, nbytes)
-    raise ValueError(f"K2 cannot hold an order-{n} matrix in a cluster of "
-                     f"{sizes[-1]} blocks of {room} bytes")
+    nbytes = shared_bytes(n)
+    if nbytes > room:
+        raise ValueError(f"K2 cannot hold an order-{n} block ({nbytes} "
+                         f"bytes of shared memory) in {room} bytes")
+    return FleetPlan(n | 1, nbytes, n > PANEL)
 
 
 def _check(a, b, name):
@@ -202,54 +190,91 @@ def _library() -> ctypes.CDLL:
     lib.fleet_solve_launch.restype = i32
     lib.fleet_solve_room.argtypes = [i32]
     lib.fleet_solve_room.restype = ctypes.c_int64
-    lib.fleet_solve_active_clusters.argtypes = [i32, i32, i32, i32]
-    lib.fleet_solve_active_clusters.restype = i32
+    lib.fleet_solve_shared_bytes.argtypes = [i32]
+    lib.fleet_solve_shared_bytes.restype = ctypes.c_int64
+    lib.fleet_solve_blocks_per_sm.argtypes = [i32, i32, i32]
+    lib.fleet_solve_blocks_per_sm.restype = i32
+    lib.fleet_solve_attributes.argtypes = [i32, i32, ptr]
+    lib.fleet_solve_attributes.restype = i32
+    lib.fleet_solve_config.argtypes = [ptr]
+    lib.fleet_solve_config.restype = None
     lib.fleet_solve_error_string.argtypes = [i32]
     lib.fleet_solve_error_string.restype = ctypes.c_char_p
+    config = (ctypes.c_int * 3)()
+    lib.fleet_solve_config(config)
+    if tuple(config) != (THREADS, PANEL, CAP):
+        raise RuntimeError(f"fleet_solve was built for (threads, panel, "
+                           f"cap) {tuple(config)}, the wrapper plans "
+                           f"{(THREADS, PANEL, CAP)}")
     return lib
 
 
+def _error(lib, code: int) -> str:
+    return lib.fleet_solve_error_string(code).decode()
+
+
 @functools.lru_cache(maxsize=64)
-def _plan(device: int, n: int, cluster: int | None) -> FleetPlan:
-    """``fleet_plan`` on ``device``, whose room is queried once."""
-    room = _library().fleet_solve_room(device)
+def _plan(device: int, n: int) -> FleetPlan:
+    """``fleet_plan`` on ``device``, whose room is queried once; the
+    library's shared bytes must be the plan's."""
+    lib = _library()
+    room = lib.fleet_solve_room(device)
     if room <= 0:
         raise RuntimeError(f"fleet_solve cannot query cuda:{device}")
-    return fleet_plan(n, room, cluster)
+    plan = fleet_plan(n, room)
+    built = lib.fleet_solve_shared_bytes(n)
+    if built != plan.shared_bytes:
+        raise RuntimeError(f"fleet_solve takes {built} shared bytes at order "
+                           f"{n}, the plan {plan.shared_bytes}")
+    return plan
 
 
-def active_clusters(n: int, cluster: int | None = None,
-                    cholesky: bool = False, device: int = 0) -> int:
-    """Clusters of K2's launch at order ``n`` in a mode the card holds at
-    once (``cudaOccupancyMaxActiveClusters``)."""
-    plan = _plan(device, n, cluster)
-    out = _library().fleet_solve_active_clusters(n, plan.cluster,
-                                                 int(cholesky), device)
+def blocks_per_sm(n: int, cholesky: bool = False, device: int = 0) -> int:
+    """Blocks (scenarios) of K2's order-``n`` launch in a mode one SM of
+    the card holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``:
+    shared memory, threads and registers)."""
+    _plan(device, n)
+    out = _library().fleet_solve_blocks_per_sm(n, int(cholesky), device)
     if out < 0:
         raise RuntimeError("fleet_solve occupancy query failed: "
-                           + _library().fleet_solve_error_string(-out)
-                           .decode())
+                           + _error(_library(), -out))
     return out
 
 
-def _launch(a, b, lu, piv, cholesky: bool, cluster: int | None = None):
-    """One K2 launch on the current stream of ``a``'s device; ``cluster``
-    overrides the plan's cluster size (any size gives the same bits)."""
+def kernel_attributes(n: int, cholesky: bool = False) -> tuple:
+    """``(registers, local bytes)`` a thread of the kernel of a mode at
+    order ``n`` as built (``cudaFuncGetAttributes``; local bytes are what
+    ptxas spilled). Orders up to ``THREADS`` have their own kernel, one
+    row a thread in the panel's column steps."""
+    out = (ctypes.c_int * 3)()
+    err = _library().fleet_solve_attributes(n, int(cholesky), out)
+    if err != 0:
+        raise RuntimeError("fleet_solve attribute query failed: "
+                           + _error(_library(), err))
+    return out[0], out[1]
+
+
+def _launch(a, b, lu, piv, cholesky: bool):
+    """One K2 launch on the current stream of ``a``'s device: a block a
+    scenario, the working matrix ``lu`` when the factors are asked for,
+    else a scratch tensor unless one panel holds the whole matrix."""
     bsz, n = a.shape[:2]
     device = a.device
-    plan = _plan(device.index, n, cluster)
+    plan = _plan(device.index, n)
     x = torch.empty((bsz, n), dtype=torch.float64, device=device)
     info = torch.empty(bsz, dtype=torch.int32, device=device)
+    work = lu
+    if work is None and plan.scratch:
+        work = torch.empty_like(a)
     ctx, stream = _build.launch_context(device)
     with ctx:
         err = _library().fleet_solve_launch(
             a.data_ptr(), b.data_ptr(), x.data_ptr(), info.data_ptr(),
-            None if lu is None else lu.data_ptr(),
-            None if piv is None else piv.data_ptr(), bsz, n, plan.cluster,
-            int(cholesky), device.index, stream)
+            None if work is None else work.data_ptr(),
+            None if piv is None else piv.data_ptr(), bsz, n,
+            int(lu is not None), int(cholesky), device.index, stream)
     if err != 0:
         raise RuntimeError(
             f"fleet_solve launch ({'Cholesky' if cholesky else 'LU'}, "
-            f"order {n}, {plan.cluster}-block cluster) failed: "
-            + _library().fleet_solve_error_string(err).decode())
+            f"order {n}, {bsz} scenarios) failed: " + _error(_library(), err))
     return x, info

@@ -1,30 +1,33 @@
 #!/usr/bin/env python3
-"""Where a K2 launch spends one scenario's time, phase by phase.
+"""Where a K2 launch spends its time: the phases of every block of one SM.
 
 Run from the root of a checkout, on a machine with one card:
 
     python3 scripts/k2_timeline.py [--n 236] [--batch 1024] [--reps 10]
-                                   [--cluster C] [--replace OLD NEW ...]
+                                   [--define NAME=VALUE ...]
+                                   [--replace OLD NEW ...]
 
 It builds a copy of ``csrc/fleet_solve.cu`` into ``build/k2_timeline/``
-with ``FLEET_SOLVE_TIMELINE`` defined, so that thread 0 of every block of
-one scenario stamps ``%globaltimer`` (the card's nanosecond clock, shared
-by all SMs) at the end of each phase of the launch, after applying each
-``--replace OLD NEW`` to the source (a variant to measure; every OLD must
-occur). For each mode (LU, Cholesky) on inputs from a seeded generator
-(those of ``scripts/k2_cluster.py``) at order ``--n``, with the planner's
-cluster size or ``--cluster``, it launches one
-scenario alone and then ``--batch`` scenarios, stamping the middle one,
-and prints per block the µs of: the load of its columns, panel 0's
-factorization, its waits at the panels' cluster barriers, the copies of
-other blocks' panels, the row swaps, the look-ahead (the next panel's
-columns updated and factored, in the block that owns it), the other U12
-and trailing updates, the back substitution's waits and solves, and the
-whole span.
-Then the device ms of a ``--batch`` launch of the copy beside the
-package's own kernel (CUDA events), whether the copy gives the package's
-bits, ptxas's registers and spills of the copy, and the card's
-``nvidia-smi`` name and power limit.
+with ``FLEET_SOLVE_TIMELINE`` defined, so that thread 0 of every block
+stamps ``%globaltimer`` (the card's nanosecond clock, shared by all SMs) at
+the end of each phase and records its SM, with each ``--define`` passed to
+nvcc (a layout of ``scripts/k2_sweep.py``, such as
+``FLEET_SOLVE_PANEL=16``) and each ``--replace OLD NEW`` applied to the
+source (a variant to measure; every OLD must occur). For each mode (LU,
+Cholesky) on the seeded inputs of ``scripts/k2_sweep.py`` at order
+``--n`` it launches ``--batch`` scenarios and prints, for every block that
+ran on the SM of block 0, in the order they started: its start and end in
+µs from the launch's first stamp, and its time in each phase, summed over
+the panels: staging a panel (and the wait for the block barrier after
+it), factoring it (a block barrier a column), its trailing update as
+thread 0's warp saw it (the panel's write, that warp's column groups),
+the wait at the end-of-panel barrier for the block's other warps, and the
+back substitution; and, for warp 0 of block 0, each panel's trailing
+column groups split into the U12 gather and solve, the tile's loads and
+update, and its stores. Then the span of the launch, the device ms of a
+``--batch`` launch of the copy beside the package's kernel (CUDA events),
+whether the copy gives the package's bits, ptxas's registers and spills of
+the copy, and the card's ``nvidia-smi`` name and power limit. About 20 s.
 """
 
 from __future__ import annotations
@@ -43,14 +46,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 from juliagrid_tpu_torch.kernels import _build  # noqa: E402
 from juliagrid_tpu_torch.kernels import fleet_solve as k2  # noqa: E402
-from scripts.k2_cluster import inputs  # noqa: E402
+from scripts.k2_sweep import bind, inputs, launch, ptxas_lines  # noqa: E402
 
-STAMPS = 192
-MAX_CLUSTER = 8
+STAMPS = 96
+STAMP_BLOCKS = 4096
+GROUP_PANELS, GROUP_SLOTS, GROUP_STAMPS = 16, 16, 4
 OUT = _build.BUILD_DIR.parent / "k2_timeline"
 
 
-def build(replace) -> tuple:
+def build(defines, replace):
     src = (_build.CSRC / "fleet_solve.cu").read_text()
     for old, new in replace:
         cs.check(old in src, f"--replace: {old!r} is not in the source")
@@ -61,95 +65,67 @@ def build(replace) -> tuple:
     lib = OUT / "libk2_timeline.so"
     res = subprocess.run(
         [_build.nvcc_path(), *_build.nvcc_flags("fleet_solve"),
-         "-DFLEET_SOLVE_TIMELINE", "-Xptxas", "-v", "-o", str(lib),
-         str(path)], capture_output=True, text=True)
+         "-DFLEET_SOLVE_TIMELINE", *(f"-D{d}" for d in defines), "-Xptxas",
+         "-v", "-o", str(lib), str(path)], capture_output=True, text=True)
     cs.check(res.returncode == 0, f"nvcc failed:\n{res.stderr}")
-    ptxas = " ".join(line.strip() for line in res.stderr.splitlines()
-                     if "registers" in line or "spill" in line)
-    dll = ctypes.CDLL(str(lib))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    dll.fleet_solve_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    dll.fleet_solve_launch.restype = i32
-    dll.fleet_solve_timeline.argtypes = [ctypes.c_longlong, ptr, ptr]
-    dll.fleet_solve_timeline.restype = i32
-    return dll, ptxas
+    dll = bind(ctypes.CDLL(str(lib)))
+    dll.fleet_solve_timeline.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    dll.fleet_solve_timeline.restype = ctypes.c_int
+    dll.fleet_solve_group_timeline.argtypes = [ctypes.c_void_p]
+    dll.fleet_solve_group_timeline.restype = ctypes.c_int
+    return dll, ptxas_lines(res.stderr)
 
 
-def launch(dll, a, b, chol, cluster):
-    bsz, n = a.shape[:2]
-    x = torch.empty(bsz, n, dtype=torch.float64, device="cuda")
-    info = torch.empty(bsz, dtype=torch.int32, device="cuda")
-    err = dll.fleet_solve_launch(
-        a.data_ptr(), b.data_ptr(), x.data_ptr(), info.data_ptr(), None,
-        None, bsz, n, cluster, int(chol), 0,
-        torch.cuda.current_stream().cuda_stream)
-    cs.check(err == 0, f"the stamped copy failed to launch: {err}")
-    return x, info
+def groups(dll, panels):
+    """Block 0's warp 0, its trailing column groups of each panel: µs in
+    the U12 gather and solve, the tile's loads and update, the stores, and
+    between groups (the next group's start after this one's end)."""
+    out = np.zeros(GROUP_PANELS * GROUP_SLOTS * GROUP_STAMPS,
+                   dtype=np.uint64)
+    cs.check(dll.fleet_solve_group_timeline(out.ctypes.data) == 0,
+             "reading the group stamps failed")
+    g = out.reshape(GROUP_PANELS, GROUP_SLOTS, GROUP_STAMPS).astype(np.int64)
+    for p in range(min(panels, GROUP_PANELS)):
+        rows = [g[p, i] for i in range(GROUP_SLOTS) if g[p, i, 3] > 0]
+        if not rows:
+            continue
+        d = np.array([np.diff(r) for r in rows]) / 1e3
+        print(f"  block 0 warp 0, panel {p}: {len(rows)} groups, mean us: "
+              f"U12 gather+solve {d[:, 0].mean()!r}, tile loads+update "
+              f"{d[:, 1].mean()!r}, stores {d[:, 2].mean()!r}")
 
 
-def stamps(dll, scenario):
-    """The last launch's phase stamps ``[MAX_CLUSTER, STAMPS]`` and column
-    stamps ``[MAX_N, 4]`` (ns and clock after each column's barrier and
-    after its update)."""
-    out = np.zeros(MAX_CLUSTER * STAMPS, dtype=np.uint64)
-    cols = np.zeros(k2.CAP * 4, dtype=np.uint64)
+def stamps(dll):
+    """The last launch's stamps ``[STAMP_BLOCKS, STAMPS]`` (ns, 0 where
+    none) and each block's SM; both are cleared for the next launch."""
+    out = np.zeros(STAMP_BLOCKS * STAMPS, dtype=np.uint64)
+    smid = np.zeros(STAMP_BLOCKS, dtype=np.int32)
     torch.cuda.synchronize()
-    cs.check(dll.fleet_solve_timeline(scenario, out.ctypes.data,
-                                      cols.ctypes.data) == 0,
-             "reading the stamps failed")
-    return (out.reshape(MAX_CLUSTER, STAMPS).astype(np.int64),
-            cols.reshape(k2.CAP, 4).astype(np.int64))
+    cs.check(dll.fleet_solve_timeline(out.ctypes.data, smid.ctypes.data)
+             == 0, "reading the stamps failed")
+    return out.reshape(STAMP_BLOCKS, STAMPS).astype(np.int64), smid
 
 
-def report_columns(cols, n):
-    """Panel 0's columns: ns from one column's barrier to the next, of it
-    the barrier to the end of the update, and the SM clock's rate."""
-    k = min(n, k2.PANEL)
-    step = np.diff(cols[:k, 0]) / 1e3
-    body = (cols[:k, 2] - cols[:k, 0]) / 1e3
-    ghz = (cols[k - 1, 3] - cols[0, 1]) / max(cols[k - 1, 2] - cols[0, 0], 1)
-    print(f"  panel 0 columns: barrier to barrier {np.round(step, 3)} us, "
-          f"barrier to the update's end {np.round(body, 3)} us; SM clock "
-          f"{ghz!r} GHz")
-
-
-def report(label, t, n, cluster):
-    """Per block: the phases' µs from its stamps (see csrc's stamp()
-    calls: its start; after the load; after panel 0's factorization (block
-    0); per panel before and after the barrier's wait, after the copy,
-    after the swaps, after the look-ahead (the next panel's columns and its
-    factorization, where the block owns it) and after the other updates;
-    per back-substitution panel after the barrier and after the solve; the
-    end), and the span from the first block's start to the last end."""
-    panels = -(-n // k2.PANEL)
-    last = 3 + 8 * panels
-    span = (t[:cluster, last].max() - t[:cluster, 0].min()) / 1e3
-    print(f"{label}: span {span!r} us")
-    for r in range(cluster):
-        row = t[r]
-        sums = dict.fromkeys(("load", "factor", "wait", "copy", "swaps",
-                              "ahead", "update", "bwait", "bsolve"), 0.0)
-        sums["load"] = (row[1] - row[0]) / 1e3
-        sums["factor"] = (row[2] - row[1]) / 1e3
-        prev = row[2]
-        for p in range(panels):
-            e = 3 + 6 * p
-            sums["update"] += (row[e] - prev) / 1e3
-            sums["wait"] += (row[e + 1] - row[e]) / 1e3
-            sums["copy"] += (row[e + 2] - row[e + 1]) / 1e3
-            sums["swaps"] += (row[e + 3] - row[e + 2]) / 1e3
-            sums["ahead"] += (row[e + 4] - row[e + 3]) / 1e3
-            sums["update"] += (row[e + 5] - row[e + 4]) / 1e3
-            prev = row[e + 5]
-        e = 3 + 6 * panels
-        for p in range(panels):
-            sums["bwait"] += (row[e] - prev) / 1e3
-            sums["bsolve"] += (row[e + 1] - row[e]) / 1e3
-            prev = row[e + 1]
-            e += 2
-        print(f"  block {r}: " + ", ".join(f"{k} {v!r}"
-                                          for k, v in sums.items())
-              + f", end {(row[e] - prev) / 1e3!r} us")
+def phases(row, panels):
+    """A block's µs by phase from its stamps (see the kernel's stamp()
+    calls: its start; per panel after the staging barrier, after the
+    factorization, after thread 0's warp's trailing groups, after the
+    end-of-panel barrier; per back-substitution panel after its last
+    barrier; the end)."""
+    us = dict.fromkeys(("staging", "factor", "trailing", "wait", "backsub",
+                        "end"), 0.0)
+    prev = row[0]
+    for p in range(panels):
+        e = 1 + 4 * p
+        us["staging"] += (row[e] - prev) / 1e3
+        us["factor"] += (row[e + 1] - row[e]) / 1e3
+        us["trailing"] += (row[e + 2] - row[e + 1]) / 1e3
+        us["wait"] += (row[e + 3] - row[e + 2]) / 1e3
+        prev = row[e + 3]
+    back = 1 + 4 * panels + panels - 1
+    us["backsub"] = (row[back] - prev) / 1e3
+    us["end"] = (row[back + 1] - row[back]) / 1e3
+    return us, row[back + 1]
 
 
 def main() -> None:
@@ -157,36 +133,49 @@ def main() -> None:
     parser.add_argument("--n", type=int, default=236)
     parser.add_argument("--batch", type=int, default=1024)
     parser.add_argument("--reps", type=int, default=10)
-    parser.add_argument("--cluster", type=int, default=None)
+    parser.add_argument("--define", action="append", default=[])
     parser.add_argument("--replace", nargs=2, action="append", default=[],
                         metavar=("OLD", "NEW"))
     args = parser.parse_args()
     cs.check(torch.cuda.is_available(), "no card")
-    dll, ptxas = build(args.replace)
+    cs.check(args.batch <= STAMP_BLOCKS, f"--batch above {STAMP_BLOCKS}")
+    dll, ptxas = build(args.define, args.replace)
     print(f"ptxas (stamped copy): {ptxas}")
-    plan = k2.fleet_plan(args.n, k2._library().fleet_solve_room(0),
-                         args.cluster)
+    config = (ctypes.c_int * 3)()
+    dll.fleet_solve_config(config)
+    panels = -(-args.n // config[1])
     for chol in (False, True):
         mode = "Cholesky" if chol else "LU"
         a, b = inputs(args.n, args.batch, chol)
-        for batch, scenario in ((1, 0), (args.batch, args.batch // 2)):
-            stamps(dll, scenario)
-            launch(dll, a[:batch].contiguous(), b[:batch].contiguous(),
-                   chol, plan.cluster)
-            t, cols = stamps(dll, -1)
-            report(f"{mode} n={args.n} B={batch} scenario {scenario} "
-                   f"({plan.cluster}-block cluster)", t, args.n,
-                   plan.cluster)
-            report_columns(cols, args.n)
-        mine, _ = launch(dll, a, b, chol, plan.cluster)
-        theirs, _ = k2._launch(a, b, None, None, chol, plan.cluster)
-        ms = cs.cuda_ms(lambda: launch(dll, a, b, chol, plan.cluster),
-                        args.reps)
-        base = cs.cuda_ms(lambda: k2._launch(a, b, None, None, chol,
-                                             plan.cluster), args.reps)
+        launch(dll, a, b, chol)
+        stamps(dll)
+        mine, _ = launch(dll, a, b, chol)
+        t, smid = stamps(dll)
+        t = t[:args.batch]
+        origin = t[:, 0].min()
+        blocks = np.nonzero(smid[:args.batch] == smid[0])[0]
+        blocks = blocks[np.argsort(t[blocks, 0])]
+        print(f"{mode} n={args.n} B={args.batch} (panel {config[1]}, "
+              f"{config[0]} threads): {len(blocks)} blocks ran on SM "
+              f"{smid[0]}; launch span "
+              f"{(t[:, 1 + 5 * panels].max() - origin) / 1e3!r} us")
+        for blk in blocks:
+            us, end = phases(t[blk], panels)
+            print(f"  block {blk}: {(t[blk, 0] - origin) / 1e3!r} to "
+                  f"{(end - origin) / 1e3!r} us; "
+                  + ", ".join(f"{k} {v!r}" for k, v in us.items()))
+        groups(dll, panels)
+        totals = [phases(t[blk], panels)[0] for blk in range(args.batch)]
+        print(f"  every block, mean us: " + ", ".join(
+            f"{k} {np.mean([u[k] for u in totals])!r}" for k in totals[0]))
+        theirs = (k2.fleet_cholesky_solve if chol else k2.fleet_lu_solve)(
+            a, b)[0]
+        ms = cs.cuda_ms(lambda: launch(dll, a, b, chol), args.reps)
+        base = cs.cuda_ms(lambda: k2._launch(a, b, None, None, chol),
+                          args.reps)
         print(f"{mode} n={args.n} x{args.batch}: stamped copy {ms!r} ms, "
               f"the package's kernel {base!r} ms; same bits "
-              f"{bool(torch.equal(mine, theirs))}")
+              f"{cs.same_bits_of(mine, theirs)}", flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

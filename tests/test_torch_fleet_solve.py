@@ -1,6 +1,7 @@
 """K2 ``fleet_solve`` on the CPU: its plain versions against the JAX
 package's solves, its planner, its wrappers' refusals, the call sites'
-bits, and a numpy walk of the kernel's block-cyclic layout.
+bits, and a numpy walk of the kernel's layout (a block a scenario, the
+working matrix in device memory, a panel in shared memory).
 
 Tolerances: the JAX package's NR step is an f32 LU refined three times in
 f64 (``ops/linalg.py:147-162``), good to about 1e-12 of max|x| at these
@@ -130,30 +131,39 @@ def test_plain_cholesky_solve_matches_jax_gn_increment(data_path, case,
     np.testing.assert_allclose(dx, want, rtol=0, atol=JAX_TOL)
 
 
-@pytest.mark.parametrize("n,plan", [
-    (28, (1, 16, 29, 29, 10520)),
-    (60, (1, 16, 61, 61, 34072)),
-    (236, (4, 16, 237, 64, 158800)),
-    (256, (4, 16, 257, 65, 173976)),
+#: an H100 SM's shared memory (228 KB) and what each resident block
+#: reserves of it: how many blocks of a plan fit an SM by shared memory
+#: (the card's answer also counts registers: ``k2.blocks_per_sm``)
+H100_SM_SHARED, BLOCK_RESERVED = 233472, 1024
+
+
+@pytest.mark.parametrize("n,plan,blocks", [
+    (1, (1, 8600, False), 24),
+    (28, (29, 16308, False), 13),
+    (60, (61, 25140, True), 8),
+    (236, (237, 73716, True), 3),
+    (256, (257, 79236, True), 2),
 ])
-def test_fleet_plan(n, plan):
-    """The fewest blocks whose columns, a panel's copy and the vector fit
-    an H100 block's 227 KB: case14, case30 in one block, case118 and the
-    cap in four."""
-    assert tuple(k2.fleet_plan(n)) == plan
-    assert k2.shared_bytes(n, plan[0]) == plan[4]
-    assert sum(k2.block_columns(n, plan[0], r)
-               for r in range(plan[0])) == n + 1
+def test_fleet_plan(n, plan, blocks):
+    """A block a scenario: the panel's 32 columns of ``n | 1`` doubles, the
+    region of the pivot step and the warps' U12 blocks (1,024 doubles),
+    the right-hand side, 1 / U's diagonal, the permutation and the
+    pivots. Three case118 blocks fit an H100 SM's 228 KB (396 scenarios
+    in flight); case14 needs no working matrix in device memory."""
+    got = k2.fleet_plan(n)
+    assert tuple(got) == plan
+    assert got.shared_bytes == k2.shared_bytes(n)
+    assert H100_SM_SHARED // (got.shared_bytes + BLOCK_RESERVED) == blocks
 
 
-def test_fleet_plan_refuses_above_the_cap_and_unfit_rooms():
-    with pytest.raises(ValueError, match="orders 1 to 256, not 257"):
-        k2.fleet_plan(257)
-    with pytest.raises(ValueError, match="cannot hold an order-236"):
-        k2.fleet_plan(236, room=90_000)
-    with pytest.raises(ValueError, match="not 3"):
-        k2.fleet_plan(28, cluster=3)
-    assert k2.fleet_plan(236, cluster=8).shared_bytes == 98_128
+@pytest.mark.parametrize("args,match", [
+    ((257,), "orders 1 to 256, not 257"),
+    ((0,), "orders 1 to 256, not 0"),
+    ((236, 70_000), "cannot hold an order-236 block \\(73716 bytes"),
+])
+def test_fleet_plan_refuses_above_the_cap_and_unfit_rooms(args, match):
+    with pytest.raises(ValueError, match=match):
+        k2.fleet_plan(*args)
 
 
 def _good():
@@ -248,171 +258,254 @@ def test_solve_normal_keeps_its_cpu_bits(data_path):
 
 
 # --------------------------------------------------------------------------
-# A numpy walk of csrc/fleet_solve.cu: each block's columns, the panels
-# dealt block-cyclically, the owner's factorization, the copies, swaps,
-# U12 and trailing updates, the back substitution's holder.
+# A numpy walk of csrc/fleet_solve.cu: a block a scenario, panel by panel
+# from the working matrix (panel 0 from A); the LU's pivot step by warp
+# candidates, the panel's row permutation, the right-hand side carried
+# through the column steps; the Cholesky's column steps on the lower
+# triangle only; the warps'
+# column groups (the LU's U12 gathered through the permutation and solved
+# with L11, the rows below updated), the factors' left swaps, and the back
+# substitution a panel at a time from the last.
 # --------------------------------------------------------------------------
 
-W = k2.PANEL
+ORDERS = [1, 15, 16, 17, 28, 31, 32, 33, 60, 64, 65, 127, 128, 129, 236, 256]
 
 
-def _global_col(lc, cluster, rank):
-    return ((lc // W) * cluster + rank) * W + lc % W
+def _pivot(col, j):
+    """The LU's pivot row of a panel column: each warp's largest |a| of its
+    rows (thread t holds rows t, t + THREADS, ...; NaN as the largest,
+    ties to the lowest row), then the largest of the warps' candidates."""
+    n = len(col)
+    key = np.where(np.isnan(col), np.inf, np.abs(col))
+    cands = []
+    for warp in range(k2.THREADS // 32):
+        rows = [r for r in range(j, n) if (r % k2.THREADS) // 32 == warp]
+        if rows:
+            best = max(rows, key=lambda r: (key[r], -r))
+            cands.append((key[best], -best))
+    return -max(cands)[1]
 
 
-def _local_col(g, cluster):
-    return (g // W // cluster) * W + g % W
-
-
-def _cols_before(p, cluster, rank):
-    return (0 if p <= rank else (p - rank + cluster - 1) // cluster) * W
-
-
-def _cols_through(p, cluster, rank):
-    return (0 if p < rank else (p - rank) // cluster + 1) * W
-
-
-def _factor_panel(o, n, k0, nf, lc0, chol):
-    """The owner's panel steps; returns the pivot rows, the 1/s values and
-    the first bad pivot (1-based) or 0."""
-    wp = min(W, n + 1 - k0)
-    panel = o[:, lc0:lc0 + wp]
-    piv, rd, info = [], [], 0
+def _factor_panel_lu(ls, y, src, k0, nf):
+    """The LU's column steps on the staged panel ``ls`` (rows 0 .. n - 1 of
+    the panel's columns; rows k0 .. n - 1 are its), the right-hand side
+    carried along: each step's column, final after it, goes to ``out`` at
+    its row's panel-start position (``org``), and ``ls`` ends as ``out``
+    with its rows in pivot order (new row r is panel-start row ``src[r]``).
+    Returns the pivot rows, 1 / each pivot and the first zero pivot
+    (1-based) or 0."""
+    n = ls.shape[0]
+    piv, rcps, info = [], [], 0
+    org = np.arange(n)
+    out = np.full_like(ls, np.nan)
     for jj in range(nf):
         j = k0 + jj
-        q = j
-        if not chol:
-            key = np.abs(panel[j:, jj])
-            q = j + int(np.argmax(np.where(np.isnan(key), np.inf, key)))
-        pr, jr = panel[q].copy(), panel[j].copy()
-        pivot = pr[jj]
-        root = np.sqrt(pivot) if chol else pivot
         with np.errstate(divide="ignore", invalid="ignore"):
-            rcp = 1.0 / root
-        piv.append(q)
-        rd.append(rcp if chol else 1.0)
-        if (not pivot > 0 if chol else pivot == 0) and not info:
-            info = j + 1
-        top = pr.copy()
-        if chol:
-            top[jj + 1:] *= rcp
-            top[jj] = root
-        if q != j:
-            panel[q] = jr
-        panel[j] = top
-        below = panel[j + 1:, jj] * rcp if chol or pivot != 0 else \
-            panel[j + 1:, jj].copy()
-        panel[j + 1:, jj] = below
-        u = pr[jj + 1:] * rcp if chol else pr[jj + 1:]
-        panel[j + 1:, jj + 1:] -= np.outer(below, u)
-    o[:, lc0:lc0 + wp] = panel
-    return piv, rd, info
-
-
-def _walk(a, b, cluster, chol=False, factors=False):
-    """What one K2 launch computes for one scenario with a cluster of
-    ``cluster`` blocks: ``(x, info, lu, piv)`` (pivots 1-based)."""
-    n = len(b)
-    full = np.concatenate([a, b[:, None]], 1)
-    ncols = [k2.block_columns(n, cluster, r) for r in range(cluster)]
-    col = [full[:, [_global_col(lc, cluster, r) for lc in range(ncols[r])]]
-           for r in range(cluster)]
-    info = [0] * cluster
-    pivots = np.zeros(n, dtype=np.int64)
-    panels = -(-n // W)
-    for p in range(panels):
-        k0, owner = p * W, p % cluster
-        nf = min(W, n - k0)
-        lc0 = _cols_before(p, cluster, owner)
-        pv, rd, bad = _factor_panel(col[owner], n, k0, nf, lc0, chol)
-        info[owner] = info[owner] or bad
-        pivots[k0:k0 + nf] = np.asarray(pv) + 1
-        L = col[owner][:, lc0:lc0 + nf].copy()
-        for r in range(cluster):
-            c = col[r]
-            before = _cols_before(p, cluster, r)
-            right = min(_cols_through(p, cluster, r), ncols[r])
-            for cc in range(ncols[r]):
-                if chol or (cc < right and not (factors and cc < before)):
+            p = _pivot(ls[:, jj], j)
+            prow, jrow = ls[p].copy(), ls[j].copy()
+            pivot = prow[jj]
+            rcp = 1.0 / pivot
+            piv.append(p)
+            rcps.append(rcp)
+            if pivot == 0 and not info:
+                info = j + 1
+            y[[j, p]] = y[[p, j]]
+            src[[j, p]] = src[[p, j]]
+            org[[j, p]] = org[[p, j]]
+            for r in range(j, n):
+                if r == j:
+                    ls[r] = prow
                     continue
-                for t in range(nf):
-                    c[[k0 + t, pv[t]], cc] = c[[pv[t], k0 + t], cc]
-            for cc in range(right, ncols[r]):
-                u = c[k0:k0 + nf, cc].copy()
-                for t in range(nf):
-                    if chol:
-                        u[t] *= rd[t]
-                    u[t + 1:] -= L[k0 + t + 1:k0 + nf, t] * u[t]
-                c[k0:k0 + nf, cc] = u
-                c[k0 + nf:, cc] -= L[k0 + nf:] @ u
-    lu = np.zeros((n, n))
-    for r in range(cluster):
-        for lc in range(ncols[r]):
-            g = _global_col(lc, cluster, r)
-            if g < n:
-                lu[:, g] = col[r][:, lc]
-    holder = (n // W) % cluster
-    y = {holder: col[holder][:, _local_col(n, cluster)].copy()}
+                if r == p:
+                    ls[r] = jrow
+                l = ls[r, jj] * rcp if pivot != 0 else ls[r, jj]
+                ls[r, jj] = l
+                ls[r, jj + 1:nf] -= l * prow[jj + 1:nf]
+                y[r] -= l * y[j]
+        out[org[k0:], jj] = ls[k0:, jj]
+    ls[k0:] = out[src[k0:]]
+    return piv, np.asarray(rcps), info
+
+
+def _factor_panel_cholesky(ls, y, k0, nf):
+    """The Cholesky's column steps on the staged panel, the lower triangle
+    only: step j publishes column j of the diagonal block's rows from row j
+    down and row j's right-hand side; row j takes s = a_jj / sqrt(a_jj),
+    every row below scales its column j by 1 / sqrt(a_jj) and updates its
+    later columns up to its own diagonal and its right-hand side. Returns 1
+    / sqrt of each pivot and the first pivot that is not positive (1-based)
+    or 0."""
+    rcps, info = [], 0
+    lo = k0 + nf  # the first row below the diagonal block
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for jj in range(nf):
+            j = k0 + jj
+            pub = ls[j:lo, jj].copy()  # column j from row j, unscaled
+            pivot = pub[0]
+            rcp = 1.0 / np.sqrt(pivot)
+            rcps.append(rcp)
+            if not pivot > 0 and not info:
+                info = j + 1
+            ls[j, jj] = pivot * rcp
+            y[j] *= rcp
+            u = pub[1:] * rcp  # L's column j below row j, in the block
+            for r in range(j + 1, lo):  # the block's rows: to the diagonal
+                l = ls[r, jj] * rcp
+                ls[r, jj] = l
+                ls[r, jj + 1:r - k0 + 1] -= l * u[:r - j]
+                y[r] -= l * y[j]
+            l = ls[lo:, jj] * rcp  # the rows below the block
+            ls[lo:, jj] = l
+            ls[lo:, jj + 1:nf] -= np.outer(l, u)
+            y[lo:] -= l * y[j]
+    return np.asarray(rcps), info
+
+
+def _walk(a, b, chol=False, factors=False):
+    """What one launch computes for one scenario: ``(x, info, w, piv)``,
+    ``w`` the working matrix (the factors when asked for) and the pivots
+    1-based."""
+    n, panel = len(b), k2.PANEL
+    w = np.full((n, n), np.nan)
+    y = b.astype(float).copy()
+    urcp = np.zeros(n)
+    pivots = np.zeros(n, dtype=np.int64)
+    info = 0
+    panels = -(-n // panel)
+    for p in range(panels):
+        k0 = p * panel
+        nf = min(panel, n - k0)
+        frm = a if p == 0 else w.copy()
+        ls = np.full((n, nf), np.nan)
+        ls[k0:] = frm[k0:, k0:k0 + nf]  # staged
+        src = np.arange(n)
+        if chol:
+            rcps, bad = _factor_panel_cholesky(ls, y, k0, nf)
+            piv = list(range(k0, k0 + nf))
+        else:
+            piv, rcps, bad = _factor_panel_lu(ls, y, src, k0, nf)
+        info = info or bad
+        urcp[k0:k0 + nf] = rcps
+        pivots[k0:k0 + nf] = np.asarray(piv) + 1
+        rend = n if chol or factors else k0 + nf
+        w[k0:rend, k0:k0 + nf] = ls[k0:rend]
+        # the warps' groups of 8 trailing columns
+        for c0 in range(k0 + nf, n, k2.COLUMNS):
+            cols = slice(c0, min(c0 + k2.COLUMNS, n))
+            if chol:
+                lt = ls[cols].T  # U12 = L21ᵀ, rows c of the panel
+                w[c0:, cols] = frm[c0:, cols] - ls[c0:] @ lt
+                continue
+            u = frm[src[k0:k0 + panel], cols].copy()
+            for t in range(panel):
+                u[t + 1:] -= np.outer(ls[k0 + t + 1:k0 + panel, t], u[t])
+            w[k0 + panel:, cols] = frm[src[k0 + panel:], cols] - \
+                ls[k0 + panel:] @ u
+            w[k0:k0 + panel, cols] = u
+        if factors and not chol:
+            for t in range(nf):
+                w[[k0 + t, piv[t]], :k0] = w[[piv[t], k0 + t], :k0]
     x = np.zeros(n)
     for p in range(panels - 1, -1, -1):
-        owner, k0 = p % cluster, p * W
-        vec = y[holder].copy()
-        u = col[owner][:, _local_col(k0, cluster):]
-        for jj in range(min(W, n - k0) - 1, -1, -1):
-            j = k0 + jj
-            with np.errstate(divide="ignore", invalid="ignore"):
-                x[j] = vec[j] / u[j, jj]
-                vec[:j] -= u[:j, jj] * x[j]
-        y[owner], holder = vec, owner
-    return x, min([f for f in info if f], default=0), lu, pivots
+        k0 = p * panel
+        nf = min(panel, n - k0)
+        cols = range(k0, k0 + nf)
+        # U[:, c] for the LU, Lᵀ[:, c] = L[c, :] for the Cholesky
+        col = (lambda c: w[c, :c]) if chol else (lambda c: w[:c, c])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            for c in reversed(cols):
+                x[c] = y[c] * urcp[c]
+                y[k0:c] -= col(c)[k0:c] * x[c]
+            for c in reversed(cols):
+                y[:k0] -= col(c)[:k0] * x[c]
+    return x, info, w, pivots
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
-@pytest.mark.parametrize("n", [1, 15, 16, 17, 28, 60, 236])
-def test_walk_of_the_kernel_layout_lu(data_path, n, cluster):
-    """At panel and cluster boundaries and the fleets' orders: getrf's
-    pivots, its factors and the solution, with the factors' row swaps
-    applied to the columns left of each panel."""
+def _lu_input(data_path, n, kind, rng):
+    """A general N(0, 1) matrix, ``2 I + N(0, 1/n)`` with its rows shuffled
+    (every column pivots, each by a wide margin), or case118's NR
+    Jacobian."""
+    if kind == "normal":
+        return rng.standard_normal((n, n))
+    if kind == "dominant":
+        a = rng.standard_normal((n, n)) / np.sqrt(n) + 2 * np.eye(n)
+        return a[rng.permutation(n)]
+    return _nr_inputs(data_path, "case118", 1)[3].jac[0].numpy()
+
+
+@pytest.mark.parametrize("n,kind", [(n, kind) for n in ORDERS
+                                    for kind in ("normal", "dominant")]
+                         + [(236, "case118")])
+def test_walk_of_the_kernel_layout_lu(data_path, n, kind):
+    """Below, at and above the panel's and the one-row kernel's edges and
+    at the fleets' orders: getrf's pivots, its factors and the solution,
+    with each panel's swaps applied to the columns left of it."""
     rng = np.random.default_rng(n)
-    a = rng.standard_normal((n, n))
-    if n == 236:
-        a = _nr_inputs(data_path, "case118", 1)[3].jac[0].numpy()
+    a = _lu_input(data_path, n, kind, rng)
     b = rng.standard_normal(n)
     lu, piv, info = (t[0].numpy() for t in torch.linalg.lu_factor_ex(
         torch.tensor(a)[None]))
     want = np.linalg.solve(a, b)
-    x, got_info, got_lu, got_piv = _walk(a, b, cluster, factors=True)
+    x, got_info, got_lu, got_piv = _walk(a, b, factors=True)
     assert got_info == info == 0
     np.testing.assert_array_equal(got_piv, piv)
     assert np.abs(got_lu - lu).max() <= WALK_TOL * np.abs(lu).max()
     assert np.abs(x - want).max() <= JAX_TOL * np.abs(want).max()
 
 
-@pytest.mark.parametrize("cluster", [1, 4])
-@pytest.mark.parametrize("n", [17, 60, 236])
-def test_walk_of_the_kernel_layout_cholesky(n, cluster):
+@pytest.mark.parametrize("n", [1, 17, 31, 32, 33, 60, 128, 129, 236, 256])
+def test_walk_of_the_kernel_layout_cholesky(n):
+    """The one-triangle Cholesky: NaN above the diagonal is never read, the
+    factor is the plain version's and so is the solution."""
     rng = np.random.default_rng(n)
     m = rng.standard_normal((n, n))
     g = m @ m.T / n + np.eye(n)
     b = rng.standard_normal(n)
-    want, info = k2.fleet_cholesky_solve_ref(torch.tensor(g)[None],
-                                             torch.tensor(b)[None])
-    x, got_info, _, _ = _walk(g, b, cluster, chol=True)
+    chol, info = torch.linalg.cholesky_ex(torch.tensor(g)[None])
+    want, _ = k2.fleet_cholesky_solve_ref(torch.tensor(g)[None],
+                                          torch.tensor(b)[None])
+    g[np.triu_indices(n, 1)] = np.nan
+    x, got_info, w, _ = _walk(g, b, chol=True)
     assert got_info == int(info) == 0
+    low = np.tril_indices(n)
+    chol = chol[0].numpy()
+    assert np.abs(w[low] - chol[low]).max() <= WALK_TOL * np.abs(chol).max()
     want = want[0].numpy()
     assert np.abs(x - want).max() <= JAX_TOL * np.abs(want).max()
 
 
-def test_walk_reports_the_plain_versions_info():
+@pytest.mark.parametrize("chol,n,bad", [
+    (False, 40, 5),     # the first panel
+    (False, 70, 40),    # a later panel
+    (False, 200, 150),  # two rows a thread
+    (True, 40, 20),     # the first diagonal block
+    (True, 150, 100),   # a later one, rows below it
+])
+def test_walk_reports_the_plain_versions_info(chol, n, bad):
     """A zero column (LU) and an indefinite gain (Cholesky) stop no
     scenario: info is the plain version's, x is not finite."""
-    rng = np.random.default_rng(0)
-    a = rng.standard_normal((28, 28))
-    a[:, 5] = 0.0
-    b = rng.standard_normal(28)
-    info = int(torch.linalg.lu_factor_ex(torch.tensor(a)[None])[2])
-    x, got, _, _ = _walk(a, b, 2)
-    assert got == info == 6 and not np.isfinite(x).all()
-    g = np.diag(np.r_[np.ones(20), -1.0, np.ones(19)])
-    info = int(torch.linalg.cholesky_ex(torch.tensor(g)[None])[1])
-    assert _walk(g, np.ones(40), 2, chol=True)[1] == info == 21
+    rng = np.random.default_rng(n)
+    b = rng.standard_normal(n)
+    if chol:
+        m = rng.standard_normal((n, n))
+        a = m @ m.T / n + np.eye(n)
+        a[bad] = a[:, bad] = 0.0
+        a[bad, bad] = -1.0
+        info = int(torch.linalg.cholesky_ex(torch.tensor(a)[None])[1])
+    else:
+        a = rng.standard_normal((n, n))
+        a[:, bad] = 0.0
+        info = int(torch.linalg.lu_factor_ex(torch.tensor(a)[None])[2])
+    x, got, _, _ = _walk(a, b, chol=chol)
+    assert got == info == bad + 1 and not np.isfinite(x).all()
+
+
+def test_walk_pivot_step_takes_nan_as_largest_and_ties_low():
+    """getrf's choice across warps: a NaN outranks every number, and of two
+    equal |a| in rows of different warps the lower row wins."""
+    col = np.zeros(200)
+    col[[40, 150]] = [-3.0, 3.0]  # warps 1 and 0 (rows 150 = 22 + 128)
+    assert _pivot(col, 0) == 40
+    col[170] = np.nan
+    assert _pivot(col, 0) == 170
+    assert _pivot(col, 171) == 171
