@@ -7,8 +7,8 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels K1 (``nr_fill``), K2 (``fleet_solve``),
 K3 (``se_fill``), K4 (``gs_sweep``), K5 (``schur_gather``), K6
-(``opf_fill``) and K7 (``kkt_fill``) from the sources in the checkout and
-holds each against its plain PyTorch version;
+(``opf_fill``), K7 (``kkt_fill``) and K8 (``gain_fill``) from the sources in
+the checkout and holds each against its plain PyTorch version;
 each K3, K5 and K6 call (phases 5, 13, 15, 17) is captured once in a CUDA
 graph to show that it puts one kernel and no memset or memcpy on the card,
 and is timed with its device time alone (queued behind a sleep kernel) and
@@ -30,6 +30,15 @@ Then the Gauss-Newton WLS state-estimation path
 — ``measurement`` + ``add_*`` -> ``gauss_newton`` -> ``state_estimation`` —
 on a 1,369-bus grid against the scipy oracle and on case14/30 with every row
 type, and the Monte-Carlo SE fleets of bench configs 3 and 5b (phases 5-7).
+Phase 5b holds K3's entry mode and K8 (the estimators' gain and
+right-hand side from H's fixed entry pattern) against their plain versions
+(K8 bit for bit) on case14/30/118 with every row type, the fleet shapes,
+the 10k DC set and a correlated PMU set, and times K8 in turns with the
+dense route it replaced (K3's dense H and one f64 GEMM), which
+``dense_gain_route`` swaps in as the yardstick: phases 6, 7, 11 and 12 run
+their estimates through K8 and again on the dense route, which must take
+the same iterations to the same states; no main-path solve may reach the
+plain versions or the dense route (``gain_plain_barred``).
 Then the rest of power flow: K4 against its plain version on case14/30/118,
 the 10k and 25k grids and a grid with a 152-entry Y row, a launch of many
 sweeps against as many one-sweep launches, both voltage layouts (phase 8);
@@ -137,6 +146,7 @@ its gate uses), times and least possible time; the last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -182,9 +192,15 @@ from juliagrid_tpu_torch.estimation.acse_bbd import (_block_chunk,
                                                      _gn_increment_bbd,
                                                      gauss_newton_bbd,
                                                      se_bbd_solve)
-from juliagrid_tpu_torch.estimation.acse import (_normal_equations,
+from juliagrid_tpu_torch.estimation import acse as acse_mod
+from juliagrid_tpu_torch.estimation import dcse as dcse_mod
+from juliagrid_tpu_torch.estimation import pmuse as pmuse_mod
+from juliagrid_tpu_torch.estimation.acse import (_gain_equations,
+                                                 _normal_equations,
                                                  _se_solve, _solve_normal,
-                                                 build_h, compile_se_arrays)
+                                                 _weighted, build_h,
+                                                 compile_se_arrays,
+                                                 gain_table)
 from juliagrid_tpu_torch.estimation.baddata import (_deactivate, _host_csr,
                                                     _lnr_detect,
                                                     _projection_diag)
@@ -197,6 +213,7 @@ from juliagrid_tpu_torch.entry import entry
 from juliagrid_tpu_torch.measurement import devices as meter_devices
 from juliagrid_tpu_torch.estimation.takahashi import projection_diag_sparse
 from juliagrid_tpu_torch.kernels import fleet_solve as k2
+from juliagrid_tpu_torch.kernels import gain_fill as k8
 from juliagrid_tpu_torch.kernels import gs_sweep as k4
 from juliagrid_tpu_torch.kernels import kkt_fill as k7
 from juliagrid_tpu_torch.kernels import nr_fill as k1
@@ -370,6 +387,12 @@ K6_OPS_PER_ENTRY, K6_OPS_PER_FLOW = 40, 700
 #: K7: per COO value (its share of an item's closed forms, the max, the
 #: two scales and the sum) and per flow row (its 4x4 Hessian and gradient)
 K7_OPS_PER_ENTRY, K7_OPS_PER_FLOW = 20, 1000
+#: K8: per contribution and scenario (two products and a sum) and per rhs
+#: entry (the weighted residual, its product and the sum)
+K8_OPS_PER_CONTRIB, K8_OPS_PER_RHS = 3, 6
+#: K8's G and rhs against the dense route's, of the scenario's max|G| and
+#: max|rhs| (one f64 formula, summed in two orders)
+K8_DENSE_TOL = 1e-12
 
 
 class SmokeFailure(RuntimeError):
@@ -601,14 +624,14 @@ def phase0():
     card = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    kernels = (k1, k2, k3, k4, k5, k6, k7)
+    kernels = (k1, k2, k3, k4, k5, k6, k7, k8)
     with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
         for build in [pool.submit(k._library) for k in kernels]:
             build.result()
     build_s = time.perf_counter() - t0
     print(f"phase 0 device: {torch.cuda.get_device_name(0)} ({card}), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"K1-K7 build+load {build_s!r} s")
+          f"K1-K8 build+load {build_s!r} s")
     return card
 
 
@@ -1241,10 +1264,331 @@ def phase5():
     return max(worst, err), (ms, plain_ms, least)
 
 
-def se_timed_split(arr, net, vm, va):
+# ---- K8: the estimators' gains from H's entry pattern ----------------------
+
+def zero_se_launches():
+    """Set the WLS estimators' kernel counts to 0: K3 (dense mode), K3's
+    entry mode, K8."""
+    k3.se_fill.launches = k3.se_fill_entries.launches = 0
+    k8.gain_fill.launches = 0
+
+
+def se_launches():
+    """The WLS estimators' kernel counts since ``zero_se_launches``."""
+    return collections.Counter(K3=k3.se_fill.launches,
+                               K3e=k3.se_fill_entries.launches,
+                               K8=k8.gain_fill.launches)
+
+
+def dense_gain(arr, net, vm, va, mean, fill=None, gain=None):
+    """The dense route K8 replaced: K3's dense H, then the gain GEMM
+    (``acse._normal_equations``)."""
+    return _normal_equations(arr, k3.se_fill(arr, net, vm, va, mean))
+
+
+def dense_dc_gain(arr):
+    """The DC estimator's dense route: ``(W½Hm)ᵀ(W½Hm) + e_s e_sᵀ`` and
+    ``(W½Hm)ᵀ(W½z)``, one GEMM over the dense H."""
+    a, b = _dcse_weighted(arr)
+    gain = a.mT @ a
+    gain[arr.slack, arr.slack] += 1.0
+    return gain, a.mT @ b
+
+
+def dense_pmu_gain(arr):
+    """The PMU estimator's dense route: ``HᵀWH`` and ``HᵀWz`` (W with the
+    correlated pairs), one GEMM over the dense H."""
+    wh, wz = _weighted(arr, arr.h_dense, arr.mean)
+    return arr.h_dense.mT @ wh, arr.h_dense.mT @ wz
+
+
+@contextlib.contextmanager
+def dense_gain_route():
+    """While active, the estimators' gains take the dense route K8
+    replaced (the AC: K3's dense H and one f64 GEMM; DC and PMU: the GEMM
+    over their dense H): the yardstick of phases 5b-7 and 11, never the
+    main path."""
+    saved = (acse_mod._gain_equations, dcse_mod._dcse_normal_equations,
+             pmuse_mod._pmuse_normal_equations)
+    acse_mod._gain_equations = dense_gain
+    dcse_mod._dcse_normal_equations = dense_dc_gain
+    pmuse_mod._pmuse_normal_equations = dense_pmu_gain
+    try:
+        yield
+    finally:
+        (acse_mod._gain_equations, dcse_mod._dcse_normal_equations,
+         pmuse_mod._pmuse_normal_equations) = saved
+
+
+@contextlib.contextmanager
+def gain_plain_barred():
+    """While active, a CUDA tensor that reaches the plain versions of K8
+    or of K3's entry mode, or the dense route, fails the run: the main
+    path must launch K3's entry mode and K8 for every gain it forms."""
+    saved = (k8.gain_fill_ref, k3.se_fill_entries_ref,
+             acse_mod._normal_equations)
+
+    def barred(fn, tensor_of):
+        def guard(*args, **kw):
+            check(tensor_of(args).device.type != "cuda",
+                  f"{fn.__name__} got a CUDA tensor on the main path")
+            return fn(*args, **kw)
+        return guard
+
+    k8.gain_fill_ref = barred(saved[0], lambda args: args[1])
+    k3.se_fill_entries_ref = barred(saved[1], lambda args: args[2])
+    acse_mod._normal_equations = barred(saved[2], lambda args: args[1].r)
+    try:
+        yield
+    finally:
+        (k8.gain_fill_ref, k3.se_fill_entries_ref,
+         acse_mod._normal_equations) = saved
+
+
+def compare_k3_entries(label, arr, net, vm, va, mean):
+    """Phase 5b: K3's entry mode against ``se_fill_entries_ref`` (h, r and
+    the values, of max(1, |plain|)), one kernel node a call; its times and
+    bound. Returns the mode's output, the worst abs difference and
+    ``(ms, plain_ms, bound)``."""
+    got = k3.se_fill_entries(arr, net, vm, va, mean)
+    ref = k3.se_fill_entries_ref(arr, net, vm, va, mean)
+    torch.cuda.synchronize()
+    worst_abs = worst_rel = 0.0
+    for name in ("h", "r", "vals"):
+        a, b = getattr(got, name), getattr(ref, name)
+        diff = (a - b).abs()
+        worst_abs = max(worst_abs, diff.max().item())
+        worst_rel = max(worst_rel,
+                        (diff / b.abs().clamp(min=1.0)).max().item())
+    check(worst_rel <= K3_REL_TOL, f"{label}: K3's entry mode disagrees "
+          f"with se_fill_entries_ref, rel {worst_rel:.3e}")
+    note_rel("se_fill_entries", worst_rel)
+    check(torch.equal(got.vals != 0, ref.vals != 0),
+          f"{label}: K3's entry mode's zero pattern differs")
+    del ref
+    check_one_launch(f"{label} K3 entry mode", lambda: k3.se_fill_entries(
+        arr, net, vm, va, mean))
+    b, n = vm.shape
+    m = mean.shape[1]
+    desc = arr.desc
+    least = bound(tensor_bytes(desc.idx, desc.coef, desc.order, desc.epos,
+                               arr.status, net.row_ptr, net.cols, net.yg,
+                               net.yb, net.diag, vm, va, mean, *got),
+                  b * m * K3_OPS_PER_ROW)
+    ms = cuda_ms(lambda: k3.se_fill_entries(arr, net, vm, va, mean), 20)
+    dev_ms = queued_ms(lambda: k3.se_fill_entries(arr, net, vm, va, mean),
+                       20)
+    plain_ms = cuda_ms(lambda: k3.se_fill_entries_ref(arr, net, vm, va,
+                                                      mean), 3)
+    dense_ms = cuda_ms(lambda: k3.se_fill(arr, net, vm, va, mean), 5)
+    print(f"phase 5b {label} B={b} n={n} m={m} E={desc.entries}: K3 entry "
+          f"mode max abs diff {worst_abs!r}, max rel diff {worst_rel!r}, "
+          f"one kernel a call; {ms!r} ms (device {dev_ms!r} ms queued), "
+          f"se_fill_entries_ref {plain_ms!r} ms, K3's dense H {dense_ms!r} "
+          f"ms; bound {least[0]!r} ms by {least[1]} "
+          f"({100 * least[0] / ms!r}%)")
+    return got, worst_abs, (ms, plain_ms, least)
+
+
+def k8_bound(table, vals, w, off, r):
+    """K8's least time: G and rhs written once, the values, weights,
+    residuals and the kernel's tables read once, or its operations over
+    the f64 peak."""
+    batch, n = vals.shape[0], table.n
+    tables = [getattr(table, name) for name in k8._FIELDS]
+    nbytes = 8 * batch * (n * n + n) + tensor_bytes(vals, w, off, r,
+                                                    *tables)
+    flops = batch * (K8_OPS_PER_CONTRIB * table.c_a.numel()
+                     + K8_OPS_PER_RHS * table.col_ref.numel())
+    return bound(nbytes, flops)
+
+
+def same_bits_all(pairs):
+    return all(same_bits_of(a, b) for a, b in pairs)
+
+
+def compare_k8(label, table, vals, w, off, r, dense=None):
+    """Phase 5b: K8 against ``gain_fill_ref`` bit for bit, two launches
+    the same bits, one kernel node a call; against the dense route's
+    ``dense()`` within K8_DENSE_TOL of each scenario's max|G| and max|rhs|.
+    Returns the worst abs differences from the plain version and from the
+    dense route."""
+    g, rhs = k8.gain_fill(table, vals, w, off, r)
+    again = k8.gain_fill(table, vals, w, off, r)
+    ref = k8.gain_fill_ref(table, vals, w, off, r)
+    torch.cuda.synchronize()
+    plain_abs = max((a - b).abs().max().item() for a, b in zip((g, rhs), ref))
+    check(same_bits_all(zip((g, rhs), ref)),
+          f"{label}: K8 differs from gain_fill_ref by {plain_abs!r}")
+    check(same_bits_all(zip((g, rhs), again)),
+          f"{label}: two K8 launches differ")
+    del again, ref
+    note_rel("gain_fill", 0.0)
+    check_one_launch(f"{label} K8", lambda: k8.gain_fill(table, vals, w,
+                                                         off, r))
+    worst = rel = 0.0
+    if dense is not None:
+        gd, rd = dense()
+        if gd.dim() == 2:
+            gd, rd = gd[None], rd[None]
+        for a, b in ((g, gd), (rhs, rd)):
+            diff = (a - b).abs().flatten(1).amax(1)
+            worst = max(worst, diff.max().item())
+            rel = max(rel, (diff / b.abs().flatten(1).amax(1)).max().item())
+        del gd, rd
+        check(rel <= K8_DENSE_TOL, f"{label}: K8 {rel:.3e} of max|G| off "
+              "the dense route")
+    nnz = table.nz_col.numel()
+    print(f"phase 5b {label} B={vals.shape[0]} N={table.n}: K8 = "
+          f"gain_fill_ref bit for bit, two launches the same bits, one "
+          f"kernel a call; {nnz} structural nonzeros "
+          f"({100 * nnz / table.n ** 2!r}% of G), "
+          f"{table.c_a.numel()} contributions, {table.entries} entries; "
+          f"vs the dense route max abs {worst!r}, {rel!r} of max|G|")
+    return plain_abs, worst
+
+
+def dense_gain_ms(arr, net, vm, va, mean, reps):
+    """CUDA-event ms of the dense route's gain stage alone
+    (``_normal_equations`` on a fresh dense H each run: it scales H in
+    place)."""
+    times = []
+    for _ in range(reps + 1):
+        res = k3.se_fill(arr, net, vm, va, mean)
+        times.append(event_ms(lambda: _normal_equations(arr, res))[0])
+        del res
+    return sum(times[1:]) / reps
+
+
+def k8_times(label, table, vals, w, off, r, dense, reps=5):
+    """K8's ms in turns with the dense route's gain (K8, dense, dense, K8;
+    ``dense`` times one dense gain), its device ms alone, the plain
+    version's ms and the bound. Returns ``(ms, plain_ms, bound),
+    dense_ms``."""
+    k8_fn = lambda: k8.gain_fill(table, vals, w, off, r)  # noqa: E731
+    turns = {"K8": [], "dense": []}
+    for which in ("K8", "dense", "dense", "K8"):
+        turns[which].append(cuda_ms(k8_fn, reps) if which == "K8"
+                            else dense())
+    ms, dense_ms = min(turns["K8"]), min(turns["dense"])
+    dev_ms = queued_ms(k8_fn, reps)
+    plain_ms = cuda_ms(lambda: k8.gain_fill_ref(table, vals, w, off, r), 2)
+    least = k8_bound(table, vals, w, off, r)
+    print(f"phase 5b {label} B={vals.shape[0]} N={table.n}: in turns K8 "
+          + ", ".join(f"{t!r}" for t in turns["K8"])
+          + " ms, the dense route's gain "
+          + ", ".join(f"{t!r}" for t in turns["dense"])
+          + f" ms; K8 device {dev_ms!r} ms; gain_fill_ref {plain_ms!r} ms; "
+          f"bound {least[0]!r} ms by {least[1]} "
+          f"({100 * least[0] / ms!r}%); K8 / dense {ms / dense_ms!r}")
+    return (ms, plain_ms, least), dense_ms
+
+
+def k8_ac_cell(label, system, mon, pf, batch, rng, timed):
+    """Phase 5b on an AC set: K3's entry mode and K8 against their plain
+    versions at ``batch`` random states and means, K8 against the dense
+    route; with ``timed`` K8 in turns with the dense route's gain.
+    Returns the worst abs errors of both and, with ``timed``, their
+    times."""
+    arr, net, _, (vm, va, mean) = k3_inputs(system, mon, pf, batch, rng)
+    t0 = time.perf_counter()
+    table = gain_table(arr, net)
+    host_s = time.perf_counter() - t0
+    ent, k3e_err, k3e_times = compare_k3_entries(label, arr, net, vm, va,
+                                                 mean)
+    k8_err = compare_k8(label, table, ent.vals, arr.w, arr.pair_off, ent.r,
+                        dense=lambda: dense_gain(arr, net, vm, va, mean))[0]
+    print(f"phase 5b {label}: K8's table built on the host in {host_s!r} s")
+    times = None
+    if timed:
+        times = k8_times(label, table, ent.vals, arr.w, arr.pair_off, ent.r,
+                         lambda: dense_gain_ms(arr, net, vm, va, mean, 3))
+    return k3e_err, k8_err, k3e_times, times
+
+
+def phase5b():
+    """K3's entry mode and K8 against their plain versions and the dense
+    route; K8 timed in turns with the dense route at case118 x1024, the
+    1,369-bus grid x32 and x1, and the 10k DC set. Returns the worst abs
+    abs errors against the plain versions and the case118 x1024 times of
+    both (K8's with the dense route's gain)."""
+    rng = np.random.default_rng(SEED)
+    cells = []
+    # K8 takes the scenarios four a warp: batches of 5, 7 and 8 leave
+    # groups of one, three and four
+    for case, batch in (("case14test", 5), ("case30test", 7),
+                        ("case118", 8)):
+        system, pf = solved_case(case)
+        cells.append(k8_ac_cell(f"{case} all 21 row types", system,
+                                every_row_type(system, pf), pf, batch, rng,
+                                False))
+    system = power_system(str(DATA / "case118.m"))
+    mon, pf = scada_pmu(system)
+    cells.append(k8_ac_cell("case118 fleet", system, mon, pf, SE_FLEET,
+                            rng, True))
+    _, _, k3e_times, k8_times_ = cells[-1]
+    system = synthetic_grid(*SE_GRID)
+    mon, pf = scada_pmu(system)
+    for batch in (SE_CHUNK, 1):
+        cells.append(k8_ac_cell(f"{SE_GRID[0]}x{SE_GRID[1]} grid", system,
+                                mon, pf, batch, rng, True))
+    worst_k3e = max(cell[0] for cell in cells)
+    worst_k8 = max(cell[1] for cell in cells)
+    torch.cuda.empty_cache()
+
+    # the 10k DC set (B = 1) and a correlated PMU set
+    system = synthetic_grid(*GRID)
+    mon, _ = dc_wattmeters(system)
+    arr = dc_state_estimation(mon, device="cuda").arrays
+    t0 = time.perf_counter()
+    vals, table = k8.dense_entries(arr.h_dense, arr.slack)
+    host_s = time.perf_counter() - t0
+    off = arr.w.new_zeros(0)
+    worst_k8 = max(worst_k8, compare_k8(
+        f"{GRID[0]}x{GRID[1]} DC", table, vals, arr.w, off, arr.mean[None],
+        dense=lambda: dense_dc_gain(arr))[0])
+    print(f"phase 5b {GRID[0]}x{GRID[1]} DC: H's entries and K8's table "
+          f"{host_s!r} s (nonzero on the card, table on the host)")
+    k8_times(f"{GRID[0]}x{GRID[1]} DC", table, vals, arr.w, off,
+             arr.mean[None], lambda: event_ms(lambda: dense_dc_gain(arr))[0],
+             reps=3)
+    del arr, vals, table
+    torch.cuda.empty_cache()
+    system = synthetic_grid(*SE_GRID)
+    pf = newton_raphson(system, device="cuda")
+    power_flow(pf, power=True, current=True)
+    mon = measurement(system)
+    add_pmu(mon, analysis=pf, correlated=True, noise=False, status_from=-1,
+            status_to=-1)
+    add_pmu(mon, analysis=pf, noise=False, status_bus=-1)
+    arr = pmu_state_estimation(mon, device="cuda").arrays
+    vals, table = k8.dense_entries(arr.h_dense, pair_r1=arr.pair_r1,
+                                   pair_r2=arr.pair_r2)
+    worst_k8 = max(worst_k8, compare_k8(
+        f"{SE_GRID[0]}x{SE_GRID[1]} PMU, correlated at the buses", table,
+        vals, arr.w, arr.pair_off, arr.mean[None],
+        dense=lambda: dense_pmu_gain(arr))[0])
+    return (worst_k3e, k3e_times), (worst_k8, k8_times_)
+
+
+def se_stages(dense):
+    """The fill and gain stages of a GN increment: K3's entry mode and K8,
+    or (``dense``) the dense route's K3 and GEMM."""
+    if dense:
+        return (lambda arr, net, vm, va, mean: k3.se_fill(arr, net, vm, va,
+                                                          mean),
+                lambda arr, net, res: _normal_equations(arr, res))
+    return (k3.se_fill_entries,
+            lambda arr, net, res: k8.gain_fill(
+                gain_table(arr, net), res.vals, arr.w, arr.pair_off, res.r))
+
+
+def se_timed_split(arr, net, vm, va, dense=False):
     """The loop of ``_se_solve`` built from its own pieces, with CUDA events
-    around K3, the gain (rhs, W½ scaling and matmul), the Cholesky with its
+    around the fill (K3's entry mode; ``dense``: K3's dense H), the gain
+    (K8; ``dense``: rhs, W½ scaling and matmul), the Cholesky with its
     solve and residual, and the max|dx| readback."""
+    fill, form = se_stages(dense)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     split = {"K3": 0.0, "gain": 0.0, "cholesky": 0.0, "readback": 0.0}
     n = vm.shape[0]
@@ -1252,9 +1596,9 @@ def se_timed_split(arr, net, vm, va):
     it = 0
     while True:
         ev[0].record()
-        res = k3.se_fill(arr, net, vm, va, mean)
+        res = fill(arr, net, vm, va, mean)
         ev[1].record()
-        gain, rhs = _normal_equations(arr, res)
+        gain, rhs = form(arr, net, res)
         del res
         ev[2].record()
         dx, maxinc, _ = _solve_normal(arr, gain, rhs)
@@ -1295,15 +1639,17 @@ def phase6():
     se = gauss_newton(mon, device="cuda")
     vm0, va0 = se._state()
     t3 = time.perf_counter()
-    k3.se_fill.launches = 0
-    state_estimation(se, power=True)
+    zero_se_launches()
+    with gain_plain_barred():
+        state_estimation(se, power=True)
     torch.cuda.synchronize()
-    launches = k3.se_fill.launches
+    launches = se_launches()
     t4 = time.perf_counter()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(launches == se.method.iteration + 1,
-          f"K3 launched {launches} times for {se.method.iteration} "
-          f"iterations")
+    check(launches["K3e"] == launches["K8"] == se.method.iteration + 1
+          and not launches["K3"],
+          f"K3's entry mode / K8 / K3's dense mode launched {launches} for "
+          f"{se.method.iteration} iterations")
     check(not se.method.refine_escalated and se.method.refine_residual
           <= 1e-6, f"SE grid: rel {se.method.refine_residual!r}")
     oracle = oracle_wls_se(system, mon)
@@ -1320,18 +1666,49 @@ def phase6():
           f"{system.bus.number}, m={m}, converged in {se.method.iteration} "
           f"iterations (oracle {oracle.iterations}), max |dvm| {dvm!r}, "
           f"max |dva| {dva!r}, rel {se.method.refine_residual!r}, K3 "
-          f"launches {launches}; wall: power_system {t1 - t0!r} s, power "
+          f"entry-mode and K8 launches {launches['K3e']}, "
+          f"{launches['K8']}; wall: power_system {t1 - t0!r} s, power "
           f"flow + measurement set {t2 - t1!r} s, gauss_newton {t3 - t2!r} "
           f"s, state_estimation(power=True) {t4 - t3!r} s; peak device "
           f"memory {peak_gb!r} GB")
 
     main_se, main_mon = se, mon
-    it, split = se_timed_split(se.arrays, se.net, vm0, va0)
-    check(it == se.method.iteration,
-          f"SE grid: the timed loop took {it} iterations")
-    print(f"phase 6 per-iteration split over {it + 1} increments (CUDA "
-          "events): " + ", ".join(f"{k} {v / (it + 1)!r} ms"
-                                  for k, v in split.items()))
+    dense = gauss_newton(mon, device="cuda")
+    with dense_gain_route():
+        t_dense, _ = wall_s(lambda: state_estimation(dense, power=True))
+    ddense = max(float(np.abs(dense.voltage.magnitude
+                              - se.voltage.magnitude).max()),
+                 wrapped_max(dense.voltage.angle, se.voltage.angle))
+    check(dense.method.iteration == se.method.iteration
+          and dense.method.converged and ddense <= TWIN_STATE_TOL,
+          f"SE grid: the dense route took {dense.method.iteration} "
+          f"iterations, state {ddense:.3e} off K8's")
+    # the same estimate again on the same analysis: K8's table is built
+    # once per measurement pattern, in the first solve above
+    first = (se.voltage.magnitude, se.voltage.angle)
+    se.voltage.magnitude, se.voltage.angle = (x.cpu().numpy()
+                                              for x in (vm0, va0))
+    with gain_plain_barred():
+        t_again, _ = wall_s(lambda: state_estimation(se, power=True))
+    check(se.method.iteration == dense.method.iteration
+          and np.array_equal(se.voltage.magnitude, first[0])
+          and np.array_equal(se.voltage.angle, first[1]),
+          "SE grid: a second solve from the same start differs")
+    print(f"phase 6 the dense route (K3's dense H, one GEMM): "
+          f"{dense.method.iteration} iterations, state vs K8's {ddense!r}; "
+          f"state_estimation(power=True) {t_dense!r} s against K8's "
+          f"{t4 - t3!r} s (K8's table built inside) and {t_again!r} s "
+          f"again on the same analysis (the same bits)")
+    del dense
+    for route in (False, True):
+        it, split = se_timed_split(se.arrays, se.net, vm0, va0, route)
+        check(it == se.method.iteration,
+              f"SE grid: the timed loop took {it} iterations")
+        print(f"phase 6 per-iteration split over {it + 1} increments "
+              + ("(the dense route: K3's dense H, the gain GEMM; "
+                 if route else "(K3's entry mode, K8; ")
+              + "CUDA events): " + ", ".join(
+                  f"{k} {v / (it + 1)!r} ms" for k, v in split.items()))
 
     for case in ("case14test", "case30test"):
         system, pf = solved_case(case)
@@ -1341,7 +1718,8 @@ def phase6():
                      for kind in ("QR", "PW")]
         for name, kind, mon in runs:
             se = gauss_newton(mon, kind, device="cuda")
-            state_estimation(se)
+            with gain_plain_barred():
+                state_estimation(se)
             dvm, dva = check_se_state(f"{case} {name} {kind}", se,
                                       pf.voltage.magnitude,
                                       pf.voltage.angle, SE_STATE_TOL)
@@ -1352,13 +1730,13 @@ def phase6():
 
 
 def k2_se_inputs(case, batch, rng):
-    """Gains and right-hand sides ``(W½H)ᵀ(W½H)``, ``HᵀW r`` of ``case``'s
-    phase-7 measurement set (``scada_pmu``) from K3 at ``batch`` random
-    states and means (``k3_inputs``)."""
+    """Gains and right-hand sides ``HᵀWH + e_s e_sᵀ``, ``HᵀW r`` of
+    ``case``'s phase-7 measurement set (``scada_pmu``) from K3's entry mode
+    and K8 at ``batch`` random states and means (``k3_inputs``)."""
     system = case_system(case)
     mon, pf = scada_pmu(system)
     arr, net, _, state = k3_inputs(system, mon, pf, batch, rng)
-    return _normal_equations(arr, k3.se_fill(arr, net, *state))
+    return _gain_equations(arr, net, *state)
 
 
 def k2_cholesky_checks():
@@ -1381,33 +1759,44 @@ def k2_cholesky_checks():
 
 
 def fleet_runs(label, arr, net, vm0, va0, means, chunk):
-    """Phase 7: warm-up, then K3, se_fill_ref, se_fill_ref, K3 over all
-    chunks (the first run the main path: its K2 launches are counted and
-    no solve may reach K2's plain version); where the gain's order is
+    """Phase 7: warm-up, then the kernels (K3's entry mode, K8), the plain
+    versions twice (``se_fill_entries_ref``, ``gain_fill_ref``) and the
+    kernels over all chunks (the first run the main path: its launches are
+    counted and no solve may reach the plain versions or the dense route);
+    the dense route it replaced in turns (K8, dense, dense, K8), which must
+    take the same counts to the same states; where the gain's order is
     within K2's cap, K2 against the library route (K2, library, library,
-    K2, each with K3); checks, and prints the split of one increment and
-    the rates. Returns the main path's K2 launches."""
-    def run(fill):
+    K2, each with the kernels); checks, and prints the split of one
+    increment by both routes and the rates. Returns the main path's K2
+    Cholesky, K3 entry-mode and K8 launches."""
+    plain = dict(fill=k3.se_fill_entries_ref, gain=k8.gain_fill_ref)
+
+    def run(**hooks):
         out = []
         for k in range(0, means.shape[0], chunk):
             vm, va, iters, conv = batched_se_solve(
-                arr, net, vm0, va0, means[k:k + chunk], fill=fill)
+                arr, net, vm0, va0, means[k:k + chunk], **hooks)
             out.append((vm, va, iters, conv))
         return [torch.cat(x) for x in zip(*out)]
 
     torch.cuda.reset_peak_memory_stats()
-    # warm-up of both fills: cuBLAS/cuSOLVER set-up, the allocator's pools
-    run(k3.se_fill)
-    run(k3.se_fill_ref)
+    # warm-up of both routes: cuBLAS/cuSOLVER set-up, the allocator's pools
+    run()
+    run(**plain)
     runs = []
     k2.fleet_cholesky_solve.launches = 0
-    with k2_plain_barred():
-        seconds, out = wall_s(lambda: run(k3.se_fill))
-    launches = k2.fleet_cholesky_solve.launches
-    runs.append(("K3", seconds, out))
-    for fill in (k3.se_fill_ref, k3.se_fill_ref, k3.se_fill):
-        seconds, out = wall_s(lambda: run(fill))
-        runs.append(("K3" if fill is k3.se_fill else "se_fill_ref", seconds,
+    zero_se_launches()
+    with k2_plain_barred(), gain_plain_barred():
+        seconds, out = wall_s(lambda: run())
+    launches = se_launches()
+    launches["K2c"] = k2.fleet_cholesky_solve.launches
+    check(launches["K3e"] > 0 and launches["K3e"] == launches["K8"]
+          and not launches["K3"], f"{label}: the main path launched "
+          f"{dict(launches)}")
+    runs.append(("kernels", seconds, out))
+    for hooks in (plain, plain, {}):
+        seconds, out = wall_s(lambda: run(**hooks))
+        runs.append(("plain versions" if hooks else "kernels", seconds,
                      out))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ker, ref = runs[0][2], runs[1][2]
@@ -1415,27 +1804,47 @@ def fleet_runs(label, arr, net, vm0, va0, means, chunk):
     check(bool(ker[3].all()),
           f"{label}: {int((~ker[3]).sum())} of {nscen} did not converge")
     check(torch.equal(ker[2], ref[2]) and torch.equal(ker[3], ref[3]),
-          f"{label}: iteration counts differ from the se_fill_ref run")
+          f"{label}: iteration counts differ from the plain versions' run")
     dstate = max((ker[0] - ref[0]).abs().max().item(),
                  (ker[1] - ref[1]).abs().max().item())
     check(dstate <= TWIN_STATE_TOL, f"{label}: state differs by {dstate:.3e}")
     total = int(ker[2].sum())
+    dense_runs = []
+    for dense in (False, True, True, False):
+        with dense_gain_route() if dense else contextlib.nullcontext():
+            seconds, out = wall_s(lambda: run())
+        check(torch.equal(out[2], ker[2]) and torch.equal(out[3], ker[3]),
+              f"{label}: the dense route takes other counts")
+        dense_runs.append(("dense" if dense else "K8", seconds))
+        if dense:
+            dout = out
+    ddense = max((dout[0] - ker[0]).abs().max().item(),
+                 (dout[1] - ker[1]).abs().max().item())
+    check(ddense <= TWIN_STATE_TOL,
+          f"{label}: the dense route's state differs by {ddense:.3e}")
+    del dout
     split = fleet_split(arr, net, vm0, va0, means[:chunk])
+    dsplit = fleet_split(arr, net, vm0, va0, means[:chunk], dense=True)
     # lockstep increments per run: each chunk runs max(iterations) + 1
     steps = sum(int(it.max()) + 1 for it in ker[2].split(chunk))
     wall_ms = 1e3 * min(seconds for _, seconds, _ in runs[::3]) / steps
-    solver = (f"K2 ({launches} launches)" if launches
+    solver = (f"K2 ({launches['K2c']} launches)" if launches["K2c"]
               else "torch.linalg (order above K2's cap)")
     print(f"phase 7 {label} one lockstep increment of a chunk (CUDA "
-          f"events; {solver}): "
+          f"events; K3's entry mode {launches['K3e']} and K8 "
+          f"{launches['K8']} launches; {solver}): "
           + ", ".join(f"{k} {v!r} ms" for k, v in split.items())
-          + f"; K3 run wall per increment {wall_ms!r} ms over {steps} "
-          "increments")
-    if launches:
+          + f"; the dense route K8 replaced (K3's dense H, the gain GEMM): "
+          + ", ".join(f"{k} {v!r} ms" for k, v in dsplit.items())
+          + f"; kernels' run wall per increment {wall_ms!r} ms over {steps} "
+          "increments; GN iterations/s in turns "
+          + ", ".join(f"{name} {total / sec!r}" for name, sec in dense_runs)
+          + f", dense route's state vs K8's {ddense!r}")
+    if launches["K2c"]:
         routes = []
         for library in (False, True, True, False):
             with library_route() if library else contextlib.nullcontext():
-                seconds, out = wall_s(lambda: run(k3.se_fill))
+                seconds, out = wall_s(lambda: run())
             check(torch.equal(out[2], ker[2]) and torch.equal(out[3],
                                                                ker[3]),
                   f"{label}: the library route takes other counts")
@@ -1452,11 +1861,12 @@ def fleet_runs(label, arr, net, vm0, va0, means, chunk):
               f"cholesky_solve), one lockstep increment (CUDA events): "
               + ", ".join(f"{k} {v!r} ms" for k, v in lsplit.items())
               + f"; state vs K2's {dlib!r}; GN iterations/s by the "
-              "increment's solve (K3 fill) "
+              "increment's solve (K3 entry mode, K8) "
               + ", ".join(f"{name} {total / sec!r}" for name, sec in routes))
     print(f"phase 7 {label} x{nscen} (chunks of {chunk}): all converged, "
           f"{total} GN iterations (max {int(ker[2].max())}), state vs "
-          f"se_fill_ref {dstate!r}; peak device memory {peak_gb!r} GB; "
+          f"the plain versions {dstate!r}; peak device memory {peak_gb!r} "
+          f"GB; "
           "SE solves/s " + ", ".join(f"{name} {nscen / s!r}"
                                       for name, s, _ in runs)
           + "; GN iterations/s " + ", ".join(f"{name} {total / s!r}"
@@ -1464,16 +1874,17 @@ def fleet_runs(label, arr, net, vm0, va0, means, chunk):
     return launches
 
 
-def fleet_split(arr, net, vm, va, mean):
-    """CUDA-event times of the pieces of one batched increment (K3, the
-    gain, the Cholesky with its solve and residual), after one untimed
-    increment."""
+def fleet_split(arr, net, vm, va, mean, dense=False):
+    """CUDA-event times of the pieces of one batched increment (K3's entry
+    mode, K8's gain, the Cholesky with its solve and residual; ``dense``:
+    the dense route's K3 and gain GEMM), after one untimed increment."""
+    fill, form = se_stages(dense)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     for _ in range(2):
         ev[0].record()
-        res = k3.se_fill(arr, net, vm, va, mean)
+        res = fill(arr, net, vm, va, mean)
         ev[1].record()
-        gain, rhs = _normal_equations(arr, res)
+        gain, rhs = form(arr, net, res)
         del res
         ev[2].record()
         _solve_normal(arr, gain, rhs)
@@ -1505,11 +1916,11 @@ def phase7():
     launches = fleet_runs("case118 SE fleet",
                           *fleet_inputs(system, SE_FLEET, SE_FLEET),
                           chunk=SE_FLEET)
-    check(launches > 0, "case118 SE fleet: launched no K2")
+    check(launches["K2c"] > 0, "case118 SE fleet: launched no K2")
     system = synthetic_grid(*SE_GRID)
-    fleet_runs(f"{SE_GRID[0]}x{SE_GRID[1]} SE fleet",
-               *fleet_inputs(system, SE_CHUNK * SE_CHUNKS, SE_CHUNK),
-               chunk=SE_CHUNK)
+    launches += fleet_runs(f"{SE_GRID[0]}x{SE_GRID[1]} SE fleet",
+                           *fleet_inputs(system, SE_CHUNK * SE_CHUNKS,
+                                         SE_CHUNK), chunk=SE_CHUNK)
     return launches, k2_err, k2_times_
 
 
@@ -1955,28 +2366,37 @@ def dc_wattmeters(system):
     return mon, pf
 
 
-def linear_split(host_fn, from_numpy, fields, normal_equations, system,
-                 mon):
+def linear_split(host_fn, from_numpy, fields, normal_equations, dense,
+                 system, mon):
     """The construction and LU solve of a linear estimator from its own
-    pieces: host seconds of the COO rows, and CUDA-event ms of the H
-    scatter, the gain (W scaling and GEMM) and the LU factor + solve.
-    ``fields`` names the host rows' fields ``from_numpy`` takes besides
-    H."""
+    pieces: host seconds of the COO rows, CUDA-event ms of the H scatter,
+    wall s of H's entries and K8's table (the first gain's), CUDA-event ms
+    of the gain by K8 (``normal_equations``) in turns with the dense route
+    (``dense``: W scaling and GEMM; K8, dense, dense, K8), and of the LU
+    factor + solve. ``fields`` names the host rows' fields ``from_numpy``
+    takes besides H."""
     t_host, host = wall_s(lambda: host_fn(system, mon))
     scatter, h = event_ms(lambda: linalg.dense_from_coo(
         host.rows, host.cols, host.vals, host.shape, "cuda"))
     arr = from_numpy(h_dense=h, device="cuda",
                      **{name: getattr(host, name) for name in fields})
-    gain_ms, (gain, rhs) = event_ms(lambda: normal_equations(arr))
+    t_table, _ = wall_s(lambda: k8.dense_entries(
+        arr.h_dense, getattr(arr, "slack", -1), getattr(arr, "pair_r1", None),
+        getattr(arr, "pair_r2", None)))
+    turns = {"K8": [], "dense": []}
+    for route in ("K8", "dense", "dense", "K8"):
+        ms, (gain, rhs) = event_ms(lambda: (normal_equations if route == "K8"
+                                            else dense)(arr))
+        turns[route].append(ms)
     solve_ms, _ = event_ms(
         lambda: linalg.solve(linalg.factorize(gain, linalg.LU), rhs))
-    return (f"host rows {t_host!r} s, H scatter {scatter!r} ms, gain "
-            f"{gain_ms!r} ms, LU factor+solve {solve_ms!r} ms (CUDA "
-            f"events), m={host.shape[0]}, state {host.shape[1]}")
-
-
-def dc_gain(arr):
-    return _dcse_normal_equations(*_dcse_weighted(arr), arr.slack)
+    return (f"host rows {t_host!r} s, H scatter {scatter!r} ms, H's entries "
+            f"and K8's table {t_table!r} s, gain by K8 "
+            + ", ".join(f"{t!r}" for t in turns["K8"])
+            + " ms, by the dense route (W scaling, GEMM) "
+            + ", ".join(f"{t!r}" for t in turns["dense"])
+            + f" ms, LU factor+solve {solve_ms!r} ms (CUDA events), "
+            f"m={host.shape[0]}, state {host.shape[1]}")
 
 
 def projection_times(label, h, w, mask_cols):
@@ -2006,9 +2426,13 @@ def check_linear(label, se, vm, va, tol):
 
 def card_vs_cpu(label, build, mon, kind, vm, va):
     """One linear estimate on the card and on the CPU: both against the
-    reference state, and against each other."""
+    reference state, and against each other. Returns the card solve's K8
+    launches."""
     t_build, se = wall_s(lambda: build(mon, kind, device="cuda"))
-    t_solve, _ = wall_s(lambda: state_estimation(se))
+    zero_se_launches()
+    with gain_plain_barred():
+        t_solve, _ = wall_s(lambda: state_estimation(se))
+    launches = se_launches()["K8"]
     cpu = build(mon, kind, device="cpu")
     state_estimation(cpu)
     err = check_linear(label, se, vm, va, LINEAR_TOL)
@@ -2016,7 +2440,8 @@ def card_vs_cpu(label, build, mon, kind, vm, va):
         cpu.voltage, "magnitude", None), cpu.voltage.angle, CARD_CPU_TOL)
     print(f"phase 11 {label} ({kind}): vs reference {err!r}, card vs CPU "
           f"{dcpu!r}; wall: construction {t_build!r} s, state_estimation "
-          f"{t_solve!r} s")
+          f"{t_solve!r} s; K8 launches {launches}")
+    return launches
 
 
 def phase11():
@@ -2026,16 +2451,31 @@ def phase11():
     oracle = oracle_dc(synthetic_grid(*GRID))
     torch.cuda.reset_peak_memory_stats()
     t_build, se = wall_s(lambda: dc_state_estimation(mon, device="cuda"))
-    t_solve, _ = wall_s(lambda: state_estimation(se, power=True))
+    zero_se_launches()
+    with gain_plain_barred():
+        t_solve, _ = wall_s(lambda: state_estimation(se, power=True))
+    launches = se_launches()
+    check(launches["K8"] == 1, f"10k DC SE: K8 launched {launches['K8']} "
+          "times for one solve")
     err = check_linear("10k DC SE", se, None, oracle.angle, LINEAR_TOL)
     print(f"phase 11 10k grid DC SE main path: m={se.arrays.mean.shape[0]}, "
           f"vs oracle_dc {err!r}; wall: dc_state_estimation {t_build!r} s, "
-          f"state_estimation(power=True) {t_solve!r} s; peak device memory "
+          f"state_estimation(power=True) {t_solve!r} s (K8 launches "
+          f"{launches['K8']}, its table built inside); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9!r} GB")
+    theta = se.voltage.angle.copy()
+    with dense_gain_route():
+        t_dense, _ = wall_s(lambda: state_estimation(se, power=True))
+    ddense = wrapped_max(se.voltage.angle, theta)
+    check(ddense <= CARD_CPU_TOL, f"10k DC SE: the dense route's angles "
+          f"{ddense:.3e} off K8's")
+    print(f"phase 11 10k grid DC SE by the dense route (one GEMM over H): "
+          f"state_estimation(power=True) {t_dense!r} s, angles vs K8's "
+          f"{ddense!r}")
     print("phase 11 10k grid DC SE split: "
           + linear_split(_dcse_host, dcse_arrays_from_numpy,
-                         ("mean", "w", "slack", "slack_angle"), dc_gain,
-                         system, mon))
+                         ("mean", "w", "slack", "slack_angle"),
+                         _dcse_normal_equations, dense_dc_gain, system, mon))
 
     # one planted gross error: chi, the dense residual test, re-estimation
     k = system.bus.number + system.branch.number // 2
@@ -2088,6 +2528,7 @@ def phase11():
           f"{bad.max_normalized_residual!r}")
 
     # PMU SE: placed PMUs (case118, case300), full coverage (1,369 buses)
+    pmu_launches = 0
     for case in ("case118", "case300"):
         system, pf = solved_case(case)
         mon = measurement(system)
@@ -2096,8 +2537,9 @@ def phase11():
         print(f"phase 11 {case} pmu_placement_apply: {len(placement.bus)} "
               f"buses, {mon.pmu.number} PMUs, {t_place!r} s")
         for kind in ("LU", "QR"):
-            card_vs_cpu(f"{case} placed PMUs", pmu_state_estimation, mon,
-                        kind, pf.voltage.magnitude, pf.voltage.angle)
+            pmu_launches += card_vs_cpu(
+                f"{case} placed PMUs", pmu_state_estimation, mon, kind,
+                pf.voltage.magnitude, pf.voltage.angle)
     system = synthetic_grid(*SE_GRID)
     pf = newton_raphson(system, device="cuda")
     power_flow(pf, power=True, current=True)
@@ -2110,15 +2552,18 @@ def phase11():
         side = {"status_from": -1, "status_to": -1} if corr else {}
         add_pmu(mon, analysis=pf, correlated=corr, noise=False, **side)
         for kind in kinds:
-            card_vs_cpu(f"{SE_GRID[0]}x{SE_GRID[1]} "
-                        + ("correlated PMUs at every bus" if corr
-                           else "PMUs at every bus and branch end"),
-                        pmu_state_estimation, mon, kind,
-                        pf.voltage.magnitude, pf.voltage.angle)
+            pmu_launches += card_vs_cpu(
+                f"{SE_GRID[0]}x{SE_GRID[1]} "
+                + ("correlated PMUs at every bus" if corr
+                   else "PMUs at every bus and branch end"),
+                pmu_state_estimation, mon, kind, pf.voltage.magnitude,
+                pf.voltage.angle)
     print(f"phase 11 {SE_GRID[0]}x{SE_GRID[1]} PMU SE split (correlated): "
           + linear_split(_pmuse_host, pmuse_arrays_from_numpy,
                          ("mean", "w", "pair_r1", "pair_r2", "pair_off"),
-                         _pmuse_normal_equations, system, mon))
+                         _pmuse_normal_equations, dense_pmu_gain, system,
+                         mon))
+    return launches["K8"] + pmu_launches
 
 
 def planted(mon, errors):
@@ -2190,7 +2635,7 @@ def lnr_rounds(se):
 
 
 def phase12():
-    launches = 0
+    launches = collections.Counter()
     # bench config 4's shape: case118, scada_pmu, wattmeters 3 and 40
     def config4():
         system = case_system("case118")
@@ -2199,19 +2644,22 @@ def phase12():
 
     _, mon, want = config4()
     se = gauss_newton(mon, device="cuda")
-    k3.se_fill.launches = 0
+    zero_se_launches()
     k2.fleet_cholesky_solve.launches = 0
-    with k2_plain_barred():
+    with k2_plain_barred(), gain_plain_barred():
         t_lnr, labels = wall_s(lambda: lnr_removal(se, THRESHOLD, 10))
-    launches += k3.se_fill.launches
+    lnr = se_launches()
+    launches += lnr
     k2_launches = k2.fleet_cholesky_solve.launches
-    check(k3.se_fill.launches > 0 and k2_launches > 0,
-          "config 4: lnr_removal launched no K3 or no K2")
+    check(lnr["K3"] > 0 and lnr["K3e"] > 0 and lnr["K8"] > 0
+          and k2_launches > 0,
+          f"config 4: lnr_removal launched {dict(lnr)}, K2 {k2_launches}")
     _, mon_a, _ = config4()
     se_a = gauss_newton(mon_a, device="cuda")
-    k3.se_fill.launches = 0
-    t_step, stepwise = wall_s(lambda: stepwise_lnr(se_a))
-    launches += k3.se_fill.launches
+    zero_se_launches()
+    with gain_plain_barred():
+        t_step, stepwise = wall_s(lambda: stepwise_lnr(se_a))
+    launches += se_launches()
     system_c, mon_c, _ = config4()
     t_scipy, by_scipy = wall_s(lambda: scipy_lnr(system_c, mon_c))
     dstate = max(float(np.abs(se.voltage.magnitude
@@ -2240,8 +2688,9 @@ def phase12():
     mon, _ = scada_pmu(system)
     want = planted(mon, errors)
     se = gauss_newton(mon, device="cuda")
-    k3.se_fill.launches = 0
-    state_estimation(se)
+    zero_se_launches()
+    with gain_plain_barred():
+        state_estimation(se)
     chi = chi_test(se)
     t_dense, dense = wall_s(lambda: residual_test(se, THRESHOLD,
                                                   sparse=False))
@@ -2254,7 +2703,7 @@ def phase12():
     mon.changed_values()
     t_sparse, sparse = wall_s(lambda: residual_test(se, THRESHOLD,
                                                     sparse=True))
-    launches += k3.se_fill.launches
+    launches += se_launches()
     check(dense.label == sparse.label
           and abs(dense.max_normalized_residual
                   - sparse.max_normalized_residual) <= RN_SPARSE_TOL,
@@ -2266,9 +2715,10 @@ def phase12():
     mon, _ = scada_pmu(synthetic_grid(*SE_GRID))
     planted(mon, errors)
     se = gauss_newton(mon, device="cuda")
-    k3.se_fill.launches = 0
-    t_lnr, labels = wall_s(lambda: lnr_removal(se, THRESHOLD, 10))
-    launches += k3.se_fill.launches
+    zero_se_launches()
+    with gain_plain_barred():
+        t_lnr, labels = wall_s(lambda: lnr_removal(se, THRESHOLD, 10))
+    launches += se_launches()
     check(sorted(labels) == sorted(want) and se.method.converged,
           f"{SE_GRID} SE: lnr_removal removed {labels}, planted {want}")
     print(f"phase 12 {SE_GRID[0]}x{SE_GRID[1]} SE, three planted "
@@ -2277,7 +2727,8 @@ def phase12():
           f"Takahashi ({t_sparse!r} s) named {dense.label}, max rn "
           f"{dense.max_normalized_residual!r} / "
           f"{sparse.max_normalized_residual!r}; lnr_removal removed "
-          f"{labels} in {t_lnr!r} s; K3 launches {launches}")
+          f"{labels} in {t_lnr!r} s; launches of K3 (dense, the "
+          f"detections), K3's entry mode and K8 {dict(launches)}")
     return launches, k2_launches
 
 
@@ -3910,12 +4361,13 @@ def se_edits():
     """Two live measurement edits on phase 6's 1,369-bus set, built anew
     with seeded noise so that each edit moves the estimate: the reused
     estimate against a fresh one, both on the card; then the edited set's
-    wattmeter table. Returns the K3 launches of the estimates (not of the
-    power flow that makes the set, nor of the table)."""
+    wattmeter table. Returns the launches of K3's entry mode and K8 of the
+    estimates (not of the power flow that makes the set, nor of the
+    table)."""
     system = synthetic_grid(*SE_GRID)
     meter_devices.seed(SEED)
     mon, _ = scada_pmu(system, noise=True)
-    k3.se_fill.launches = 0
+    zero_se_launches()
     live = gauss_newton(mon, device="cuda")
     state_estimation(live, tolerance=EDIT_TOL)
     check(live.method.converged, "SE edits: the first estimate failed")
@@ -3943,7 +4395,7 @@ def se_edits():
               f"{live.method.iteration} iterations in {t_live!r} s, fresh "
               f"gauss_newton + state_estimation {fresh.method.iteration} "
               f"iterations in {t_fresh!r} s; reused vs fresh max |d| {d!r}")
-    launches = k3.se_fill.launches
+    launches = se_launches()
     top, err, seconds = residual_table(
         f"{SE_GRID[0]}x{SE_GRID[1]} noisy SE after the edits", live, mon)
     check(top >= NOISY_RESIDUAL_MIN,
@@ -4123,7 +4575,8 @@ def phase19(nr, se, se_mon, dc_10k, pegase):
     """The product surface: ``entry()``; live edits at full size (10k NR,
     the 1,369-bus SE), reused against fresh; the report tables of phases
     3, 6, 16 and 17's analyses; a device trace of phase 3's solve. Returns
-    the K1 and K3 launches of the entry step, the edits and the trace.
+    the K1 launches of the entry step, the edits and the trace, and the
+    launches of K3's entry mode and K8 of the SE edits.
     ``checkpointed_map`` is not run: it writes HDF5, and the card's
     machine has no h5py."""
     walls = [time.perf_counter()]
@@ -4133,7 +4586,7 @@ def phase19(nr, se, se_mon, dc_10k, pegase):
     walls.append(time.perf_counter())
     launches += nr_edits()
     walls.append(time.perf_counter())
-    k3_launches = se_edits()
+    se_counts = se_edits()
     walls.append(time.perf_counter())
     launches += trace_run(nr)
     walls.append(time.perf_counter())
@@ -4141,7 +4594,7 @@ def phase19(nr, se, se_mon, dc_10k, pegase):
         f"{name} {b - a!r}" for name, a, b in zip(
             ("entry", "tables", "10k NR edits", "SE edits", "trace"),
             walls, walls[1:])))
-    return launches, k3_launches
+    return launches, se_counts
 
 
 # ---- phase 20: the mesh path, ranks that share the card ---------------------
@@ -4149,7 +4602,8 @@ def phase19(nr, se, se_mon, dc_10k, pegase):
 #: the kernels a rank of phase 20 counts
 MESH_KERNELS = {"K1": k1.nr_fill, "K2": k2.fleet_lu_solve,
                 "K2c": k2.fleet_cholesky_solve, "K3": k3.se_fill,
-                "K5": k5.schur_gather, "K7": k7.kkt_fill}
+                "K3e": k3.se_fill_entries, "K5": k5.schur_gather,
+                "K7": k7.kkt_fill, "K8": k8.gain_fill}
 
 
 def mesh_path(fn):
@@ -4352,7 +4806,8 @@ def phase20(ranks=MESH_RANKS):
     Every rank's results must have the same bits. Prints the walls, the
     all-reduce stage's ms an iteration and each rank's peak memory, all
     of ranks that share one card. Returns the ranks' K1, K2 (LU, "K2";
-    Cholesky, "K2c"), K3, K5 and K7 launches and the worst K7 and K5 abs
+    Cholesky, "K2c"), K3, K3's entry mode ("K3e"), K5, K7 and K8 launches
+    and the worst K7 and K5 abs
     errors."""
     totals = dict.fromkeys(MESH_KERNELS, 0)
 
@@ -4412,10 +4867,11 @@ def phase20(ranks=MESH_RANKS):
             count(o[name][2])
         count(o["opf"]["launches"])
     check(one["launches"]["K1"] and one["launches"]["K2"] and all(
-        o["nr"][2]["K1"] and o["nr"][2]["K2"] and o["se"][2]["K3"]
-        and o["se"][2]["K2c"] and o["opf"]["launches"]["K5"]
-        and o["opf"]["launches"]["K7"] for o in outs),
-        "phase 20: a rank launched no K1, K2, K3, K5 or K7 on its path")
+        o["nr"][2]["K1"] and o["nr"][2]["K2"] and o["se"][2]["K3e"]
+        and o["se"][2]["K8"] and o["se"][2]["K2c"]
+        and o["opf"]["launches"]["K5"] and o["opf"]["launches"]["K7"]
+        for o in outs),
+        "phase 20: a rank launched no K1, K2, K3, K5, K7 or K8 on its path")
 
     def walls(name):
         return ", ".join(f"{o[name][1]!r}" for o in outs)
@@ -4440,8 +4896,9 @@ def phase20(ranks=MESH_RANKS):
           f"{[o['nr'][2]['K2'] for o in outs]}; peaks {peaks('nr')} GB")
     print(f"phase 20 (b) SE fleet x{SE_FLEET}: states vs the single "
           f"process {d_se!r}, same counts; walls {walls('se')} s (single "
-          f"process {se_wall!r} s); K3 launches "
-          f"{[o['se'][2]['K3'] for o in outs]}, K2 (Cholesky) "
+          f"process {se_wall!r} s); K3 entry-mode launches "
+          f"{[o['se'][2]['K3e'] for o in outs]}, K8 "
+          f"{[o['se'][2]['K8'] for o in outs]}, K2 (Cholesky) "
           f"{[o['se'][2]['K2c'] for o in outs]}; peaks {peaks('se')} GB")
     print(f"phase 20 (b) bbd_solve_sharded, {GRID[0]}x{GRID[1]} DC at "
           f"{ranks} blocks (ni "
@@ -4586,14 +5043,18 @@ def main():
     k1_launches, dense_10k = timed(phase3)
     k2_lu_launches, k2_lu_err, (k2_lu_times, k2_lu_library) = timed(phase4)
     k3_err, k3_times = timed(phase5)
-    k3_launches, se_1369, mon_1369 = timed(phase6)
-    k2_ch_launches, k2_ch_err, (k2_ch_times, k2_ch_library) = timed(phase7)
+    (k3e_err, k3e_times), (k8_err, (k8_times, k8_dense)) = timed(phase5b)
+    # the launches of K3 (dense), K3's entry mode and K8 on the main paths
+    se_counts, se_1369, mon_1369 = timed(phase6)
+    counts, k2_ch_err, (k2_ch_times, k2_ch_library) = timed(phase7)
+    k2_ch_launches = counts.pop("K2c")
+    se_counts += counts
     k4_err, k4_times = timed(phase8)
     k4_launches = timed(phase9)
     timed(phase10)
-    timed(phase11)
-    k3_lnr, k2_lnr = timed(phase12)
-    k3_launches += k3_lnr
+    se_counts["K8"] += timed(phase11)
+    counts, k2_lnr = timed(phase12)
+    se_counts += counts
     k2_ch_launches += k2_lnr
     (k1r_err, *k1r_times), (k5_err, *k5_times) = timed(phase13)
     k5_library_ms = k5_times.pop()
@@ -4603,21 +5064,22 @@ def main():
     k5_launches += k5_se
     k5_err = max(k5_err, k5_se_err)
     k3_lav, dc_10k = timed(phase16)
-    k3_launches += k3_lav
+    se_counts["K3"] += k3_lav
     k6_err, k6_times, k6_launches, pegase = timed(phase17)
     k7_err, k7_times, k7_launches, k5_kkt = timed(phase18)
     k5_launches += k5_kkt
-    k1_surface, k3_surface = timed(phase19, dense_10k, se_1369, mon_1369,
-                                   dc_10k, pegase)
+    k1_surface, counts = timed(phase19, dense_10k, se_1369, mon_1369,
+                               dc_10k, pegase)
     k1_launches += k1_surface
-    k3_launches += k3_surface
+    se_counts += counts
     mesh, (k7_mesh_err, k5_mesh_err) = timed(phase20)
     k7_err = max(k7_err, k7_mesh_err)
     k5_err = max(k5_err, k5_mesh_err)
     k1_launches += mesh["K1"]
     k2_lu_launches += mesh["K2"]
     k2_ch_launches += mesh["K2c"]
-    k3_launches += mesh["K3"]
+    for name in ("K3", "K3e", "K8"):
+        se_counts[name] += mesh[name]
     k5_launches += mesh["K5"]
     k7_launches += mesh["K7"]
     print("phase walls: " + ", ".join(f"{name} {seconds!r} s"
@@ -4625,9 +5087,11 @@ def main():
           + f"; whole run wall {time.perf_counter() - t0!r} s")
     print(card)
     # no single PyTorch call computes K1's, K3's, K4's, K6's or K7's
-    # function, or the routed modes': library_ms is null; K5's is one
-    # index_put_, K2's one torch.linalg.solve_ex of the same systems (its
-    # plain version is the two-call library route it replaced). K6's times
+    # function, or the routed and entry modes': library_ms is null; K5's is
+    # one index_put_, K2's one torch.linalg.solve_ex of the same systems
+    # (its plain version is the two-call library route it replaced), K8's
+    # the dense route's gain it replaced (the W½ scaling, rhs and one f64
+    # GEMM over K3's dense H) at case118 x1024, where K8's times are. K6's times
     # are those of one Jacobian and one Hessian launch, the pair an
     # interior-point iteration takes; K7's those of one call (two memsets,
     # two launches) at the 10k cell; K2's those of case118 x1024. No TPU
@@ -4645,7 +5109,13 @@ def main():
                      k2_ch_err, k2_ch_times, source="fleet_solve",
                      library_ms=k2_ch_library),
         kernel_entry("se_fill", "juliagrid_tpu/estimation/acse.py:463",
-                     k3_launches, k3_err, k3_times),
+                     se_counts["K3"], k3_err, k3_times),
+        kernel_entry("se_fill_entries",
+                     "juliagrid_tpu/estimation/acse.py:642",
+                     se_counts["K3e"], k3e_err, k3e_times, source="se_fill"),
+        kernel_entry("gain_fill", "juliagrid_tpu/estimation/acse.py:658",
+                     se_counts["K8"], k8_err, k8_times,
+                     library_ms=k8_dense),
         kernel_entry("gs_sweep", "juliagrid_tpu/powerflow/gauss_seidel.py:97",
                      k4_launches, k4_err, k4_times),
         kernel_entry("nr_fill_routed",

@@ -33,8 +33,8 @@ from .estimation.dcse import DcSeArrays
 from .estimation.pmuse import PmuSeArrays
 from .kernels.nr_fill import NrRoute, check_route
 from .kernels.schur_gather import schur_route
-from .kernels.se_fill import (SeFillTable, SeRoute, row_classes,
-                               se_fill_table, slot_rows)
+from .kernels.se_fill import (SeFillTable, SeRoute, entry_positions,
+                               row_classes, se_fill_table, slot_rows)
 from .ops import linalg
 from .powerflow.ac import AcArrays, check_entry_list
 from .powerflow.dc import DcArrays
@@ -172,10 +172,11 @@ def se_arrays_from_numpy(host, device=None) -> SeArrays:
     """``SeArrays`` on ``device`` (default ``config.device``), with K3's
     descriptor table, from a host mirror whose fields are numpy arrays.
     Index fields become int64 tensors; the table is checked on the host
-    (``se_fill_table``) before it reaches K3."""
+    (``se_fill_table``, ``entry_positions``) before it reaches K3."""
     dev = resolve_device(device)
     idx, coef = se_fill_table(host)
     order, closed = row_classes(idx)
+    epos, entries = entry_positions(host)
 
     def i64(a):
         return torch.tensor(np.asarray(a, dtype=np.int64), device=dev)
@@ -198,7 +199,8 @@ def se_arrays_from_numpy(host, device=None) -> SeArrays:
         desc=SeFillTable(
             idx=torch.tensor(idx, device=dev),
             coef=torch.tensor(coef, device=dev),
-            order=torch.tensor(order, device=dev), closed=closed),
+            order=torch.tensor(order, device=dev), closed=closed,
+            epos=torch.tensor(epos, device=dev), entries=entries),
         **index)
 
 

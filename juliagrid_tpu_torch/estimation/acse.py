@@ -4,16 +4,19 @@ Port of ``juliagrid_tpu/estimation/acse.py`` (a redesign of JuliaGrid
 src/stateEstimation/acStateEstimation.jl). The 21 typed measurement rows
 (reference :131-236) are grouped by type into static index arrays on the
 host (``compile_se_arrays``), together with a per-row descriptor table for
-kernel K3 (``kernels/se_fill.py``). Each Gauss-Newton iteration is one K3
-launch — h(x), the residuals and the dense f64 Jacobian H with inactive rows
-and the slack column masked — then the gain ``(W½H)ᵀ(W½H)`` as one
-``torch.matmul`` plus the correlated-PMU pair terms, and an f64 Cholesky
-solve (Normal equations; one launch of kernel K2, ``kernels/fleet_solve.py``,
-up to 256 unknowns, ``torch.linalg`` above), or QR / Peters-Wilkinson on
-W½H (Orthogonal, reference :906-971). The H100 has native f64, so the JAX package's f32 gain and its
-residual-gated f64 refinement are gone; ``rel``, the relative residual of
-the normal equations, stays and still escalates an ill-conditioned solve
-to QR.
+kernel K3 (``kernels/se_fill.py``). Each Gauss-Newton iteration of the
+normal equations is one launch of K3's entry mode — h(x), the residuals and
+H as its entry list (``h_entry_pattern`` order) with inactive rows and the
+slack column masked, as the JAX package's ``gn_increment`` keeps it — then
+one launch of kernel K8 (``kernels/gain_fill.py``), which forms the gain
+``HᵀWH + HᵀPH + e_s e_sᵀ`` (the correlated-PMU pair terms included) and
+``HᵀW r`` from H's fixed entry pattern, and an f64 Cholesky solve (one
+launch of kernel K2, ``kernels/fleet_solve.py``, up to 256 unknowns,
+``torch.linalg`` above). QR / Peters-Wilkinson on W½H (Orthogonal,
+reference :906-971) fill the dense H (K3's dense mode). The H100 has native
+f64, so the JAX package's f32 gain and its residual-gated f64 refinement
+are gone; ``rel``, the relative residual of the normal equations, stays and
+still escalates an ill-conditioned solve to QR.
 
 The loop is a host loop with one scalar readback per iteration. Iteration
 semantics match stateEstimation! (:1286-1329): the increment is computed,
@@ -35,8 +38,9 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..kernels import fleet_solve
-from ..kernels.se_fill import SeFillTable, se_fill
+from ..kernels import fleet_solve, gain_fill
+from ..kernels.se_fill import (SeFill, SeFillTable, se_fill,
+                               se_fill_entries)
 from ..ops import equations as eq
 from ..ops import linalg
 from ..ops.equations import BRANCH_GROUPS
@@ -596,9 +600,10 @@ def _col_mask(arr: SeArrays, n: int, like) -> torch.Tensor:
 
 def _normal_equations(arr: SeArrays, res):
     """Gain ``G = (W½H)ᵀ(W½H) + HᵀPH + e_s e_sᵀ`` and right-hand side
-    ``HᵀW r`` from K3's output ``res`` (P the correlated pair
+    ``HᵀW r`` from K3's dense output ``res`` (P the correlated pair
     off-diagonals, e_s the slack column): one batched f64 matmul. Scales
-    ``res.jac`` to W½H in place."""
+    ``res.jac`` to W½H in place. The dense route K8 replaced: no solve
+    calls it, it stays as the yardstick K8 is timed against."""
     jac = res.jac
     rhs = (jac.mT @ _w_apply_vec(arr, res.r)[..., None])[..., 0]
     if arr.pair_r1.shape[0]:
@@ -631,17 +636,46 @@ def _solve_normal(arr: SeArrays, gain, rhs):
     return dx, dx.abs().amax(-1), rel
 
 
+def gain_table(arr: SeArrays, net: AcArrays) -> gain_fill.GainTable:
+    """K8's tables of the measurement set ``arr`` on ``net``, built once
+    per entry pattern (``h_entry_pattern``, the correlated pairs, the
+    slack): status, mean and variance edits keep them."""
+    n = net.row_ptr.numel() - 1
+
+    def build():
+        rows, cols = h_entry_pattern(arr, net, n)
+        host = gain_fill.gain_fill_table(
+            rows.cpu().numpy(), cols.cpu().numpy(), arr.mean.shape[0], 2 * n,
+            arr.pair_r1.cpu().numpy(), arr.pair_r2.cpu().numpy(), arr.slack)
+        return gain_fill.device_table(host, arr.mean.device)
+
+    return gain_fill.cached_table(arr.desc.idx,
+                                  (net.cols, arr.pair_r1, arr.slack), build)
+
+
+def _gain_equations(arr: SeArrays, net: AcArrays, vm, va, mean,
+                    fill=se_fill_entries, gain=gain_fill.gain_fill):
+    """Gain ``G = HᵀWH + HᵀPH + e_s e_sᵀ`` and right-hand side ``HᵀW r``
+    (W with the correlated pairs) for ``[B, n]`` states and ``[B, m]``
+    means: one launch of K3's entry mode, one of K8. A ``fill`` that gives
+    the dense H (``se_fill``, ``se_fill_ref``) takes the dense route,
+    ``_normal_equations``."""
+    res = fill(arr, net, vm, va, mean)
+    if isinstance(res, SeFill):
+        return _normal_equations(arr, res)
+    return gain(gain_table(arr, net), res.vals, arr.w, arr.pair_off, res.r)
+
+
 def _normal_increment(arr: SeArrays, net: AcArrays, vm, va, mean,
-                      fill=se_fill):
+                      fill=se_fill_entries, gain=gain_fill.gain_fill):
     """Gauss-Newton increments of the normal equations for ``[B, n]``
-    states and ``[B, m]`` means: one K3 launch, the gain matmul and an f64
+    states and ``[B, m]`` means: K3's entry mode, K8's gain and an f64
     Cholesky. Returns ``dx [B, 2n]``, ``max|dx| [B]`` and ``rel [B]``.
-    ``fill`` exists so a check can run the same step on ``se_fill_ref``;
-    the main path never passes it."""
-    res = fill(arr, net, vm, va, mean, jacobian=True)
-    gain, rhs = _normal_equations(arr, res)
-    del res
-    return _solve_normal(arr, gain, rhs)
+    ``fill`` and ``gain`` exist so a check can run the same step on
+    ``se_fill_entries_ref`` and ``gain_fill_ref``; the main path never
+    passes them."""
+    g, rhs = _gain_equations(arr, net, vm, va, mean, fill, gain)
+    return _solve_normal(arr, g, rhs)
 
 
 def _sqrt_increment(arr: SeArrays, net: AcArrays, vm, va, kind: str):

@@ -11,9 +11,10 @@ The JAX package fills a dense H row by row on the host, from a dense copy
 of B. The port collects the same entries as COO on the host
 (``_dcse_host``) and scatters them into the dense f64 H on the analysis
 device (``ops/linalg.py::dense_from_coo``); on the CPU the result equals the
-JAX package's H bit for bit. The solve is one f64 gain ``(W½Hm)ᵀ(W½Hm)``
-(one ``torch.matmul``, the slack column masked) and an LU, or a QR of the
-stacked ``[W½Hm; e_s]``. There is no iteration.
+JAX package's H bit for bit. The solve is one f64 gain ``HmᵀWHm + e_s
+e_sᵀ`` and right-hand side ``HmᵀWz`` (one launch of kernel K8,
+``kernels/gain_fill.py``, from H's entries, the slack column masked) and an
+LU, or a QR of the stacked ``[W½Hm; e_s]``. There is no iteration.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..kernels import gain_fill
 from ..ops import linalg
 from ..powerflow.dc import Angle
 from ..system.model import model
@@ -200,25 +202,26 @@ def _dcse_weighted(arr: DcSeArrays):
     return a, sw * arr.mean
 
 
-def _dcse_normal_equations(a: torch.Tensor, b: torch.Tensor, slack: int):
-    """The gain ``aᵀa + e_s e_sᵀ`` (one matmul) and the right-hand side
-    ``aᵀb`` for ``a = W½Hm``, ``b = W½z``."""
-    gain = a.mT @ a
-    gain[slack, slack] += 1.0
-    return gain, a.mT @ b
+def _dcse_normal_equations(arr: DcSeArrays):
+    """The gain ``HmᵀWHm + e_s e_sᵀ`` and the right-hand side ``HmᵀWz``
+    (Hm: H with the slack column masked): one K8 launch over H's
+    entries."""
+    vals, table = gain_fill.dense_entries(arr.h_dense, arr.slack)
+    gain, rhs = gain_fill.gain_fill(table, vals, arr.w, arr.w.new_zeros(0),
+                                    arr.mean[None])
+    return gain[0], rhs[0]
 
 
 def _dcse_solve(arr: DcSeArrays, kind: str) -> torch.Tensor:
     """Bus angles: LU of the normal equations, or QR of ``[W½Hm; e_s]``."""
-    a, b = _dcse_weighted(arr)
     if kind == linalg.QR:
+        a, b = _dcse_weighted(arr)
         e = torch.zeros((1, a.shape[1]), dtype=a.dtype, device=a.device)
         e[0, arr.slack] = 1.0
         theta = linalg.solve(linalg.factorize(torch.cat([a, e]), linalg.QR),
                              torch.cat([b, b.new_zeros(1)]))
     else:
-        gain, rhs = _dcse_normal_equations(a, b, arr.slack)
-        del a
+        gain, rhs = _dcse_normal_equations(arr)
         theta = linalg.solve(linalg.factorize(gain, linalg.LU), rhs)
     return theta * _col_mask(arr) + arr.slack_angle
 

@@ -7,12 +7,13 @@ identity rows and branch current rows from the complex two-port row
 [y_ff, y_ft] / [y_tf, y_tt]; :369-473, the WLS solves). The state is
 (Re V, Im V) for every bus, with no slack handling: the angle reference
 comes from the phasor measurements. Correlated PMUs contribute 2x2
-precision blocks exactly as in the AC path (``acse._weighted``).
+precision blocks exactly as in the AC path.
 
 The host collects H as COO entries (``_pmuse_host``) and scatters them into
 the dense f64 H on the analysis device, as ``dcse.py`` does. The solve is
-one f64 gain ``HᵀWH`` (one ``torch.matmul``, the pair terms included) and
-an LU, or a QR of ``W½H``. There is no iteration.
+one f64 gain ``HᵀWH`` and right-hand side ``HᵀWz`` (one launch of kernel K8,
+``kernels/gain_fill.py``, from H's entries, the pair terms included) and an
+LU, or a QR of ``W½H``. There is no iteration.
 """
 
 from __future__ import annotations
@@ -24,12 +25,12 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..kernels import gain_fill
 from ..ops import equations as eq
 from ..ops import linalg
 from ..powerflow.ac import Polar
 from ..system.model import model
 from ..system.types import PowerSystem
-from .acse import _weighted
 
 
 class PmuSeArrays(NamedTuple):
@@ -196,10 +197,13 @@ def compile_pmuse_arrays(system: PowerSystem, monitoring, device=None):
 
 
 def _pmuse_normal_equations(arr: PmuSeArrays):
-    """The gain ``HᵀWH`` (one matmul; W with the correlated 2x2 blocks) and
-    the right-hand side ``HᵀWz``."""
-    wh, wz = _weighted(arr, arr.h_dense, arr.mean)
-    return arr.h_dense.mT @ wh, arr.h_dense.mT @ wz
+    """The gain ``HᵀWH`` and the right-hand side ``HᵀWz`` (W with the
+    correlated 2x2 blocks): one K8 launch over H's entries."""
+    vals, table = gain_fill.dense_entries(arr.h_dense, pair_r1=arr.pair_r1,
+                                          pair_r2=arr.pair_r2)
+    gain, rhs = gain_fill.gain_fill(table, vals, arr.w, arr.pair_off,
+                                    arr.mean[None])
+    return gain[0], rhs[0]
 
 
 def _pmuse_solve(arr: PmuSeArrays, kind: str):

@@ -29,12 +29,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "juliagrid_tpu_torch"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
-#: flags of one source on top of NVCC_FLAGS. K3, K4, K6 and K7 are built
+#: flags of one source on top of NVCC_FLAGS. K3, K4, K6, K7 and K8 are built
 #: without fused multiply-add contraction so that they round as their plain
-#: versions do (see csrc/se_fill.cu, csrc/gs_sweep.cu, csrc/opf_fill.cu and
-#: csrc/kkt_fill.cu).
+#: versions do (see csrc/se_fill.cu, csrc/gs_sweep.cu, csrc/opf_fill.cu,
+#: csrc/kkt_fill.cu and csrc/gain_fill.cu).
 SOURCE_FLAGS = {"se_fill": ("-fmad=false",), "gs_sweep": ("-fmad=false",),
-                "opf_fill": ("-fmad=false",), "kkt_fill": ("-fmad=false",)}
+                "opf_fill": ("-fmad=false",), "kkt_fill": ("-fmad=false",),
+                "gain_fill": ("-fmad=false",)}
 
 
 def nvcc_flags(name: str) -> tuple:

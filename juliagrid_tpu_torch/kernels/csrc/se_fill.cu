@@ -67,6 +67,19 @@
 // row's variables to one block, and the column map is one-to-one inside a
 // block, so every element still has one writer.
 //
+// Entry mode (se_fill_entries_launch) replaces the entry list of the JAX
+// package's gn_increment (h_entries with the status and slack-column masks
+// applied in entry space, acse.py:639-642): instead of a dense H, the
+// values [B, E] in h_entry_pattern's order, each times its row's status and
+// zero in the slack column, for K8 (gain_fill.cu) to form the gain from.
+// It takes the mapping without the Jacobian (a thread per closed-form row,
+// a warp per injection row) and writes each value at a host-built position
+// (epos[4][m], se_fill.py::entry_positions): a closed-form row's 1-4 values
+// at epos[0..3][row]; an injection row's values at Y entry k at epos[0][row]
+// + k (angle) and epos[1][row] + k (magnitude), the zero of its own bus's
+// Y entry included, and its diagonal pair at epos[2][row], epos[3][row].
+// Every entry of the pattern has one writer, so there is nothing to zero.
+//
 // Bound: with the Jacobian, writing B m 2n doubles once at full memory
 // bandwidth: 2.2 GB for case118 x1024, 10.9 GB for 32 scenarios of a
 // 1,369-bus grid, about 0.7 and 3.3 ms at 3.35 TB/s; the values are 1-4
@@ -93,6 +106,7 @@ struct SeTables {
   const int* diag;      // [n]
   const int* slot_row;  // [k mr] routed: measurement row of a slot, or -1
   const int* colmap;    // [k, n] routed: angle column of bus j in block b
+  const int* epos;      // [4, m] entry mode: positions of a row's values
   int n;
   int m;
   int closed;           // closed-form rows, at the head of order
@@ -100,6 +114,7 @@ struct SeTables {
   int lb;               // local border slots,
   int mr;               // row slots of a block,
   int k;                // blocks
+  int entries;          // entry mode: values a scenario
 };
 
 namespace {
@@ -254,11 +269,15 @@ __device__ Entries eval_branch(int code, double a, double b, double c,
   }
 }
 
-// One measurement row of one scenario, evaluated by a warp: `put(col, v)`
-// receives every Jacobian value with its column in the 2n state vector
-// (theta then V) and stores it where the mode wants it; lane 0 writes h and
-// the residual.
-template <class Put>
+// One measurement row of one scenario, evaluated by a warp: `put(col, v,
+// slot, k)` receives every Jacobian value with its column in the 2n state
+// vector (theta then V), its slot (0-3: the value's order in a closed-form
+// row; an injection row's angle 0 and magnitude 1 at Y entry k, its
+// diagonal pair 2 and 3) and stores it where the mode wants it; lane 0
+// writes h and the residual. kEveryEntry also puts the zero values of an
+// injection row at its own bus's Y entry (the entry mode writes every entry
+// of the pattern).
+template <bool kEveryEntry, class Put>
 __device__ __forceinline__ void fill_row(
     int row, int m, int lane, const int* __restrict__ idx,
     const double* __restrict__ coef, double st,
@@ -289,11 +308,19 @@ __device__ __forceinline__ void fill_row(
       sq += vv * gs_bc;
       if (c != f) {
         if (code == 6) {
-          put(c, vv * gs_bc);      // dP/dtheta_j
-          put(n + c, vi * gc_bs);  // dP/dV_j
+          put(c, vv * gs_bc, 0, k);      // dP/dtheta_j
+          put(n + c, vi * gc_bs, 1, k);  // dP/dV_j
         } else {
-          put(c, -vv * gc_bs);     // dQ/dtheta_j
-          put(n + c, vi * gs_bc);  // dQ/dV_j
+          put(c, -vv * gc_bs, 0, k);     // dQ/dtheta_j
+          put(n + c, vi * gs_bc, 1, k);  // dQ/dV_j
+        }
+      } else if (kEveryEntry) {  // acse.py's off-diagonal mask, times 0
+        if (code == 6) {
+          put(c, (vv * gs_bc) * 0.0, 0, k);
+          put(n + c, (vi * gc_bs) * 0.0, 1, k);
+        } else {
+          put(c, (-vv * gc_bs) * 0.0, 0, k);
+          put(n + c, (vi * gs_bc) * 0.0, 1, k);
         }
       }
     }
@@ -307,33 +334,33 @@ __device__ __forceinline__ void fill_row(
     const double bii = yb[diag[f]];
     if (code == 6) {
       hv = sp;
-      put(f, -sq - bii * (vi * vi));
-      put(n + f, sp / vi + gii * vi);
+      put(f, -sq - bii * (vi * vi), 2, 0);
+      put(n + f, sp / vi + gii * vi, 3, 0);
     } else {
       hv = sq;
-      put(f, sp - gii * (vi * vi));
-      put(n + f, sq / vi - bii * vi);
+      put(f, sp - gii * (vi * vi), 2, 0);
+      put(n + f, sq / vi - bii * vi, 3, 0);
     }
   } else {
     if (lane != 0) return;
     if (code == 1) {  // bus voltage magnitude (voltmeter, polar PMU)
       hv = vmb[f];
-      put(n + f, 1.0);
+      put(n + f, 1.0, 0, 0);
     } else if (code == 13) {  // bus voltage angle (polar PMU)
       hv = vab[f];
-      put(f, 1.0);
+      put(f, 1.0, 0, 0);
     } else if (code == 16 || code == 17) {  // Re V, Im V (rectangular PMU)
       double s, c;
       sincos(vab[f], &s, &c);
       const double v = vmb[f];
       if (code == 16) {
         hv = v * c;
-        put(f, -v * s);
-        put(n + f, c);
+        put(f, -v * s, 0, 0);
+        put(n + f, c, 1, 0);
       } else {
         hv = v * s;
-        put(f, v * c);
-        put(n + f, s);
+        put(f, v * c, 0, 0);
+        put(n + f, s, 1, 0);
       }
     } else {  // branch rows: from-side rows shift theta_j by +phi, to-side
               // phasor rows (15, 19, 21) theta_i by -phi (acse.py:497-503)
@@ -350,10 +377,10 @@ __device__ __forceinline__ void fill_row(
                                     coef[2 * m + row], coef[3 * m + row],
                                     vmb[f], vmb[t], ti, tj);
       hv = e.h;
-      put(f, e.dti);
-      put(t, e.dtj);
-      put(n + f, e.dvi);
-      put(n + t, e.dvj);
+      put(f, e.dti, 0, 0);
+      put(t, e.dtj, 1, 0);
+      put(n + f, e.dvi, 2, 0);
+      put(n + t, e.dvj, 3, 0);
     }
   }
   const double hs = hv * st;
@@ -388,7 +415,21 @@ __device__ __forceinline__ void zero_region(double* base, int64_t len) {
 
 // The jacobian-free put: values are not stored.
 struct NoPut {
-  __device__ void operator()(int, double) const {}
+  __device__ void operator()(int, double, int, int) const {}
+};
+
+// The entry mode's put: the value times the row's status, times 0 in the
+// slack column (acse.py:642's order), at the row's position for the slot.
+struct EntryPut {
+  double* vals;       // this scenario's [E] values
+  const int* epos;    // [4, m]
+  int m;
+  int row;
+  int slack;
+  double st;
+  __device__ void operator()(int col, double v, int slot, int k) const {
+    vals[epos[slot * m + row] + k] = (v * st) * (col == slack ? 0.0 : 1.0);
+  }
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -414,22 +455,25 @@ se_fill_kernel(SeTables t, const double* __restrict__ status, int slack,
   const int row = static_cast<int>(unit % m);
   const double st = status[row];
   double* hrow = jac + unit * len;
-  auto put = [&](int col, double v) {
+  auto put = [&](int col, double v, int, int) {
     if (col != slack) hrow[col] = v * st;
   };
-  fill_row(row, m, lane, t.idx, t.coef, st, t.row_ptr, t.cols, t.yg, t.yb,
-           t.diag, vm + static_cast<int64_t>(b) * n,
-           va + static_cast<int64_t>(b) * n, n, mean, h, r, unit, put);
+  fill_row<false>(row, m, lane, t.idx, t.coef, st, t.row_ptr, t.cols, t.yg,
+                  t.yb, t.diag, vm + static_cast<int64_t>(b) * n,
+                  va + static_cast<int64_t>(b) * n, n, mean, h, r, unit, put);
 }
 
-// h and r alone. Blocks [0, closed_blocks) give a thread to each (scenario,
-// closed-form row), the rest a warp to each (scenario, injection row); the
-// rows come from order[] (closed-form rows first).
+// h and r alone, or (kEntries) with the entry values `vals` [B, E]. Blocks
+// [0, closed_blocks) give a thread to each (scenario, closed-form row), the
+// rest a warp to each (scenario, injection row); the rows come from order[]
+// (closed-form rows first).
+template <bool kEntries>
 __global__ void __launch_bounds__(kThreads)
-se_values_kernel(SeTables t, const double* __restrict__ status,
+se_values_kernel(SeTables t, const double* __restrict__ status, int slack,
                  const double* __restrict__ vm, const double* __restrict__ va,
                  const double* __restrict__ mean, double* __restrict__ h,
-                 double* __restrict__ r, int batch, int closed_blocks) {
+                 double* __restrict__ r, double* __restrict__ vals, int batch,
+                 int closed_blocks) {
   const int m = t.m;
   const int n = t.n;
   const int closed = t.closed;
@@ -455,9 +499,19 @@ se_values_kernel(SeTables t, const double* __restrict__ status,
   const int b = static_cast<int>(unit / rows);
   const int row = t.order[first + static_cast<int>(unit % rows)];
   const int64_t out = static_cast<int64_t>(b) * m + row;
-  fill_row(row, m, lane, t.idx, t.coef, status[row], t.row_ptr, t.cols, t.yg,
-           t.yb, t.diag, vm + static_cast<int64_t>(b) * n,
-           va + static_cast<int64_t>(b) * n, n, mean, h, r, out, NoPut{});
+  const double st = status[row];
+  if constexpr (kEntries) {
+    const EntryPut put{vals + static_cast<int64_t>(b) * t.entries, t.epos, m,
+                       row, slack, st};
+    fill_row<true>(row, m, lane, t.idx, t.coef, st, t.row_ptr, t.cols, t.yg,
+                   t.yb, t.diag, vm + static_cast<int64_t>(b) * n,
+                   va + static_cast<int64_t>(b) * n, n, mean, h, r, out, put);
+  } else {
+    fill_row<false>(row, m, lane, t.idx, t.coef, st, t.row_ptr, t.cols, t.yg,
+                    t.yb, t.diag, vm + static_cast<int64_t>(b) * n,
+                    va + static_cast<int64_t>(b) * n, n, mean, h, r, out,
+                    NoPut{});
+  }
 }
 
 // Routed mode, one scenario: warp w owns row w % mr of block w / mr, and a
@@ -506,19 +560,27 @@ se_fill_routed_kernel(SeTables t, const double* __restrict__ status,
   const int* cmap = t.colmap + (unit / mr) * n;
   const double st = status[row];
   const double rs = scale[row];
-  auto put = [&](int col, double v) {
+  auto put = [&](int col, double v, int, int) {
     if (hrow == nullptr || col == slack) return;
     const bool mag = col >= n;
     const int a = cmap[mag ? col - n : col];
     if (a < 0) return;  // not a variable of this block (host-checked)
     hrow[mag ? a + (a < ni ? ni : lb) : a] = v * st * rs;
   };
-  fill_row(row, t.m, lane, t.idx, t.coef, st, t.row_ptr, t.cols, t.yg, t.yb,
-           t.diag, vm, va, n, mean, h, r, row, put);
+  fill_row<false>(row, t.m, lane, t.idx, t.coef, st, t.row_ptr, t.cols, t.yg,
+                  t.yb, t.diag, vm, va, n, mean, h, r, row, put);
 }
 
 int64_t blocks_of(int64_t threads) {
   return (threads + kThreads - 1) / kThreads;
+}
+
+// Blocks of the mapping without the Jacobian: (closed-form blocks, all).
+void values_blocks(const SeTables* t, int batch, int64_t* closed,
+                   int64_t* blocks) {
+  *closed = blocks_of(static_cast<int64_t>(t->closed) * batch);
+  *blocks = *closed + blocks_of(static_cast<int64_t>(t->m - t->closed) *
+                                batch * kWarp);
 }
 
 }  // namespace
@@ -548,13 +610,36 @@ extern "C" int se_fill_launch(const SeTables* t, const double* status,
     se_fill_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         *t, status, slack, vm, va, mean, h, r, jac, batch, rows);
   } else {
-    const int64_t closed = blocks_of(static_cast<int64_t>(t->closed) * batch);
-    blocks = closed + blocks_of(static_cast<int64_t>(t->m - t->closed) *
-                                batch * kWarp);
+    int64_t closed;
+    values_blocks(t, batch, &closed, &blocks);
     if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-    se_values_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        *t, status, vm, va, mean, h, r, batch, static_cast<int>(closed));
+    se_values_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        *t, status, -1, vm, va, mean, h, r, nullptr, batch,
+        static_cast<int>(closed));
   }
+  return cudaGetLastError();
+}
+
+// Launch K3's entry mode on `stream`: h and r ([batch, m]) as above, and the
+// [batch, entries] values `vals` in the pattern's order, each times its
+// row's status and 0 in the column `slack`, written whole. `t` also holds
+// epos[4, m]. Returns a cudaError_t code.
+extern "C" int se_fill_entries_launch(const SeTables* t, const double* status,
+                                      int slack, const double* vm,
+                                      const double* va, const double* mean,
+                                      double* h, double* r, double* vals,
+                                      int batch, void* stream) {
+  if (t == nullptr || t->n <= 0 || t->m <= 0 || t->epos == nullptr ||
+      t->entries <= 0 || vals == nullptr || batch <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  int64_t closed, blocks;
+  values_blocks(t, batch, &closed, &blocks);
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  se_values_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      *t, status, slack, vm, va, mean, h, r, vals, batch,
+      static_cast<int>(closed));
   return cudaGetLastError();
 }
 

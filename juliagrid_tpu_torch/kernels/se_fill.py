@@ -20,6 +20,16 @@ tensor goes to the kernel (and the call raises if the kernel does not build
 or launch), a CPU tensor to ``se_fill_ref``, the plain PyTorch
 transcription of the jnp code. ``se_fill.launches`` counts kernel launches.
 
+``se_fill_entries`` is K3's entry mode, the main path of the WLS
+estimators: no dense H, but the entry values ``[B, E]`` in
+``h_entry_pattern``'s order, masked as ``gn_increment`` masks them
+(``vals * status[ent_rows] * col_mask[ent_cols]``, acse.py:642), with h and
+r; every entry has one writer, at a position the host builds once
+(``entry_positions``). K8 (``kernels/gain_fill.py``) forms the normal
+equations from them. It dispatches the same way, to
+``se_fill_entries_ref`` on the CPU, and counts its own launches in
+``se_fill_entries.launches``.
+
 ``se_fill_routed`` is K3's routed mode for the BBD estimator
 (``estimation/acse_bbd.py``): one state, and instead of the dense H one
 ``[mr, 2ni + 2lb]`` matrix per block of the partition (its rows, its
@@ -57,6 +67,8 @@ class SeFillTable(NamedTuple):
     coef: torch.Tensor   # f64[5, m]: PiModel a, b, c, d and shift angle phi
     order: torch.Tensor  # i32[m]: closed-form rows, then injection rows
     closed: int          # closed-form rows (the head of order)
+    epos: torch.Tensor   # i32[4, m]: entry_positions
+    entries: int         # E, the pattern's entries
 
 
 class SeRoute(NamedTuple):
@@ -90,6 +102,14 @@ class SeFill(NamedTuple):
     h: torch.Tensor    # f64[B, m] model values times row status
     r: torch.Tensor    # f64[B, m] residuals mean - h
     jac: Optional[torch.Tensor]  # f64[B, m, 2n] masked Jacobian, or None
+
+
+class SeEntries(NamedTuple):
+    """K3's entry-mode outputs, with the leading scenario axis B."""
+
+    h: torch.Tensor     # f64[B, m] model values times row status
+    r: torch.Tensor     # f64[B, m] residuals mean - h
+    vals: torch.Tensor  # f64[B, E] masked H entries, h_entry_pattern order
 
 
 def se_fill_table(host) -> tuple[np.ndarray, np.ndarray]:
@@ -130,6 +150,65 @@ def se_fill_table(host) -> tuple[np.ndarray, np.ndarray]:
         raise ValueError("every measurement row must be in exactly one row "
                          "group")
     return idx, coef
+
+
+def entry_positions(host) -> tuple[np.ndarray, int]:
+    """``(epos [4, m], E)``: where K3's entry mode writes each row's values
+    in ``h_entry_pattern``'s order (its blocks: voltmeter, angle and
+    rectangular PMU rows, each branch group's four columns, then P and Q
+    injections' Y-entry angle and magnitude blocks and their diagonal
+    pairs), from the host mirror of an ``SeArrays``. A closed-form row's
+    value of slot s lies at ``epos[s, row]``; an injection row's values at
+    Y entry k at ``epos[0, row] + k`` (angle) and ``epos[1, row] + k``
+    (magnitude), its diagonal pair at ``epos[2, row]``, ``epos[3, row]``.
+    Raises unless an injection row's Y entries are consecutive, as the
+    kernel walks them."""
+    m = len(host.mean)
+    epos = np.full((4, m), -1, dtype=np.int64)
+    pos = 0
+
+    def block(rows, slot):
+        nonlocal pos
+        rows = np.asarray(rows, dtype=np.int64)
+        epos[slot, rows] = pos + np.arange(len(rows))
+        pos += len(rows)
+
+    block(host.vm_rows, 0)
+    block(host.va_rows, 0)
+    for rows in (host.rev_rows, host.imv_rows):
+        block(rows, 0)
+        block(rows, 1)
+    for grp in host.branch:
+        if len(grp.rows):
+            for slot in range(4):
+                block(grp.rows, slot)
+    for rows, meas, ent_k in ((host.p_rows, host.p_ent_meas, host.p_ent_k),
+                              (host.q_rows, host.q_ent_meas, host.q_ent_k)):
+        rows = np.asarray(rows, dtype=np.int64)
+        if not len(rows):
+            continue
+        meas = np.asarray(meas, dtype=np.int64)
+        ent_k = np.asarray(ent_k, dtype=np.int64)
+        if not len(meas):
+            raise ValueError("an injection row has no Y entries")
+        # the runs of equal rows in meas, in order: one run a row
+        first = np.flatnonzero(np.r_[True, meas[1:] != meas[:-1]])
+        lens = np.diff(np.r_[first, len(meas)])
+        if (len(first) != len(rows) or not np.array_equal(meas[first], rows)
+                or not np.array_equal(
+                    ent_k - np.repeat(ent_k[first] - first, lens),
+                    np.arange(len(ent_k)))):
+            raise ValueError("an injection row's Y entries are not one "
+                             "consecutive run")
+        base = first - ent_k[first]
+        epos[0, rows] = pos + base
+        epos[1, rows] = pos + len(meas) + base
+        pos += 2 * len(meas)
+        block(rows, 2)
+        block(rows, 3)
+    if pos >= 2 ** 31:
+        raise ValueError("K3's entry mode indexes with int32")
+    return epos.astype(np.int32), pos
 
 
 def row_classes(idx) -> tuple[np.ndarray, int]:
@@ -204,6 +283,9 @@ def _library() -> ctypes.CDLL:
     lib.se_fill_routed_launch.argtypes = (
         [ptr] * 2 + [i32] + [ptr] * 7 + [i32] * 2 + [ptr])
     lib.se_fill_routed_launch.restype = i32
+    lib.se_fill_entries_launch.argtypes = (
+        [ptr] * 2 + [i32] + [ptr] * 6 + [i32, ptr])
+    lib.se_fill_entries_launch.restype = i32
     lib.se_fill_error_string.argtypes = [i32]
     lib.se_fill_error_string.restype = ctypes.c_char_p
     return lib
@@ -214,23 +296,26 @@ class _Tables(ctypes.Structure):
 
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "idx", "coef", "order", "row_ptr", "cols", "yg", "yb", "diag",
-        "slot_row", "colmap")]
+        "slot_row", "colmap", "epos")]
         + [(name, ctypes.c_int) for name in (
-            "n", "m", "closed", "ni", "lb", "mr", "k")])
+            "n", "m", "closed", "ni", "lb", "mr", "k", "entries")])
 
 
-#: the ``_Tables`` of each measurement set (keyed by its ``desc.idx``) or
-#: partition (keyed by its ``SeRoute.slot_row``), with the tensors they
-#: point into; built at the first launch, and again if the network changes
+#: the ``_Tables`` of each measurement set (keyed by its ``desc.idx``; the
+#: entry mode's by its ``desc.epos``) or partition (keyed by its
+#: ``SeRoute.slot_row``), with the tensors they point into; built at the
+#: first launch, and again if the network changes
 _DENSE = WeakIdKeyDictionary()
+_ENTRY = WeakIdKeyDictionary()
 _ROUTED = WeakIdKeyDictionary()
 
 
-def _tables(cache, key_name: str, key, tensors: dict, **ints) -> int:
+def _tables(cache, key_name: str, key, tensors: dict, on_build=None,
+            **ints) -> int:
     """The address of the ``_Tables`` of ``key`` (its field ``key_name``)
-    and ``tensors``, checked and built once for as long as the same
-    tensors come with ``key``. The entry holds ``tensors`` but not
-    ``key``, so that it goes when ``key`` does."""
+    and ``tensors``, checked (and ``on_build()`` called) and built once for
+    as long as the same tensors come with ``key``. The entry holds
+    ``tensors`` but not ``key``, so that it goes when ``key`` does."""
     held = tuple(tensors.values())
     entry = cache.get(key)
     if entry is None or any(a is not b for a, b in zip(entry[1], held)):
@@ -238,6 +323,8 @@ def _tables(cache, key_name: str, key, tensors: dict, **ints) -> int:
             want = torch.float64 if t.is_floating_point() else torch.int32
             if t.dtype != want or not t.is_contiguous():
                 raise TypeError(f"{name} must be contiguous {want}")
+        if on_build is not None:
+            on_build()
         ptrs = {name: t.data_ptr() for name, t in tensors.items()}
         entry = (_Tables(**{key_name: key.data_ptr()}, **ptrs, **ints), held)
         cache[key] = entry
@@ -281,6 +368,81 @@ def _launch(arr, net, vm, va, mean, jacobian: bool,
     _check(err, "se_fill")
     se_fill.launches += 1
     return SeFill(out[0], out[1], jac)
+
+
+def se_fill_entries(arr, net, vm, va, mean) -> SeEntries:
+    """h, residuals and the masked H entries (``[B, E]``, the order of
+    ``h_entry_pattern``) for the ``[B, n]`` states ``vm``/``va`` and ``[B,
+    m]`` means of the measurement set ``arr`` on the network ``net``."""
+    _check_inputs(arr, net, vm, va, mean)
+    if arr.desc is None or arr.desc.epos is None:
+        raise ValueError("the measurement set has no entry positions "
+                         "(SeFillTable.epos)")
+    if vm.device.type == "cpu":
+        return se_fill_entries_ref(arr, net, vm, va, mean)
+    if vm.device.type != "cuda":
+        raise ValueError(f"se_fill_entries runs on cuda or cpu tensors, not "
+                         f"{vm.device}")
+    return _launch_entries(arr, net, vm, va, mean)
+
+
+se_fill_entries.launches = 0
+
+
+def _check_entry_route(arr, net) -> None:
+    """An injection row's Y entries (``p_ent_k``/``q_ent_k``, the run
+    ``entry_positions`` placed) must be its bus's CSR segment of the
+    network, the run K3 walks."""
+    row_ptr = net.row_ptr.cpu().numpy().astype(np.int64)
+    for bus, ent_k in ((arr.p_bus, arr.p_ent_k), (arr.q_bus, arr.q_ent_k)):
+        bus = bus.cpu().numpy()
+        lens = row_ptr[bus + 1] - row_ptr[bus]
+        first = np.cumsum(lens) - lens
+        want = np.repeat(row_ptr[bus] - first, lens) + np.arange(lens.sum())
+        if not np.array_equal(ent_k.cpu().numpy(), want):
+            raise ValueError("an injection row's Y entries are not its "
+                             "bus's CSR segment of the network")
+
+
+def _launch_entries(arr, net, vm, va, mean) -> SeEntries:
+    table = arr.desc
+    batch, n = vm.shape
+    m = mean.shape[1]
+    tables = _tables(_ENTRY, "epos", table.epos,
+                     dict(idx=table.idx, coef=table.coef, order=table.order,
+                          **_net_tensors(net)),
+                     on_build=lambda: _check_entry_route(arr, net),
+                     n=n, m=m, closed=table.closed, entries=table.entries)
+    if arr.status.dtype != torch.float64 or not arr.status.is_contiguous():
+        raise TypeError("status must be contiguous float64")
+    vm, va, mean = vm.contiguous(), va.contiguous(), mean.contiguous()
+    out = torch.empty((2, batch, m), dtype=torch.float64, device=vm.device)
+    vals = torch.empty((batch, table.entries), dtype=torch.float64,
+                       device=vm.device)
+    ctx, stream = _build.launch_context(vm.device)
+    with ctx:
+        err = _library().se_fill_entries_launch(
+            tables, arr.status.data_ptr(), int(arr.slack), vm.data_ptr(),
+            va.data_ptr(), mean.data_ptr(), out.data_ptr(),
+            out.data_ptr() + 8 * batch * m, vals.data_ptr(), batch, stream)
+    _check(err, "se_fill entries")
+    se_fill_entries.launches += 1
+    return SeEntries(out[0], out[1], vals)
+
+
+def se_fill_entries_ref(arr, net, vm, va, mean) -> SeEntries:
+    """Plain PyTorch entry mode: ``h_entries`` and the entry masks of
+    ``gn_increment`` (acse.py:639-642), with a leading scenario axis. The
+    CPU path, and the check the entry mode is held to on the card."""
+    from ..estimation.acse import h_entries, h_entry_pattern
+
+    n = vm.shape[1]
+    vals, h = h_entries(arr, net, vm, va)
+    ent_rows, ent_cols = h_entry_pattern(arr, net, n)
+    col_mask = torch.ones(2 * n, dtype=vm.dtype, device=vm.device)
+    col_mask[arr.slack] = 0.0
+    return SeEntries(h, mean - h,
+                     vals * arr.status[ent_rows] * col_mask[ent_cols])
 
 
 def se_fill_routed(arr, net, route: SeRoute, vm, va, scale,

@@ -6,9 +6,10 @@ axis is a leading tensor dimension: K1 and K3 run with scenarios on their
 launch grids (one warp per scenario and bus, or scenario and measurement
 row), every scenario's NR Jacobian is factored and solved in one launch of
 K2 (``kernels/fleet_solve.py``: f64 LU with partial pivoting, a scenario a
-thread-block cluster), the SE gains form in one batched matmul and are
-solved in one K2 launch in its Cholesky mode (both up to K2's order cap of
-256, the batched ``torch.linalg`` calls above it), and the DC fleet shares
+thread-block cluster), the SE gains form in one K8 launch from H's entry
+pattern (``kernels/gain_fill.py``) and are solved in one K2 launch in its
+Cholesky mode (both solves up to K2's order cap of 256, the batched
+``torch.linalg`` calls above it), and the DC fleet shares
 one factorization of B and solves every scenario in one call.
 
 Across ranks (``sharded_nr_solve``, ``sharded_se_solve`` over a
@@ -26,7 +27,8 @@ import torch
 from ..estimation.acse import SeArrays, _normal_increment
 from ..kernels.nr_fill import nr_fill
 from ..ops import linalg
-from ..kernels.se_fill import se_fill
+from ..kernels.gain_fill import gain_fill
+from ..kernels.se_fill import se_fill_entries
 from ..powerflow.ac import AcArrays, _max_mismatch, _nr_update
 from ..powerflow.dc import DcArrays, _masked_b
 from .mesh import Mesh
@@ -72,25 +74,28 @@ def batched_nr_solve(arr: AcArrays, vm0, va0, p_sched, q_sched,
 
 
 def batched_se_solve(arr: SeArrays, net: AcArrays, vm0, va0, means,
-                     tol: float = 1e-8, max_iter: int = 40, fill=se_fill,
+                     tol: float = 1e-8, max_iter: int = 40,
+                     fill=se_fill_entries, gain=gain_fill,
                      any_active=_local_any):
     """Batched Gauss-Newton WLS over scenario measurement means.
 
     ``means`` is ``[B, m]`` and ``vm0, va0`` are ``[B, n]``; the measurement
     pattern, weights and network are shared. All scenarios iterate in
-    lockstep (one K3 launch, one batched gain, one K2 Cholesky solve and
-    one readback per iteration) until every scenario's max|dx| is below ``tol``
+    lockstep (one launch of K3's entry mode, one of K8 for the gains, one
+    K2 Cholesky solve and one readback per iteration) until every scenario's max|dx| is below ``tol``
     or the cap is hit; only scenarios still active advance, each with its
     own count. Returns (vm, va, iterations, converged), where a scenario
     whose normal equations were not solved to a relative residual of 1e-6
     (``rel``, the escalation gate of ``state_estimation``) counts as not
-    converged. ``fill`` exists so a check can run the same loop on
-    ``se_fill_ref``; the main path never passes it. ``any_active`` as in
+    converged. ``fill`` and ``gain`` exist so a check can run the same loop
+    on ``se_fill_entries_ref`` and ``gain_fill_ref``; the main path never
+    passes them. ``any_active`` as in
     ``batched_nr_solve``.
     """
     n = vm0.shape[1]
     vm, va = vm0, va0
-    dx, maxinc, relmax = _normal_increment(arr, net, vm, va, means, fill)
+    dx, maxinc, relmax = _normal_increment(arr, net, vm, va, means, fill,
+                                           gain)
     active = maxinc >= tol
     iters = torch.zeros(vm.shape[0], dtype=torch.int32, device=vm.device)
     it = 0
@@ -98,7 +103,8 @@ def batched_se_solve(arr: SeArrays, net: AcArrays, vm0, va0, means,
         va = torch.where(active[:, None], va + dx[:, :n], va)
         vm = torch.where(active[:, None], vm + dx[:, n:], vm)
         iters += active.to(iters.dtype)
-        dx, maxinc, rel = _normal_increment(arr, net, vm, va, means, fill)
+        dx, maxinc, rel = _normal_increment(arr, net, vm, va, means, fill,
+                                            gain)
         relmax = torch.where(active, torch.maximum(relmax, rel), relmax)
         active &= maxinc >= tol
         it += 1
@@ -178,7 +184,8 @@ def sharded_nr_solve(mesh: Mesh, arr: AcArrays, vm0, va0, p_sched, q_sched,
 def sharded_se_solve(mesh: Mesh, arr: SeArrays, net: AcArrays, vm0, va0,
                      means, tol: float = 1e-8, max_iter: int = 40):
     """Scenario-sharded batched WLS SE over ``mesh``, as
-    ``sharded_nr_solve`` (K3 on each rank's slice)."""
+    ``sharded_nr_solve`` (K3's entry mode and K8 on each rank's
+    slice)."""
     nscen = vm0.shape[0]
     vm, va, mean = shard_scenarios(mesh, vm0, va0, means)
     out = batched_se_solve(_on(arr, mesh.device), _on(net, mesh.device), vm,
