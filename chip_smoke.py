@@ -393,6 +393,15 @@ K8_OPS_PER_CONTRIB, K8_OPS_PER_RHS = 3, 6
 #: K8's G and rhs against the dense route's, of the scenario's max|G| and
 #: max|rhs| (one f64 formula, summed in two orders)
 K8_DENSE_TOL = 1e-12
+#: the tables K8's bound counts as read: the gain table's pattern arrays
+#: (the fleet regime's band lists are the kernel's own choice, not the
+#: function's input)
+K8_BOUND_TABLES = ("nz_ptr", "nz_col", "c_ptr", "c_a", "c_b", "c_w",
+                   "dup_ptr", "dup_raw", "col_ptr", "col_ref", "col_row",
+                   "pair_of", "partner")
+#: phase 5b's batches on both sides of k8.FLEET_MIN; it also runs a rank's
+#: share of phase 20's sharded fleet (SE_FLEET // 4 = 256) and SE_FLEET
+K8_BATCHES = (1, 5, 7, 8, 31, 32, 33)
 
 
 class SmokeFailure(RuntimeError):
@@ -1353,6 +1362,11 @@ def compare_k3_entries(label, arr, net, vm, va, mean):
     got = k3.se_fill_entries(arr, net, vm, va, mean)
     ref = k3.se_fill_entries_ref(arr, net, vm, va, mean)
     torch.cuda.synchronize()
+    minor = k8.scenario_minor(vm.shape[0])
+    check(got.vals.stride() == ref.vals.stride() and (
+        not minor or not got.vals.is_contiguous()),
+          f"{label}: K3's entry mode gives strides {got.vals.stride()}, its "
+          f"plain version {ref.vals.stride()} (scenario-minor: {minor})")
     worst_abs = worst_rel = 0.0
     for name in ("h", "r", "vals"):
         a, b = getattr(got, name), getattr(ref, name)
@@ -1382,7 +1396,8 @@ def compare_k3_entries(label, arr, net, vm, va, mean):
                                                       mean), 3)
     dense_ms = cuda_ms(lambda: k3.se_fill(arr, net, vm, va, mean), 5)
     print(f"phase 5b {label} B={b} n={n} m={m} E={desc.entries}: K3 entry "
-          f"mode max abs diff {worst_abs!r}, max rel diff {worst_rel!r}, "
+          f"mode ({'scenario-minor' if minor else 'row-major'} values) max "
+          f"abs diff {worst_abs!r}, max rel diff {worst_rel!r}, "
           f"one kernel a call; {ms!r} ms (device {dev_ms!r} ms queued), "
           f"se_fill_entries_ref {plain_ms!r} ms, K3's dense H {dense_ms!r} "
           f"ms; bound {least[0]!r} ms by {least[1]} "
@@ -1395,7 +1410,7 @@ def k8_bound(table, vals, w, off, r):
     residuals and the kernel's tables read once, or its operations over
     the f64 peak."""
     batch, n = vals.shape[0], table.n
-    tables = [getattr(table, name) for name in k8._FIELDS]
+    tables = [getattr(table, name) for name in K8_BOUND_TABLES]
     nbytes = 8 * batch * (n * n + n) + tensor_bytes(vals, w, off, r,
                                                     *tables)
     flops = batch * (K8_OPS_PER_CONTRIB * table.c_a.numel()
@@ -1407,22 +1422,32 @@ def same_bits_all(pairs):
     return all(same_bits_of(a, b) for a, b in pairs)
 
 
+def other_layout(vals):
+    """``vals`` copied into the other layout K8 takes: row-major from
+    scenario-minor and the other way."""
+    return vals.contiguous() if not vals.is_contiguous() else \
+        vals.mT.contiguous().mT
+
+
 def compare_k8(label, table, vals, w, off, r, dense=None):
-    """Phase 5b: K8 against ``gain_fill_ref`` bit for bit, two launches
-    the same bits, one kernel node a call; against the dense route's
-    ``dense()`` within K8_DENSE_TOL of each scenario's max|G| and max|rhs|.
-    Returns the worst abs differences from the plain version and from the
-    dense route."""
+    """Phase 5b: K8 against ``gain_fill_ref`` bit for bit, in the layout
+    given and in the other (``other_layout``), two launches the same bits,
+    one kernel node a call; against the dense route's ``dense()`` within
+    K8_DENSE_TOL of each scenario's max|G| and max|rhs|. Returns the worst
+    abs differences from the plain version and from the dense route."""
     g, rhs = k8.gain_fill(table, vals, w, off, r)
     again = k8.gain_fill(table, vals, w, off, r)
     ref = k8.gain_fill_ref(table, vals, w, off, r)
+    other = k8.gain_fill(table, other_layout(vals), w, off, r)
     torch.cuda.synchronize()
     plain_abs = max((a - b).abs().max().item() for a, b in zip((g, rhs), ref))
     check(same_bits_all(zip((g, rhs), ref)),
           f"{label}: K8 differs from gain_fill_ref by {plain_abs!r}")
     check(same_bits_all(zip((g, rhs), again)),
           f"{label}: two K8 launches differ")
-    del again, ref
+    check(same_bits_all(zip((g, rhs), other)),
+          f"{label}: K8 in the other layout differs")
+    del again, ref, other
     note_rel("gain_fill", 0.0)
     check_one_launch(f"{label} K8", lambda: k8.gain_fill(table, vals, w,
                                                          off, r))
@@ -1439,10 +1464,12 @@ def compare_k8(label, table, vals, w, off, r, dense=None):
         check(rel <= K8_DENSE_TOL, f"{label}: K8 {rel:.3e} of max|G| off "
               "the dense route")
     nnz = table.nz_col.numel()
-    print(f"phase 5b {label} B={vals.shape[0]} N={table.n}: K8 = "
-          f"gain_fill_ref bit for bit, two launches the same bits, one "
-          f"kernel a call; {nnz} structural nonzeros "
-          f"({100 * nnz / table.n ** 2!r}% of G), "
+    regime = "fleet" if k8.scenario_minor(vals.shape[0]) else "small-B"
+    print(f"phase 5b {label} B={vals.shape[0]} N={table.n}: K8 ({regime} "
+          f"regime) = gain_fill_ref bit for bit in both layouts, two "
+          f"launches the same bits, one kernel a call; {table.band}-row "
+          f"bands, {k8.fleet_shared(table)} shared bytes a fleet block; "
+          f"{nnz} structural nonzeros ({100 * nnz / table.n ** 2!r}% of G), "
           f"{table.c_a.numel()} contributions, {table.entries} entries; "
           f"vs the dense route max abs {worst!r}, {rel!r} of max|G|")
     return plain_abs, worst
@@ -1488,8 +1515,8 @@ def k8_ac_cell(label, system, mon, pf, batch, rng, timed):
     """Phase 5b on an AC set: K3's entry mode and K8 against their plain
     versions at ``batch`` random states and means, K8 against the dense
     route; with ``timed`` K8 in turns with the dense route's gain.
-    Returns the worst abs errors of both and, with ``timed``, their
-    times."""
+    Returns the worst abs errors of both, with ``timed`` their times, and
+    the batch."""
     arr, net, _, (vm, va, mean) = k3_inputs(system, mon, pf, batch, rng)
     t0 = time.perf_counter()
     table = gain_table(arr, net)
@@ -1503,35 +1530,59 @@ def k8_ac_cell(label, system, mon, pf, batch, rng, timed):
     if timed:
         times = k8_times(label, table, ent.vals, arr.w, arr.pair_off, ent.r,
                          lambda: dense_gain_ms(arr, net, vm, va, mean, 3))
-    return k3e_err, k8_err, k3e_times, times
+    return k3e_err, k8_err, k3e_times, times, batch
 
 
 def phase5b():
-    """K3's entry mode and K8 against their plain versions and the dense
-    route; K8 timed in turns with the dense route at case118 x1024, the
-    1,369-bus grid x32 and x1, and the 10k DC set. Returns the worst abs
-    abs errors against the plain versions and the case118 x1024 times of
-    both (K8's with the dense route's gain)."""
+    """K3's entry mode and K8 against their plain versions (K8 in both
+    layouts) and the dense route at K8_BATCHES scenarios and at an odd
+    order; K8 timed in turns with the dense route at case118 x256 and
+    x1024, the 1,369-bus grid x32 and x1, and the 10k DC set. Returns the
+    worst abs errors against the plain versions and the case118 x1024
+    times of both (K8's with the dense route's gain)."""
     rng = np.random.default_rng(SEED)
     cells = []
-    # K8 takes the scenarios four a warp: batches of 5, 7 and 8 leave
-    # groups of one, three and four
-    for case, batch in (("case14test", 5), ("case30test", 7),
-                        ("case118", 8)):
+    # K8_BATCHES on both sides of FLEET_MIN: every row type at the small
+    # ones, bench.py's set at a rank's 256 and the fleet's 1,024
+    for case, batches in (("case14test", (5,)), ("case30test", (7,)),
+                          ("case118", (1, 8, 31, 32, 33))):
         system, pf = solved_case(case)
-        cells.append(k8_ac_cell(f"{case} all 21 row types", system,
-                                every_row_type(system, pf), pf, batch, rng,
-                                False))
+        mon = every_row_type(system, pf)
+        for batch in batches:
+            cells.append(k8_ac_cell(f"{case} all 21 row types", system, mon,
+                                    pf, batch, rng, False))
     system = power_system(str(DATA / "case118.m"))
     mon, pf = scada_pmu(system)
-    cells.append(k8_ac_cell("case118 fleet", system, mon, pf, SE_FLEET,
-                            rng, True))
-    _, _, k3e_times, k8_times_ = cells[-1]
+    for batch in (SE_FLEET // 4, SE_FLEET):
+        cells.append(k8_ac_cell("case118 fleet", system, mon, pf, batch,
+                                rng, True))
+    _, _, k3e_times, k8_times_, _ = cells[-1]
+    check({c[4] for c in cells} >= {*K8_BATCHES, SE_FLEET // 4, SE_FLEET},
+          f"phase 5b ran batches {sorted({c[4] for c in cells})}")
     system = synthetic_grid(*SE_GRID)
     mon, pf = scada_pmu(system)
     for batch in (SE_CHUNK, 1):
         cells.append(k8_ac_cell(f"{SE_GRID[0]}x{SE_GRID[1]} grid", system,
                                 mon, pf, batch, rng, True))
+    # an odd order (one column a lane, 8-byte stores): the DC set of the
+    # same grid, N = 1,369, at its entries and at 33 perturbed copies
+    dmon, _ = dc_wattmeters(system)
+    darr = dc_state_estimation(dmon, device="cuda").arrays
+    dvals, dtable = k8.dense_entries(darr.h_dense, darr.slack)
+    check(dtable.n % 2 == 1, f"the odd-N set has N = {dtable.n}")
+    doff = darr.w.new_zeros(0)
+    for batch in (1, 33):
+        noise = torch.tensor(rng.standard_normal((batch, dtable.entries)),
+                             device="cuda")
+        vals = dvals * (1.0 + 0.01 * noise)
+        if k8.scenario_minor(batch):
+            vals = vals.mT.contiguous().mT
+        mean = darr.mean + 0.01 * torch.tensor(
+            rng.standard_normal((batch, darr.mean.shape[0])), device="cuda")
+        cells.append((0.0, compare_k8(
+            f"{SE_GRID[0]}x{SE_GRID[1]} DC (odd N)", dtable, vals, darr.w,
+            doff, mean)[0], None, None, batch))
+    del darr, dvals, dtable
     worst_k3e = max(cell[0] for cell in cells)
     worst_k8 = max(cell[1] for cell in cells)
     torch.cuda.empty_cache()

@@ -80,6 +80,21 @@
 // Y entry included, and its diagonal pair at epos[2][row], epos[3][row].
 // Every entry of the pattern has one writer, so there is nothing to zero.
 //
+// For fleets (B >= gain_fill.py::FLEET_MIN) the entry mode writes the values
+// scenario-minor, into an [E, B] buffer (value e of scenario b at e B + b),
+// so that K8 reads one value of 32 scenarios as one 256-byte load. Its
+// thread map puts scenarios on neighbouring lanes, so one value of 32
+// scenarios is also one 256-byte store: a block per (group of 32
+// scenarios, slice of 32 consecutive rows), a warp per row, a lane a
+// scenario; an injection row's lane walks the bus's Y segment for its
+// scenario with warp-uniform table loads. The block stages the group's
+// means of its rows and, up to kStateMax buses, the group's state in
+// shared memory, and h and r ([B, m], as other code reads them) leave
+// through it as rows. An injection row's lane sums P and Q in the order
+// the warp of the row-major mapping does (lane l's partial over Y entries
+// l, l + 32, ..., then the shuffle-down tree; injection_sums), so both
+// layouts carry the same bits.
+//
 // Bound: with the Jacobian, writing B m 2n doubles once at full memory
 // bandwidth: 2.2 GB for case118 x1024, 10.9 GB for 32 scenarios of a
 // 1,369-bus grid, about 0.7 and 3.3 ms at 3.35 TB/s; the values are 1-4
@@ -269,14 +284,69 @@ __device__ Entries eval_branch(int code, double a, double b, double c,
   }
 }
 
+// Y entry k (column c) of an injection row (code 6: P, 9: Q) at bus f with
+// V_f = vi, theta_f = ti: adds its terms to the sums sp and sq and puts its
+// Jacobian values; kEveryEntry also puts the zero values at the row's own
+// bus's entry (the entry mode writes every entry of the pattern).
+template <bool kEveryEntry, class Put>
+__device__ __forceinline__ void injection_entry(
+    int code, int f, int k, int n, double vi, double ti,
+    const int* __restrict__ cols, const double* __restrict__ yg,
+    const double* __restrict__ yb, const double* __restrict__ vmb,
+    const double* __restrict__ vab, double& sp, double& sq, const Put& put) {
+  const int c = cols[k];
+  double s, co;
+  sincos(ti - vab[c], &s, &co);
+  const double g = yg[k];
+  const double bk = yb[k];
+  const double gc_bs = g * co + bk * s;  // G cos + B sin
+  const double gs_bc = g * s - bk * co;  // G sin - B cos
+  const double vv = vi * vmb[c];
+  sp += vv * gc_bs;
+  sq += vv * gs_bc;
+  if (c != f) {
+    if (code == 6) {
+      put(c, vv * gs_bc, 0, k);      // dP/dtheta_j
+      put(n + c, vi * gc_bs, 1, k);  // dP/dV_j
+    } else {
+      put(c, -vv * gc_bs, 0, k);     // dQ/dtheta_j
+      put(n + c, vi * gs_bc, 1, k);  // dQ/dV_j
+    }
+  } else if (kEveryEntry) {  // acse.py's off-diagonal mask, times 0
+    if (code == 6) {
+      put(c, (vv * gs_bc) * 0.0, 0, k);
+      put(n + c, (vi * gc_bs) * 0.0, 1, k);
+    } else {
+      put(c, (-vv * gc_bs) * 0.0, 0, k);
+      put(n + c, (vi * gs_bc) * 0.0, 1, k);
+    }
+  }
+}
+
+// An injection row's diagonal pair from its sums sp and sq; returns h.
+template <class Put>
+__device__ __forceinline__ double injection_diagonal(
+    int code, int f, int n, double vi, double sp, double sq,
+    const double* __restrict__ yg, const double* __restrict__ yb,
+    const int* __restrict__ diag, const Put& put) {
+  const double gii = yg[diag[f]];
+  const double bii = yb[diag[f]];
+  if (code == 6) {
+    put(f, -sq - bii * (vi * vi), 2, 0);
+    put(n + f, sp / vi + gii * vi, 3, 0);
+    return sp;
+  }
+  put(f, sp - gii * (vi * vi), 2, 0);
+  put(n + f, sq / vi - bii * vi, 3, 0);
+  return sq;
+}
+
 // One measurement row of one scenario, evaluated by a warp: `put(col, v,
 // slot, k)` receives every Jacobian value with its column in the 2n state
 // vector (theta then V), its slot (0-3: the value's order in a closed-form
 // row; an injection row's angle 0 and magnitude 1 at Y entry k, its
 // diagonal pair 2 and 3) and stores it where the mode wants it; lane 0
-// writes h and the residual. kEveryEntry also puts the zero values of an
-// injection row at its own bus's Y entry (the entry mode writes every entry
-// of the pattern).
+// writes h and the residual. kEveryEntry: as injection_entry's.
 template <bool kEveryEntry, class Put>
 __device__ __forceinline__ void fill_row(
     int row, int m, int lane, const int* __restrict__ idx,
@@ -296,33 +366,8 @@ __device__ __forceinline__ void fill_row(
     double sq = 0.0;
     const int end = row_ptr[f + 1];
     for (int k = row_ptr[f] + lane; k < end; k += kWarp) {
-      const int c = cols[k];
-      double s, co;
-      sincos(ti - vab[c], &s, &co);
-      const double g = yg[k];
-      const double bk = yb[k];
-      const double gc_bs = g * co + bk * s;  // G cos + B sin
-      const double gs_bc = g * s - bk * co;  // G sin - B cos
-      const double vv = vi * vmb[c];
-      sp += vv * gc_bs;
-      sq += vv * gs_bc;
-      if (c != f) {
-        if (code == 6) {
-          put(c, vv * gs_bc, 0, k);      // dP/dtheta_j
-          put(n + c, vi * gc_bs, 1, k);  // dP/dV_j
-        } else {
-          put(c, -vv * gc_bs, 0, k);     // dQ/dtheta_j
-          put(n + c, vi * gs_bc, 1, k);  // dQ/dV_j
-        }
-      } else if (kEveryEntry) {  // acse.py's off-diagonal mask, times 0
-        if (code == 6) {
-          put(c, (vv * gs_bc) * 0.0, 0, k);
-          put(n + c, (vi * gc_bs) * 0.0, 1, k);
-        } else {
-          put(c, (-vv * gc_bs) * 0.0, 0, k);
-          put(n + c, (vi * gs_bc) * 0.0, 1, k);
-        }
-      }
+      injection_entry<kEveryEntry>(code, f, k, n, vi, ti, cols, yg, yb, vmb,
+                                   vab, sp, sq, put);
     }
 #pragma unroll
     for (int off = kWarp / 2; off > 0; off /= 2) {
@@ -330,17 +375,7 @@ __device__ __forceinline__ void fill_row(
       sq += __shfl_down_sync(0xffffffffu, sq, off);
     }
     if (lane != 0) return;
-    const double gii = yg[diag[f]];
-    const double bii = yb[diag[f]];
-    if (code == 6) {
-      hv = sp;
-      put(f, -sq - bii * (vi * vi), 2, 0);
-      put(n + f, sp / vi + gii * vi, 3, 0);
-    } else {
-      hv = sq;
-      put(f, sp - gii * (vi * vi), 2, 0);
-      put(n + f, sq / vi - bii * vi, 3, 0);
-    }
+    hv = injection_diagonal(code, f, n, vi, sp, sq, yg, yb, diag, put);
   } else {
     if (lane != 0) return;
     if (code == 1) {  // bus voltage magnitude (voltmeter, polar PMU)
@@ -421,16 +456,110 @@ struct NoPut {
 // The entry mode's put: the value times the row's status, times 0 in the
 // slack column (acse.py:642's order), at the row's position for the slot.
 struct EntryPut {
-  double* vals;       // this scenario's [E] values
+  double* vals;       // this scenario's first value
+  int64_t stride;     // between its values: 1, or B (scenario-minor)
   const int* epos;    // [4, m]
   int m;
   int row;
   int slack;
   double st;
   __device__ void operator()(int col, double v, int slot, int k) const {
-    vals[epos[slot * m + row] + k] = (v * st) * (col == slack ? 0.0 : 1.0);
+    vals[(epos[slot * m + row] + k) * stride] =
+        (v * st) * (col == slack ? 0.0 : 1.0);
   }
 };
+
+// P and Q of an injection row at bus f for one scenario, one thread: the
+// `len` Y entries from k0, each value put as fill_row puts it, summed as
+// the lanes of fill_row sum them. Lane l of that warp sums entries l, l +
+// 32, ... from 0.0, and the shuffle-down tree adds lane l + o's partial to
+// lane l's for o = 16, ..., 1. A partial is never -0.0 (0.0 + x is +0.0
+// when x is -0.0, and a sum of two values that are not -0.0 is not -0.0),
+// so adding the 0.0 of a lane with no entry changes nothing: the tree over
+// the first P lanes, P a power of two from `len` up to 32, gives the
+// warp's bits. Here slot l of `p` holds the tree's first level, lane l's
+// partial plus lane l + P/2's, so that P doubles of P and Q are live.
+template <int P, class Put>
+__device__ __forceinline__ void injection_sums(
+    int code, int k0, int len, const int* __restrict__ cols,
+    const double* __restrict__ yg, const double* __restrict__ yb,
+    const double* __restrict__ vmb, const double* __restrict__ vab, int n,
+    int f, double vi, double ti, double& sp, double& sq, const Put& put) {
+  constexpr int kHalf = P > 1 ? P / 2 : 1;
+  // lane j's partials of P and Q, its Y entries j, j + 32, ...
+  auto lane_sums = [&](int j, double& ps, double& qs) {
+    ps = 0.0;
+    qs = 0.0;
+    for (int x = j; x < len; x += kWarp) {
+      injection_entry<true>(code, f, k0 + x, n, vi, ti, cols, yg, yb, vmb,
+                            vab, ps, qs, put);
+    }
+  };
+  double p[kHalf];
+  double q[kHalf];
+#pragma unroll
+  for (int l = 0; l < kHalf; ++l) {
+    lane_sums(l, p[l], q[l]);
+    if (P > 1) {
+      double ph, qh;
+      lane_sums(l + kHalf, ph, qh);
+      p[l] = p[l] + ph;
+      q[l] = q[l] + qh;
+    }
+  }
+#pragma unroll
+  for (int o = kHalf / 2; o > 0; o /= 2) {
+#pragma unroll
+    for (int l = 0; l < o; ++l) {
+      p[l] = p[l] + p[l + o];
+      q[l] = q[l] + q[l + o];
+    }
+  }
+  sp = p[0];
+  sq = q[0];
+}
+
+// An injection row of one scenario by one thread (the scenario-minor entry
+// mode): injection_sums, then the diagonal pair, h and r as lane 0 of
+// fill_row writes them.
+template <class Put>
+__device__ void injection_row(int code, int f, const SeTables& t,
+                              double st, const double* __restrict__ vmb,
+                              const double* __restrict__ vab,
+                              const double* __restrict__ mean,
+                              double* __restrict__ h, double* __restrict__ r,
+                              int64_t out, const Put& put) {
+  const int n = t.n;
+  const double vi = vmb[f];
+  const double ti = vab[f];
+  const int k0 = t.row_ptr[f];
+  const int len = t.row_ptr[f + 1] - k0;
+  double sp, sq;
+  if (len <= 1) {
+    injection_sums<1>(code, k0, len, t.cols, t.yg, t.yb, vmb, vab, n, f, vi,
+                      ti, sp, sq, put);
+  } else if (len <= 2) {
+    injection_sums<2>(code, k0, len, t.cols, t.yg, t.yb, vmb, vab, n, f, vi,
+                      ti, sp, sq, put);
+  } else if (len <= 4) {
+    injection_sums<4>(code, k0, len, t.cols, t.yg, t.yb, vmb, vab, n, f, vi,
+                      ti, sp, sq, put);
+  } else if (len <= 8) {
+    injection_sums<8>(code, k0, len, t.cols, t.yg, t.yb, vmb, vab, n, f, vi,
+                      ti, sp, sq, put);
+  } else if (len <= 16) {
+    injection_sums<16>(code, k0, len, t.cols, t.yg, t.yb, vmb, vab, n, f, vi,
+                       ti, sp, sq, put);
+  } else {
+    injection_sums<32>(code, k0, len, t.cols, t.yg, t.yb, vmb, vab, n, f, vi,
+                       ti, sp, sq, put);
+  }
+  const double hv =
+      injection_diagonal(code, f, n, vi, sp, sq, t.yg, t.yb, t.diag, put);
+  const double hs = hv * st;
+  h[out] = hs;
+  r[out] = mean[out] - hs;
+}
 
 __global__ void __launch_bounds__(kThreads)
 se_fill_kernel(SeTables t, const double* __restrict__ status, int slack,
@@ -501,8 +630,8 @@ se_values_kernel(SeTables t, const double* __restrict__ status, int slack,
   const int64_t out = static_cast<int64_t>(b) * m + row;
   const double st = status[row];
   if constexpr (kEntries) {
-    const EntryPut put{vals + static_cast<int64_t>(b) * t.entries, t.epos, m,
-                       row, slack, st};
+    const EntryPut put{vals + static_cast<int64_t>(b) * t.entries, 1, t.epos,
+                       m, row, slack, st};
     fill_row<true>(row, m, lane, t.idx, t.coef, st, t.row_ptr, t.cols, t.yg,
                    t.yb, t.diag, vm + static_cast<int64_t>(b) * n,
                    va + static_cast<int64_t>(b) * n, n, mean, h, r, out, put);
@@ -512,6 +641,138 @@ se_values_kernel(SeTables t, const double* __restrict__ status, int slack,
                     va + static_cast<int64_t>(b) * n, n, mean, h, r, out,
                     NoPut{});
   }
+}
+
+// The entry mode with the values scenario-minor ([E, B]): a block per
+// (group of 32 scenarios, slice of kSliceRows consecutive rows), a warp per
+// row of the slice at a time, a lane a scenario. The block first copies
+// the group's means of its rows, the rows' descriptors (idx, coef, epos,
+// status) and, kState, the group's whole state into shared memory, reading
+// rows of the inputs, so that the lanes' reads are shared-memory reads; h
+// and r go to shared memory too and leave as rows of [B, m]. The launch
+// bound caps the registers at 128 a thread. SE_FILL_STRIDED_HR writes h
+// and r straight from the lanes instead
+// (scripts/k8_timeline.py measures the two).
+constexpr int kSliceRows = 32;
+constexpr int kSlicePad = kWarp + 1;  // a row's 32 scenarios, padded
+constexpr int kStateMax = 128;        // buses whose state a block stages
+
+#ifdef SE_FILL_TIMELINE
+// scripts/k8_timeline.py: thread 0 of each of the first kStampBlocks
+// blocks stamps %globaltimer at its start, after the staging, after its
+// rows and at its end, and records its SM
+constexpr int kStampBlocks = 8192;
+__device__ unsigned long long se_fill_stamps[kStampBlocks][5];
+
+__device__ __forceinline__ void stamp(int slot) {
+  if (threadIdx.x == 0 && blockIdx.x < kStampBlocks) {
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    se_fill_stamps[blockIdx.x][slot] = now;
+    if (slot == 0) {
+      unsigned sm;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+      se_fill_stamps[blockIdx.x][4] = sm;
+    }
+  }
+}
+#else
+__device__ __forceinline__ void stamp(int) {}
+#endif
+
+template <bool kState>
+__global__ void __launch_bounds__(kThreads, 2)
+se_entries_minor_kernel(SeTables t, const double* __restrict__ status,
+                        int slack, const double* __restrict__ vm,
+                        const double* __restrict__ va,
+                        const double* __restrict__ mean,
+                        double* __restrict__ h, double* __restrict__ r,
+                        double* __restrict__ vals, int batch) {
+  extern __shared__ double sm[];
+  __shared__ int dix[3 * kSliceRows];
+  __shared__ int dep[4 * kSliceRows];
+  __shared__ double dco[5 * kSliceRows];
+  __shared__ double dst[kSliceRows];
+  const int m = t.m;
+  const int n = t.n;
+  const int slices = (m + kSliceRows - 1) / kSliceRows;
+  const int r0 = static_cast<int>(blockIdx.x % slices) * kSliceRows;
+  const int b0 = static_cast<int>(blockIdx.x / slices) * kWarp;
+  const int rows = min(kSliceRows, m - r0);
+  const int nb = min(kWarp, batch - b0);
+  const int lane = threadIdx.x % kWarp;
+  double* hs = sm;
+  double* rs = hs + kSliceRows * kSlicePad;
+  double* ms = rs + kSliceRows * kSlicePad;
+  double* vms = ms + kSliceRows * kSlicePad;
+  const int np = n | 1;  // a scenario's state, odd in doubles: no conflicts
+  double* vas = vms + kWarp * np;
+  stamp(0);
+  for (int x = threadIdx.x; x < nb * rows; x += kThreads) {
+    const int s = x / rows;
+    const int j = x % rows;
+    ms[j * kSlicePad + s] = mean[static_cast<int64_t>(b0 + s) * m + r0 + j];
+  }
+  // the slice's row descriptors: the rows below read shared memory alone
+  for (int x = threadIdx.x; x < rows; x += kThreads) {
+    const int row = r0 + x;
+    for (int k = 0; k < 3; ++k) dix[k * kSliceRows + x] = t.idx[k * m + row];
+    for (int k = 0; k < 4; ++k) dep[k * kSliceRows + x] = t.epos[k * m + row];
+    for (int k = 0; k < 5; ++k) dco[k * kSliceRows + x] = t.coef[k * m + row];
+    dst[x] = status[r0 + x];
+  }
+  if (kState) {
+    for (int x = threadIdx.x; x < nb * n; x += kThreads) {
+      const int s = x / n;
+      const int j = x % n;
+      vms[s * np + j] = vm[static_cast<int64_t>(b0 + s) * n + j];
+      vas[s * np + j] = va[static_cast<int64_t>(b0 + s) * n + j];
+    }
+  }
+  __syncthreads();
+  stamp(1);
+  if (lane < nb) {
+    const int b = b0 + lane;
+    const int64_t own = static_cast<int64_t>(b) * n;
+    const double* vmb = kState ? vms + lane * np : vm + own;
+    const double* vab = kState ? vas + lane * np : va + own;
+    for (int j = threadIdx.x / kWarp; j < rows; j += kThreads / kWarp) {
+      const double st = dst[j];
+      const EntryPut put{vals + b, batch, dep, kSliceRows, j, slack, st};
+#ifdef SE_FILL_STRIDED_HR
+      const double* mo = mean;
+      double* ho = h;
+      double* ro = r;
+      const int64_t out = static_cast<int64_t>(b) * m + r0 + j;
+#else
+      const double* mo = ms;
+      double* ho = hs;
+      double* ro = rs;
+      const int64_t out = j * kSlicePad + lane;
+#endif
+      const int code = dix[j];
+      if (code == 6 || code == 9) {
+        injection_row(code, dix[kSliceRows + j], t, st, vmb, vab, mo, ho, ro,
+                      out, put);
+      } else {  // lane 0 of fill_row's warp: the closed-form rows, their
+                // descriptors the slice's (row j of kSliceRows)
+        fill_row<true>(j, kSliceRows, 0, dix, dco, st, t.row_ptr, t.cols,
+                       t.yg, t.yb, t.diag, vmb, vab, n, mo, ho, ro, out, put);
+      }
+    }
+  }
+  __syncthreads();
+  stamp(2);
+#ifndef SE_FILL_STRIDED_HR
+  for (int x = threadIdx.x; x < nb * rows; x += kThreads) {
+    const int s = x / rows;
+    const int j = x % rows;
+    const int64_t o = static_cast<int64_t>(b0 + s) * m + r0 + j;
+    h[o] = hs[j * kSlicePad + s];
+    r[o] = rs[j * kSlicePad + s];
+  }
+#endif
+  stamp(3);
 }
 
 // Routed mode, one scenario: warp w owns row w % mr of block w / mr, and a
@@ -621,23 +882,44 @@ extern "C" int se_fill_launch(const SeTables* t, const double* status,
 }
 
 // Launch K3's entry mode on `stream`: h and r ([batch, m]) as above, and the
-// [batch, entries] values `vals` in the pattern's order, each times its
-// row's status and 0 in the column `slack`, written whole. `t` also holds
-// epos[4, m]. Returns a cudaError_t code.
+// values `vals` in the pattern's order, each times its row's status and 0
+// in the column `slack`, written whole: [batch, entries], or with `minor`
+// the scenario-minor [entries, batch]. `t` also holds epos[4, m]. Returns a
+// cudaError_t code.
 extern "C" int se_fill_entries_launch(const SeTables* t, const double* status,
                                       int slack, const double* vm,
                                       const double* va, const double* mean,
                                       double* h, double* r, double* vals,
-                                      int batch, void* stream) {
+                                      int batch, int minor, void* stream) {
   if (t == nullptr || t->n <= 0 || t->m <= 0 || t->epos == nullptr ||
       t->entries <= 0 || vals == nullptr || batch <= 0) {
     return cudaErrorInvalidValue;
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (minor) {
+    const int64_t blocks =
+        (static_cast<int64_t>(batch) + kWarp - 1) / kWarp *
+        ((t->m + kSliceRows - 1) / kSliceRows);
+    if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+    const bool state = t->n <= kStateMax;
+    const size_t shared =
+        8 * (3 * kSliceRows * kSlicePad + (state ? 2 * kWarp * (t->n | 1) : 0));
+    auto kernel = state ? se_entries_minor_kernel<true>
+                        : se_entries_minor_kernel<false>;
+    if (shared > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(shared));
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<static_cast<unsigned>(blocks), kThreads, shared, s>>>(
+        *t, status, slack, vm, va, mean, h, r, vals, batch);
+    return cudaGetLastError();
+  }
   int64_t closed, blocks;
   values_blocks(t, batch, &closed, &blocks);
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  se_values_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  se_values_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       *t, status, slack, vm, va, mean, h, r, vals, batch,
       static_cast<int>(closed));
   return cudaGetLastError();
@@ -670,6 +952,17 @@ extern "C" int se_fill_routed_launch(const SeTables* t, const double* status,
       block_hi, rows);
   return cudaGetLastError();
 }
+
+#ifdef SE_FILL_TIMELINE
+// Copy the first `blocks` blocks' stamps of the last scenario-minor entry
+// launch ([blocks][5]: start, staged, rows, end, SM) to `out` (host).
+extern "C" int se_fill_timeline(unsigned long long* out, int blocks) {
+  return cudaMemcpyFromSymbol(out, se_fill_stamps,
+                              sizeof(unsigned long long) * 5 *
+                                  (blocks < kStampBlocks ? blocks
+                                                         : kStampBlocks));
+}
+#endif
 
 extern "C" const char* se_fill_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -9,8 +9,9 @@ slack column or none). It replaces the port's dense f64 GEMM over an H that
 is more than 99% zeros with what ``juliagrid_tpu/estimation/acse.py::
 gn_increment`` (:597) is built around: H as its entry list, masked in entry
 space (:642) and applied as O(nnz) segment sums (:645-650), never a dense
-H. The CUDA source, its mapping and what bounds it are described in
-``csrc/gain_fill.cu``.
+H. The CUDA source, its two mappings (the fleet regime at ``FLEET_MIN``
+scenarios and more, a lane a scenario; the small-B regime, lanes over a G
+row's nonzeros) and what bounds it are described in ``csrc/gain_fill.cu``.
 
 ``gain_fill_table`` builds the tables once on the host from the pattern
 (each entry's row and column), the correlated pairs, the slack and the
@@ -22,7 +23,15 @@ rhs. Row status, weights and values only multiply, so status and variance
 edits and every scenario of a fleet reuse a table (``cached_table``, held
 for as long as the pattern's tensors live); a measurement added or removed
 builds a new one. ``dense_entries`` gives the linear estimators' dense H
-as entries and tables.
+as entries and tables. The G rows are cut into bands of about 512 elements
+a scenario (``band_rows``), and each band lists the duplicated entries its
+contributions read: the fleet regime sums those once for 32 scenarios.
+
+The values come in one of two layouts (``value_strides``): row-major ``[B,
+E]``, or scenario-minor, the transpose of a contiguous ``[E, B]`` buffer,
+which K3's entry mode writes at ``FLEET_MIN`` scenarios and more
+(``scenario_minor``), so that one value of 32 scenarios is one 256-byte
+load. Any other strides are refused; a layout is never copied.
 
 ``gain_fill`` dispatches on the device of its tensors: a CUDA tensor goes to
 the kernel (the call raises if it does not build or launch), a CPU tensor
@@ -45,6 +54,40 @@ from torch.utils.weak import WeakIdKeyDictionary
 from ..ops.segments import segment_sum
 from . import _build
 
+#: the batch from which K8 runs its fleet regime (a lane a scenario) and
+#: K3's entry mode writes the values scenario-minor
+FLEET_MIN = 32
+#: G elements a band holds for one scenario, about (``band_rows``): small
+#: bands put more blocks on an SM, so that some store while others sum
+#: (512 against 1,024 and 2,048: 0.279 against 0.346 ms at case118 x1024,
+#: scripts/k8_timeline.py --band-elements on an H100)
+BAND_ELEMENTS = 512
+#: the most shared memory a band's block should take (bytes): a band of
+#: dense rows is halved until it fits, so that blocks share an SM
+BAND_SHARED = 64 * 1024
+#: shared memory a thread block of this card can use (bytes)
+SHARED_LIMIT = 232448
+
+
+def scenario_minor(batch: int) -> bool:
+    """Whether ``batch`` scenarios' entry values are stored scenario-minor
+    (and K8 runs its fleet regime)."""
+    return batch >= FLEET_MIN
+
+
+def band_rows(n: int) -> int:
+    """G rows a band, at most: about ``BAND_ELEMENTS`` elements of G a
+    scenario (``gain_fill_table`` halves it for dense rows)."""
+    return max(1, BAND_ELEMENTS // n)
+
+
+def _band_shared(dups: int, nonzeros: int) -> int:
+    """Bytes of shared memory a fleet block takes for a band of ``dups``
+    duplicated entries and ``nonzeros`` nonzeros (32 scenarios; rhs's
+    staging if larger): ``fleet_shared`` in the source."""
+    return 8 * max(32 * int(dups) + (33 * int(nonzeros) + 1) // 2 * 2,
+                   8 * 33)
+
 
 class GainHost(NamedTuple):
     """K8's tables on the host (numpy, int64), with what the checks and the
@@ -65,10 +108,15 @@ class GainHost(NamedTuple):
     col_u: np.ndarray     # row
     pair_of: np.ndarray   # [m] the pair of a row, or -1
     partner: np.ndarray   # [m] the other row of that pair, or -1
+    f_a: np.ndarray       # [C] the reference of c_a, a duplicate as
+    f_b: np.ndarray       # [C]  -(slot + 1), its slot in its band's list
+    bdup_ptr: np.ndarray  # [bands + 1] each band's duplicated entries
+    bdup: np.ndarray      # their d, ascending
     n: int                # N, the order of G
     m: int                # rows
     entries: int          # E, raw entries a scenario
     slack: int            # the slack column, or -1
+    band: int             # G rows a band
 
 
 class GainTable(NamedTuple):
@@ -88,6 +136,10 @@ class GainTable(NamedTuple):
     col_row: torch.Tensor
     pair_of: torch.Tensor
     partner: torch.Tensor
+    f_a: torch.Tensor     # the fleet regime's references (``GainHost``)
+    f_b: torch.Tensor
+    bdup_ptr: torch.Tensor
+    bdup: torch.Tensor
     c_nz: torch.Tensor    # i64[C] the nonzero of each contribution
     nz_flat: torch.Tensor  # i64[Z] i N + j of each nonzero
     dup_of: torch.Tensor  # i64[..] the duplicate of each dup_raw position
@@ -99,6 +151,9 @@ class GainTable(NamedTuple):
     entries: int
     slack: int
     pairs: int
+    band: int             # G rows a band
+    band_dups: int        # the most duplicated entries of a band
+    band_nz: int          # the most nonzeros of a band
 
 
 def _ranges(starts, lens):
@@ -191,12 +246,38 @@ def gain_fill_table(ent_rows, ent_cols, m: int, n: int, pair_r1=(),
 
     col_u = np.argsort(u_col, kind="stable")   # by column, then row
     col_ptr = np.searchsorted(u_col[col_u], np.arange(n + 1))
+
+    # each band's duplicated entries (ascending d) and the contributions'
+    # references with a duplicate as its slot in its band's list; a band
+    # halves until its shared memory fits BAND_SHARED
+    c_row = np.repeat(nz_row, np.diff(c_ptr))
+    refs = u_ref[ca], u_ref[cb]
+    dups = [np.flatnonzero(ref < 0) for ref in refs]
+    ndup = max(len(dup), 1)
+    band = band_rows(n)
+    while True:
+        nbands = -(-n // band)
+        key = np.concatenate([c_row[d] // band * ndup - ref[d] - 1
+                              for ref, d in zip(refs, dups)])
+        keys, slot = np.unique(key, return_inverse=True)
+        bdup_ptr = np.searchsorted(keys // ndup, np.arange(nbands + 1))
+        band_nz = np.diff(nz_ptr[np.minimum(np.arange(nbands + 1) * band, n)])
+        if band == 1 or _band_shared(np.diff(bdup_ptr).max(initial=0),
+                                     band_nz.max(initial=0)) <= BAND_SHARED:
+            break
+        band //= 2
+    slot = slot.reshape(-1) - bdup_ptr[key // ndup]
+    f_a, f_b = (ref.copy() for ref in refs)
+    f_a[dups[0]] = -(slot[:len(dups[0])] + 1)
+    f_b[dups[1]] = -(slot[len(dups[0]):] + 1)
+
     host = GainHost(
         nz_ptr=nz_ptr, nz_col=nz_col, c_ptr=c_ptr, c_a=ca, c_b=cb, c_w=cw,
         u_row=u_row, u_col=u_col, u_ref=u_ref, dup_ptr=dup_ptr,
         dup_raw=dup_raw, col_ptr=col_ptr, col_u=col_u, pair_of=pair_of,
-        partner=partner, n=int(n), m=int(m), entries=len(rows),
-        slack=int(slack))
+        partner=partner, f_a=f_a, f_b=f_b, bdup_ptr=bdup_ptr,
+        bdup=keys % ndup, n=int(n), m=int(m), entries=len(rows),
+        slack=int(slack), band=int(band))
     if max(len(ca), len(rows), len(nz)) >= 2 ** 31:
         raise ValueError("K8's tables index with int32")
     return host
@@ -221,6 +302,21 @@ def check_gain_table(host: GainHost) -> None:
         raise ValueError("a contribution lies off its nonzero")
     if not np.array_equal(np.sort(host.col_u), np.arange(len(host.u_row))):
         raise ValueError("rhs's column lists do not hold every entry once")
+    # the fleet regime's references: a raw position as in c_a/c_b, a
+    # duplicate through its band's list, which ascends
+    for f, c in ((host.f_a, host.c_a), (host.f_b, host.c_b)):
+        ref = host.u_ref[c]
+        dup = np.flatnonzero(ref < 0)
+        band = row[owner[dup]] // host.band
+        slot = -f[dup] - 1
+        lo = host.bdup_ptr[band]
+        if (np.any((f != ref) & (ref >= 0)) or np.any(slot < 0)
+                or np.any(lo + slot >= host.bdup_ptr[band + 1])
+                or np.any(host.bdup[lo + slot] != -ref[dup] - 1)):
+            raise ValueError("a band's duplicate list misses a reference")
+    if len(host.bdup_ptr) != -(-n // host.band) + 1 or np.any(
+            np.diff(host.bdup_ptr) < 0):
+        raise ValueError("bdup_ptr is not a pointer over the bands")
 
 
 def _device(host: GainHost, device) -> GainTable:
@@ -236,6 +332,8 @@ def _device(host: GainHost, device) -> GainTable:
     slack_nz = -1
     if host.slack >= 0:
         slack_nz = int(np.flatnonzero(nz_flat == host.slack * (host.n + 1))[0])
+    band_nz = np.diff(host.nz_ptr[np.minimum(
+        np.arange(0, host.n + host.band, host.band), host.n)])
     return GainTable(
         nz_ptr=i32(host.nz_ptr), nz_col=i32(host.nz_col),
         c_ptr=i32(host.c_ptr), c_a=i32(host.u_ref[host.c_a]),
@@ -243,13 +341,17 @@ def _device(host: GainHost, device) -> GainTable:
         dup_ptr=i32(host.dup_ptr), dup_raw=i32(host.dup_raw),
         col_ptr=i32(host.col_ptr), col_ref=i32(host.u_ref[host.col_u]),
         col_row=i32(host.u_row[host.col_u]), pair_of=i32(host.pair_of),
-        partner=i32(host.partner), c_nz=i64(c_nz), nz_flat=i64(nz_flat),
+        partner=i32(host.partner), f_a=i32(host.f_a), f_b=i32(host.f_b),
+        bdup_ptr=i32(host.bdup_ptr), bdup=i32(host.bdup), c_nz=i64(c_nz),
+        nz_flat=i64(nz_flat),
         dup_of=i64(np.repeat(np.arange(len(host.dup_ptr) - 1),
                              np.diff(host.dup_ptr))),
         col_of=i64(np.repeat(np.arange(host.n), np.diff(host.col_ptr))),
         paired=i64(np.flatnonzero(host.pair_of >= 0)), slack_nz=slack_nz,
         n=host.n, m=host.m, entries=host.entries, slack=host.slack,
-        pairs=int(np.count_nonzero(host.pair_of >= 0)) // 2)
+        pairs=int(np.count_nonzero(host.pair_of >= 0)) // 2, band=host.band,
+        band_dups=int(np.diff(host.bdup_ptr).max(initial=0)),
+        band_nz=int(band_nz.max(initial=0)))
 
 
 def device_table(host: GainHost, device) -> GainTable:
@@ -295,6 +397,21 @@ def dense_entries(h: torch.Tensor, slack: int = -1, pair_r1=None,
     return cached_table(h, (slack, pair_r1), build)
 
 
+def value_strides(vals) -> tuple[int, int]:
+    """``(se, sb)``: value ``ref`` of scenario ``b`` lies at ``ref * se + b
+    * sb`` of ``vals``' data. Row-major ``[B, E]`` gives ``(1, E)``,
+    scenario-minor (the transpose of a contiguous ``[E, B]``) ``(B, 1)``;
+    any other strides raise."""
+    batch, entries = vals.shape
+    if vals.is_contiguous():
+        return 1, entries
+    if vals.mT.is_contiguous():
+        return batch, 1
+    raise ValueError(f"vals must be row-major [B, E] or scenario-minor (the "
+                     f"transpose of a contiguous [E, B]), not strides "
+                     f"{tuple(vals.stride())}")
+
+
 def _check_inputs(table: GainTable, vals, w, off, r):
     batch = vals.shape[0]
     for name, t, shape in (("vals", vals, (batch, table.entries)),
@@ -310,19 +427,20 @@ def _check_inputs(table: GainTable, vals, w, off, r):
                              f"{table.nz_ptr.device}")
     if batch < 1:
         raise ValueError("empty batch")
+    return value_strides(vals)
 
 
 def gain_fill(table: GainTable, vals, w, pair_off, r):
     """``(G [B, N, N], rhs [B, N])`` of the raw entry values ``vals [B,
-    E]`` (the pattern's order, masked), weights ``w [m]`` and ``pair_off
-    [p]`` and residuals ``r [B, m]``."""
-    _check_inputs(table, vals, w, pair_off, r)
+    E]`` (the pattern's order, masked; row-major or scenario-minor),
+    weights ``w [m]`` and ``pair_off [p]`` and residuals ``r [B, m]``."""
+    strides = _check_inputs(table, vals, w, pair_off, r)
     if vals.device.type == "cpu":
         return gain_fill_ref(table, vals, w, pair_off, r)
     if vals.device.type != "cuda":
         raise ValueError(f"gain_fill runs on cuda or cpu tensors, not "
                          f"{vals.device}")
-    return _launch(table, vals, w, pair_off, r)
+    return _launch(table, vals, strides, w, pair_off, r)
 
 
 gain_fill.launches = 0
@@ -333,7 +451,7 @@ def gain_fill_ref(table: GainTable, vals, w, pair_off, r):
     (a * b)``, their fixed-order sum per nonzero (plus 1 at the slack's),
     a scatter into a zeroed G, and rhs as each column's fixed-order sum of
     ``a * (W r + P r)[row]``. The CPU path, and the check K8 is held to on
-    the card."""
+    the card. It takes either layout of ``vals``."""
     batch = vals.shape[0]
     n = table.n
     ndup = table.dup_ptr.shape[0] - 1
@@ -367,7 +485,9 @@ def gain_fill_ref(table: GainTable, vals, w, pair_off, r):
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("gain_fill")
     ptr = ctypes.c_void_p
-    lib.gain_fill_launch.argtypes = [ptr] * 7 + [ctypes.c_int, ptr]
+    i64 = ctypes.c_longlong
+    lib.gain_fill_launch.argtypes = ([ptr] * 2 + [i64] * 2 + [ptr] * 5
+                                     + [ctypes.c_int] * 2 + [ptr])
     lib.gain_fill_launch.restype = ctypes.c_int
     lib.gain_fill_error_string.argtypes = [ctypes.c_int]
     lib.gain_fill_error_string.restype = ctypes.c_char_p
@@ -376,15 +496,18 @@ def _library() -> ctypes.CDLL:
 
 #: the tensors of ``GainTables`` in csrc/gain_fill.cu, in order
 _FIELDS = ("nz_ptr", "nz_col", "c_ptr", "c_a", "c_b", "c_w", "dup_ptr",
-           "dup_raw", "col_ptr", "col_ref", "col_row", "pair_of", "partner")
+           "dup_raw", "col_ptr", "col_ref", "col_row", "pair_of", "partner",
+           "f_a", "f_b", "bdup_ptr", "bdup")
+#: its ints, in order
+_INTS = ("n", "m", "entries", "slack", "slack_nz", "band", "band_dups",
+         "band_nz")
 
 
 class _Tables(ctypes.Structure):
     """``GainTables`` of csrc/gain_fill.cu."""
 
     _fields_ = ([(name, ctypes.c_void_p) for name in _FIELDS]
-                + [(name, ctypes.c_int) for name in (
-                    "n", "m", "entries", "slack")])
+                + [(name, ctypes.c_int) for name in _INTS])
 
 
 #: the ``_Tables`` of each table (keyed by its ``nz_ptr``)
@@ -400,25 +523,33 @@ def _struct(table: GainTable) -> int:
                 raise TypeError(f"{name} must be contiguous int32")
         held = _Tables(**{name: getattr(table, name).data_ptr()
                           for name in _FIELDS},
-                       n=table.n, m=table.m, entries=table.entries,
-                       slack=table.slack)
+                       **{name: getattr(table, name) for name in _INTS})
         _STRUCTS[table.nz_ptr] = held
     return ctypes.addressof(held)
 
 
-def _launch(table: GainTable, vals, w, pair_off, r):
+def fleet_shared(table: GainTable) -> int:
+    """Bytes of shared memory a block of the fleet regime takes."""
+    return _band_shared(table.band_dups, table.band_nz)
+
+
+def _launch(table: GainTable, vals, strides, w, pair_off, r):
     batch = vals.shape[0]
     n = table.n
-    vals, w, r = vals.contiguous(), w.contiguous(), r.contiguous()
+    fleet = scenario_minor(batch)
+    if fleet and fleet_shared(table) > SHARED_LIMIT:
+        raise ValueError(f"a band of this table needs {fleet_shared(table)} "
+                         f"bytes of shared memory, above {SHARED_LIMIT}")
+    w, r = w.contiguous(), r.contiguous()
     pair_off = pair_off.contiguous()
     gain = torch.empty((batch, n, n), dtype=torch.float64, device=vals.device)
     rhs = torch.empty((batch, n), dtype=torch.float64, device=vals.device)
     ctx, stream = _build.launch_context(vals.device)
     with ctx:
         err = _library().gain_fill_launch(
-            _struct(table), vals.data_ptr(), w.data_ptr(),
+            _struct(table), vals.data_ptr(), *strides, w.data_ptr(),
             pair_off.data_ptr() if pair_off.numel() else None, r.data_ptr(),
-            gain.data_ptr(), rhs.data_ptr(), batch, stream)
+            gain.data_ptr(), rhs.data_ptr(), batch, int(fleet), stream)
     if err != 0:
         raise RuntimeError("gain_fill launch failed: "
                            + _library().gain_fill_error_string(err).decode())

@@ -26,7 +26,10 @@ estimators: no dense H, but the entry values ``[B, E]`` in
 (``vals * status[ent_rows] * col_mask[ent_cols]``, acse.py:642), with h and
 r; every entry has one writer, at a position the host builds once
 (``entry_positions``). K8 (``kernels/gain_fill.py``) forms the normal
-equations from them. It dispatches the same way, to
+equations from them. At ``gain_fill.FLEET_MIN`` scenarios and more the
+values are stored scenario-minor: ``vals`` is still ``[B, E]``, the
+transpose of a contiguous ``[E, B]`` buffer (strides ``(1, B)``), in the
+kernel and in its plain version alike. It dispatches the same way, to
 ``se_fill_entries_ref`` on the CPU, and counts its own launches in
 ``se_fill_entries.launches``.
 
@@ -53,6 +56,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from ..ops.equations import BRANCH_GROUPS
 from . import _build
+from .gain_fill import scenario_minor
 
 #: descriptor type codes: the measurement type codes of ``compile_se_arrays``
 #: with the PMU magnitude row (12) folded into the voltmeter row (1)
@@ -110,6 +114,7 @@ class SeEntries(NamedTuple):
     h: torch.Tensor     # f64[B, m] model values times row status
     r: torch.Tensor     # f64[B, m] residuals mean - h
     vals: torch.Tensor  # f64[B, E] masked H entries, h_entry_pattern order
+    #                     (scenario-minor from gain_fill.FLEET_MIN on)
 
 
 def se_fill_table(host) -> tuple[np.ndarray, np.ndarray]:
@@ -284,7 +289,7 @@ def _library() -> ctypes.CDLL:
         [ptr] * 2 + [i32] + [ptr] * 7 + [i32] * 2 + [ptr])
     lib.se_fill_routed_launch.restype = i32
     lib.se_fill_entries_launch.argtypes = (
-        [ptr] * 2 + [i32] + [ptr] * 6 + [i32, ptr])
+        [ptr] * 2 + [i32] + [ptr] * 6 + [i32, i32, ptr])
     lib.se_fill_entries_launch.restype = i32
     lib.se_fill_error_string.argtypes = [i32]
     lib.se_fill_error_string.restype = ctypes.c_char_p
@@ -417,32 +422,37 @@ def _launch_entries(arr, net, vm, va, mean) -> SeEntries:
         raise TypeError("status must be contiguous float64")
     vm, va, mean = vm.contiguous(), va.contiguous(), mean.contiguous()
     out = torch.empty((2, batch, m), dtype=torch.float64, device=vm.device)
-    vals = torch.empty((batch, table.entries), dtype=torch.float64,
-                       device=vm.device)
+    minor = scenario_minor(batch)
+    shape = (table.entries, batch) if minor else (batch, table.entries)
+    vals = torch.empty(shape, dtype=torch.float64, device=vm.device)
     ctx, stream = _build.launch_context(vm.device)
     with ctx:
         err = _library().se_fill_entries_launch(
             tables, arr.status.data_ptr(), int(arr.slack), vm.data_ptr(),
             va.data_ptr(), mean.data_ptr(), out.data_ptr(),
-            out.data_ptr() + 8 * batch * m, vals.data_ptr(), batch, stream)
+            out.data_ptr() + 8 * batch * m, vals.data_ptr(), batch,
+            int(minor), stream)
     _check(err, "se_fill entries")
     se_fill_entries.launches += 1
-    return SeEntries(out[0], out[1], vals)
+    return SeEntries(out[0], out[1], vals.mT if minor else vals)
 
 
 def se_fill_entries_ref(arr, net, vm, va, mean) -> SeEntries:
     """Plain PyTorch entry mode: ``h_entries`` and the entry masks of
-    ``gn_increment`` (acse.py:639-642), with a leading scenario axis. The
-    CPU path, and the check the entry mode is held to on the card."""
+    ``gn_increment`` (acse.py:639-642), with a leading scenario axis, the
+    values in the kernel's layout. The CPU path, and the check the entry
+    mode is held to on the card."""
     from ..estimation.acse import h_entries, h_entry_pattern
 
-    n = vm.shape[1]
+    batch, n = vm.shape
     vals, h = h_entries(arr, net, vm, va)
     ent_rows, ent_cols = h_entry_pattern(arr, net, n)
     col_mask = torch.ones(2 * n, dtype=vm.dtype, device=vm.device)
     col_mask[arr.slack] = 0.0
-    return SeEntries(h, mean - h,
-                     vals * arr.status[ent_rows] * col_mask[ent_cols])
+    vals = vals * arr.status[ent_rows] * col_mask[ent_cols]
+    if scenario_minor(batch):
+        vals = vals.mT.contiguous().mT
+    return SeEntries(h, mean - h, vals)
 
 
 def se_fill_routed(arr, net, route: SeRoute, vm, va, scale,

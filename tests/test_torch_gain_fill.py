@@ -6,8 +6,15 @@ type, correlated PMU pairs and inactive rows), compiled by the JAX package
 and carried across, go through the JAX package's pieces and the port's:
 
 - K8's tables give every element of G and of rhs one writer and coalesce
-  the pattern's duplicate entries (a numpy walk of ``csrc/gain_fill.cu``'s
-  chunk stream, which also gives the plain version's bits);
+  the pattern's duplicate entries; numpy walks of ``csrc/gain_fill.cu``'s
+  two mappings (the small-B regime's spans of chunks, the fleet regime's
+  bands of rows for 32 scenarios) at batches on both sides of
+  ``FLEET_MIN``, at even and odd N, write every element once and give the
+  plain version's bits; a band's duplicate sums, taken once, give the
+  bits of the sums at each reference;
+- the plain versions in the scenario-minor layout (K3's entry mode stores
+  its values so from ``FLEET_MIN`` scenarios on) give the row-major bits,
+  and K8 refuses any other strides;
 - the gain and right-hand side of ``gain_fill_ref`` against the f64 formula
   ``Hmᵀ·WH + diag(reg)`` from ``build_h`` and ``_weighted`` (the pair terms
   inside W) and ``Hᵀ W r`` by ``jax.ops.segment_sum`` over ``h_entries``,
@@ -55,6 +62,7 @@ from juliagrid_tpu_torch.kernels import se_fill as k3
 from juliagrid_tpu_torch.parallel import batched_se_solve
 
 GAIN_TOL = 1e-13       # of max|G| (max|rhs|): one f64 formula, two orders
+SPAN = 8               # chunks a small-B warp streams (kSpan, gain_fill.cu)
 ENTRY_TOL = dict(rtol=1e-12, atol=1e-12)
 STATE_TOL = dict(rtol=0, atol=1e-9)
 CASES = ("case14test", "case30test", "case118")
@@ -150,62 +158,153 @@ def _assert_gain(got, want):
 # The tables: one writer per element, duplicates coalesced
 # --------------------------------------------------------------------------
 
-def _walk_kernel(host, vals, w, off, r):
-    """csrc/gain_fill.cu in numpy, one scenario: a warp per G row streams
-    the row in chunks of 32 VEC columns, a lane per nonzero sums its
-    contributions sequentially from 0.0 into the chunk, lane 0 sums rhs.
+def _entries(host, v, ref):
+    """The value of entry reference ``ref`` for every scenario of ``v [B,
+    E]``: a raw position, or a duplicate summed from 0.0 in ascending raw
+    position (``entry()`` of csrc/gain_fill.cu)."""
+    if ref >= 0:
+        return v[:, ref]
+    s = np.zeros(len(v))
+    d = -ref - 1
+    for q in range(host.dup_ptr[d], host.dup_ptr[d + 1]):
+        s = s + v[:, host.dup_raw[q]]
+    return s
+
+
+def _wr(host, w, off, r):
+    """``(W r + P r)`` ``[B, m]`` as the kernel forms it."""
+    wr = w * r
+    rows = np.flatnonzero(host.pair_of >= 0)
+    partner = r[:, host.partner[rows]]
+    wr[:, rows] = wr[:, rows] + off[host.pair_of[rows]] * partner
+    return wr
+
+
+def _rhs_column(host, v, wr, c):
+    s = np.zeros(len(v))
+    for q in range(host.col_ptr[c], host.col_ptr[c + 1]):
+        u = host.col_u[q]
+        s = s + _entries(host, v, host.u_ref[u]) * wr[:, host.u_row[u]]
+    return s
+
+
+def _slack_nz(host):
+    if host.slack < 0:
+        return -1
+    i = host.slack
+    return host.nz_ptr[i] + int(np.flatnonzero(
+        host.nz_col[host.nz_ptr[i]:host.nz_ptr[i + 1]] == i)[0])
+
+
+def _walk_small(host, v, w, off, r):
+    """csrc/gain_fill.cu's small-B regime in numpy (the scenarios side by
+    side): a warp per (scenario, column) of rhs forms the column's terms 32
+    at a time and lane 0 adds them in order; a warp per (scenario, G row,
+    span of SPAN chunks of 32 VEC columns) finds its first nonzero by
+    binary search, stores a chunk without nonzeros as zeros, and otherwise
+    forms the chunk's products w * (a * b) 32 at a time, the lane of each
+    nonzero adding its own from 0.0 in the table's order into the chunk.
     Returns G, rhs and how often each element of each was written."""
-    n, m = host.n, host.m
+    batch, n = len(v), host.n
     vec = 2 if n % 2 == 0 else 1
     chunk = 32 * vec
-    coalesced = np.zeros(len(host.u_row))
-    for u, ref in enumerate(host.u_ref):
-        if ref >= 0:
-            coalesced[u] = vals[ref]
-        else:
-            s = 0.0
-            d = -ref - 1
-            for q in range(host.dup_ptr[d], host.dup_ptr[d + 1]):
-                s += vals[host.dup_raw[q]]
-            coalesced[u] = s
+    spans = -(-(-(-n // chunk)) // SPAN)
     weight = np.concatenate([w, off])
-    g = np.full((n, n), np.nan)
+    refa, refb = host.u_ref[host.c_a], host.u_ref[host.c_b]
+    slack_nz = _slack_nz(host)
+    g = np.full((batch, n, n), np.nan)
     writes = np.zeros((n, n), dtype=np.int64)
-    rhs = np.zeros(n)
-    rhs_writes = np.zeros(n, dtype=np.int64)
     for i in range(n):
-        s = 0.0
-        for q in range(host.col_ptr[i], host.col_ptr[i + 1]):
-            u = host.col_u[q]
-            row = host.u_row[u]
-            wr = w[row] * r[row]
-            if host.pair_of[row] >= 0:
-                wr = wr + off[host.pair_of[row]] * r[host.partner[row]]
-            s += coalesced[u] * wr
-        rhs[i] = s
-        rhs_writes[i] += 1
-        p, end = host.nz_ptr[i], host.nz_ptr[i + 1]
-        for c0 in range(0, n, chunk):
-            q = p
-            while q < end and host.nz_col[q] < c0 + chunk:
-                q += 1
-            buf = np.zeros(chunk)
-            for k in range(p, q):
-                j = host.nz_col[k]
-                s = 0.0
+        lo, end = host.nz_ptr[i], host.nz_ptr[i + 1]
+        for sp in range(spans):
+            first = sp * SPAN * chunk
+            p = lo + int(np.searchsorted(host.nz_col[lo:end], first))
+            for c0 in range(first, min(n, first + SPAN * chunk), chunk):
+                q = p
+                while q < end and host.nz_col[q] < c0 + chunk:
+                    q += 1
+                buf = np.zeros((batch, chunk))
+                e0, e1 = host.c_ptr[p], host.c_ptr[q]
+                prod = [weight[host.c_w[e]] * (_entries(host, v, refa[e])
+                                               * _entries(host, v, refb[e]))
+                        for e in range(e0, e1)]   # 32 at a time
+                for k in range(p, q):             # a lane per nonzero
+                    s = np.zeros(batch)
+                    for e in range(host.c_ptr[k], host.c_ptr[k + 1]):
+                        s = s + prod[e - e0]
+                    if k == slack_nz:
+                        s = s + 1.0
+                    buf[:, host.nz_col[k] - c0] = s
+                cols = np.arange(c0, min(c0 + chunk, n))
+                g[:, i, cols] = buf[:, cols - c0]
+                writes[i, cols] += 1
+                p = q
+    wr = _wr(host, w, off, r)
+    rhs = np.stack([_rhs_column(host, v, wr, c) for c in range(n)], 1)
+    return (g, rhs, np.broadcast_to(writes, (batch, n, n)),
+            np.ones((batch, n), dtype=np.int64))
+
+
+def _walk_fleet(host, v, w, off, r):
+    """csrc/gain_fill.cu's fleet regime in numpy: a block per (band of
+    ``host.band`` G rows, group of 32 scenarios, a lane each) sums the
+    band's duplicated entries once into shared memory, then a warp per
+    nonzero sums its contributions (a duplicate read through its band
+    slot, ``f_a``/``f_b``) from 0.0 and a warp per band row i sums rhs[i],
+    then a warp per (row, chunk, quarter of the scenarios) stores the chunk
+    whole, a lane per VEC columns finding its nonzero among the chunk's,
+    and the block stores its rhs elements. Returns G, rhs and the write
+    counts."""
+    batch, n = len(v), host.n
+    vec = 2 if n % 2 == 0 else 1
+    chunk = 32 * vec
+    weight = np.concatenate([w, off])
+    slack_nz = _slack_nz(host)
+    g = np.full((batch, n, n), np.nan)
+    writes = np.zeros((batch, n, n), dtype=np.int64)
+    rhs = np.full((batch, n), np.nan)
+    rhs_writes = np.zeros((batch, n), dtype=np.int64)
+    wr = _wr(host, w, off, r)
+    for b0 in range(0, batch, 32):
+        lanes = np.arange(b0, min(b0 + 32, batch))
+        vg = v[lanes]
+        for band in range(len(host.bdup_ptr) - 1):
+            i0, i1 = band * host.band, min(n, (band + 1) * host.band)
+            z0, z1 = host.nz_ptr[i0], host.nz_ptr[i1]
+            d0, d1 = host.bdup_ptr[band], host.bdup_ptr[band + 1]
+            dsum = [_entries(host, vg, -int(d) - 1) for d in host.bdup[d0:d1]]
+
+            def value(ref):
+                return vg[:, ref] if ref >= 0 else dsum[-ref - 1]
+
+            nzv = np.zeros((z1 - z0, len(lanes)))
+            for k in range(z0, z1):
+                s = np.zeros(len(lanes))
                 for e in range(host.c_ptr[k], host.c_ptr[k + 1]):
-                    s += weight[host.c_w[e]] * (coalesced[host.c_a[e]]
-                                                * coalesced[host.c_b[e]])
-                if i == host.slack and j == host.slack:
-                    s += 1.0
-                buf[j - c0] = s
-            for lane in range(32):
-                for v in range(vec):
-                    col = c0 + vec * lane + v
-                    if col < n:
-                        g[i, col] = buf[vec * lane + v]
-                        writes[i, col] += 1
-            p = q
+                    s = s + weight[host.c_w[e]] * (value(host.f_a[e])
+                                                   * value(host.f_b[e]))
+                if k == slack_nz:
+                    s = s + 1.0
+                nzv[k - z0] = s
+            rhv = {i: _rhs_column(host, vg, wr[lanes], i)
+                   for i in range(i0, i1)}
+            for i in range(i0, i1):
+                lo, end = host.nz_ptr[i], host.nz_ptr[i + 1]
+                for c0 in range(0, n, chunk):
+                    p = lo + int(np.searchsorted(host.nz_col[lo:end], c0))
+                    q = lo + int(np.searchsorted(host.nz_col[lo:end],
+                                                 c0 + chunk))
+                    row = np.zeros((len(lanes), chunk))
+                    for k in range(p, q):   # each lane's scan of [p, q)
+                        row[:, host.nz_col[k] - c0] = nzv[k - z0]
+                    cols = np.arange(c0, min(c0 + chunk, n))
+                    for part in range(4):   # the scenario quarters
+                        sel = lanes[part * 8:(part + 1) * 8]
+                        g[sel[:, None], i, cols] = row[sel - b0][:, cols - c0]
+                        writes[sel[:, None], i, cols] += 1
+            for i, val in rhv.items():
+                rhs[lanes, i] = val
+                rhs_writes[lanes, i] += 1
     return g, rhs, writes, rhs_writes
 
 
@@ -222,7 +321,10 @@ def test_table_gives_one_writer_and_coalesces_duplicates(carried):
     assert np.array_equal(host.u_row * 2 * c["n"] + host.u_col,
                           np.unique(key[kept]))
     assert not np.any(host.u_col == int(c["host"].slack))
-    # the kernel's walk writes every element once, and the plain
+    # every band lists the duplicates its contributions read
+    assert np.array_equal(np.unique(host.bdup), np.arange(len(host.dup_ptr)
+                                                          - 1))
+    # the kernel's small-B walk writes every element once, and the plain
     # version's bits
     vm, va = _state(c, 11)
     res = k3.se_fill_entries_ref(c["tarr"], c["tnet"], torch.tensor(vm),
@@ -230,14 +332,153 @@ def test_table_gives_one_writer_and_coalesces_duplicates(carried):
     table = k8.device_table(host, "cpu")
     gain, rhs = k8.gain_fill_ref(table, res.vals, c["tarr"].w,
                                  c["tarr"].pair_off, res.r)
-    g, r, writes, rhs_writes = _walk_kernel(
-        host, res.vals[0].numpy(), c["tarr"].w.numpy(),
-        c["tarr"].pair_off.numpy(), res.r[0].numpy())
+    g, r, writes, rhs_writes = _walk_small(
+        host, res.vals.numpy(), c["tarr"].w.numpy(),
+        c["tarr"].pair_off.numpy(), res.r.numpy())
     assert np.all(writes == 1) and np.all(rhs_writes == 1)
-    assert np.array_equal(g.view(np.int64), gain[0].numpy().view(np.int64))
-    assert np.array_equal(r.view(np.int64), rhs[0].numpy().view(np.int64))
+    assert np.array_equal(g.view(np.int64), gain.numpy().view(np.int64))
+    assert np.array_equal(r.view(np.int64), rhs.numpy().view(np.int64))
     # G is symmetric to the bit: each nonzero's order is symmetric
     assert torch.equal(gain, gain.mT)
+
+
+def _odd_pattern(seed=7, n=71, m=60, e=500, slack=70):
+    """A random pattern of odd order N with duplicated entries, three
+    correlated pairs and a slack column (the VEC = 1 path), its tables and
+    weights."""
+    rng = np.random.default_rng(seed)
+    rows, cols = rng.integers(0, m, e), rng.integers(0, n, e)
+    rows = np.concatenate([rows, rows[:e // 5]])
+    cols = np.concatenate([cols, cols[:e // 5]])
+    perm = rng.permutation(len(rows))
+    host = k8.gain_fill_table(rows[perm], cols[perm], m, n, [0, 5, 7],
+                              [1, 9, 8], slack)
+    return host, rng.uniform(0.5, 2.0, m), rng.uniform(-0.3, 0.3, 3)
+
+
+BATCHES = (1, 5, 31, 32, 33, 64)   # both sides of k8.FLEET_MIN
+
+
+def _hold_walk(regime, host, vals, w, off, r):
+    """The walk of ``regime`` writes every element of G and rhs once and
+    gives ``gain_fill_ref``'s bits."""
+    walk = _walk_small if regime == "small" else _walk_fleet
+    g, rhs, writes, rhs_writes = walk(host, vals, w, off, r)
+    table = k8.device_table(host, "cpu")
+    gain, want = k8.gain_fill_ref(table, torch.tensor(vals), torch.tensor(w),
+                                  torch.tensor(off), torch.tensor(r))
+    assert np.all(writes == 1) and np.all(rhs_writes == 1)
+    assert np.array_equal(g.view(np.int64), gain.numpy().view(np.int64))
+    assert np.array_equal(rhs.view(np.int64), want.numpy().view(np.int64))
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("regime", ["small", "fleet"])
+def test_walks_give_the_plain_bits(carried, regime, batch):
+    """Both regimes of csrc/gain_fill.cu, walked in numpy at batches on
+    both sides of ``FLEET_MIN``, on every row type (even N): K3's entry
+    mode's values and residuals at ``batch`` random states."""
+    c = carried
+    vm, va = _state(c, batch, batch)
+    res = k3.se_fill_entries_ref(c["tarr"], c["tnet"], torch.tensor(vm),
+                                 torch.tensor(va),
+                                 c["tarr"].mean.expand(batch, -1))
+    _hold_walk(regime, c["gain_host"], res.vals.numpy(), c["tarr"].w.numpy(),
+               c["tarr"].pair_off.numpy(), res.r.numpy())
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("regime", ["small", "fleet"])
+def test_walks_give_the_plain_bits_at_odd_n(regime, batch):
+    """The same at odd N (one column a lane, 8-byte stores), on a random
+    pattern with duplicates, correlated pairs and a slack column."""
+    host, w, off = _odd_pattern()
+    assert host.n % 2 == 1 and len(host.dup_ptr) > 1
+    rng = np.random.default_rng(batch)
+    _hold_walk(regime, host, rng.standard_normal((batch, host.entries)), w,
+               off, rng.standard_normal((batch, host.m)))
+
+
+def test_band_duplicate_sums_taken_once_give_the_same_bits(carried):
+    """The fleet regime sums each band's duplicated entries once
+    (``bdup``) and reads a duplicate through its band slot (``f_a``,
+    ``f_b``): every contribution's values, so resolved, have the bits of
+    the duplicate summed anew at the reference (``entry()``), and
+    the bands' sums are fewer than those references."""
+    c = carried
+    host = c["gain_host"]
+    rng = np.random.default_rng(21)
+    v = rng.standard_normal((33, host.entries))
+    owner = np.repeat(np.arange(len(host.nz_col)), np.diff(host.c_ptr))
+    band = np.repeat(np.arange(host.n), np.diff(host.nz_ptr))[owner] \
+        // host.band
+    sums = {}
+    for b in range(len(host.bdup_ptr) - 1):
+        for q in range(host.bdup_ptr[b], host.bdup_ptr[b + 1]):
+            sums[b, q - host.bdup_ptr[b]] = _entries(host, v,
+                                                     -int(host.bdup[q]) - 1)
+    refs = 0
+    for f, cu in ((host.f_a, host.c_a), (host.f_b, host.c_b)):
+        for e in np.flatnonzero(f < 0):
+            got = sums[band[e], -f[e] - 1]
+            want = _entries(host, v, host.u_ref[cu[e]])
+            assert np.array_equal(got.view(np.int64), want.view(np.int64))
+            refs += 1
+    assert refs > 0 and len(sums) < refs
+
+
+def test_plain_versions_take_the_scenario_minor_layout(carried):
+    """At FLEET_MIN scenarios and more K3's entry-mode plain version gives
+    the values scenario-minor (strides (1, B)) with the bits of the
+    row-major values a scenario at a time, and K8's plain version gives
+    the same bits from either layout."""
+    c = carried
+    batch = k8.FLEET_MIN + 1
+    assert k8.scenario_minor(batch) and not k8.scenario_minor(batch - 2)
+    vm, va = _state(c, 23, batch)
+    vm, va = torch.tensor(vm), torch.tensor(va)
+    mean = c["tarr"].mean.expand(batch, -1)
+    res = k3.se_fill_entries(c["tarr"], c["tnet"], vm, va, mean)
+    assert res.vals.stride() == (1, batch) and res.vals.mT.is_contiguous()
+    for b in (0, 7, batch - 1):
+        one = k3.se_fill_entries(c["tarr"], c["tnet"], vm[b:b + 1],
+                                 va[b:b + 1], mean[b:b + 1])
+        assert one.vals.is_contiguous()
+        for name in ("h", "r", "vals"):
+            assert torch.equal(getattr(one, name)[0].view(torch.int64),
+                               getattr(res, name)[b].view(torch.int64))
+    table = torch_acse.gain_table(c["tarr"], c["tnet"])
+    w, off = c["tarr"].w, c["tarr"].pair_off
+    minor = k8.gain_fill(table, res.vals, w, off, res.r)
+    row = k8.gain_fill(table, res.vals.contiguous(), w, off, res.r)
+    for a, b in zip(minor, row):
+        assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+    assert minor[0].is_contiguous() and minor[0].shape == (batch, table.n,
+                                                           table.n)
+
+
+def test_wrapper_refuses_other_layouts(carried):
+    """K8 takes the values row-major or scenario-minor and raises on any
+    other strides (on the CPU as on the card): it never copies them."""
+    c = carried
+    batch = 3
+    vm, va = _state(c, 29, batch)
+    res = k3.se_fill_entries(c["tarr"], c["tnet"], torch.tensor(vm),
+                             torch.tensor(va),
+                             c["tarr"].mean.expand(batch, -1))
+    table = torch_acse.gain_table(c["tarr"], c["tnet"])
+    w, off = c["tarr"].w, c["tarr"].pair_off
+    wide = torch.zeros(batch, 2 * table.entries, dtype=torch.float64)
+    wide[:, ::2] = res.vals
+    assert k8.value_strides(res.vals) == (1, table.entries)
+    assert k8.value_strides(res.vals.mT.contiguous().mT) == (batch, 1)
+    for bad in (wide[:, ::2], wide[:, :table.entries]):
+        with pytest.raises(ValueError, match="row-major"):
+            k8.gain_fill(table, bad, w, off, res.r)
+    torch.testing.assert_close(k8.gain_fill(table, wide[:, ::2].clone(), w,
+                                            off, res.r)[0],
+                               k8.gain_fill(table, res.vals, w, off,
+                                            res.r)[0], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("bad,match", [
