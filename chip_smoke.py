@@ -1465,10 +1465,12 @@ def compare_k8(label, table, vals, w, off, r, dense=None):
               "the dense route")
     nnz = table.nz_col.numel()
     regime = "fleet" if k8.scenario_minor(vals.shape[0]) else "small-B"
+    bands = (f"{k8.fleet_bands(table).band}-row bands, "
+             f"{k8.fleet_shared(table)} shared bytes a fleet block; "
+             if regime == "fleet" else "")
     print(f"phase 5b {label} B={vals.shape[0]} N={table.n}: K8 ({regime} "
           f"regime) = gain_fill_ref bit for bit in both layouts, two "
-          f"launches the same bits, one kernel a call; {table.band}-row "
-          f"bands, {k8.fleet_shared(table)} shared bytes a fleet block; "
+          f"launches the same bits, one kernel a call; {bands}"
           f"{nnz} structural nonzeros ({100 * nnz / table.n ** 2!r}% of G), "
           f"{table.c_a.numel()} contributions, {table.entries} entries; "
           f"vs the dense route max abs {worst!r}, {rel!r} of max|G|")

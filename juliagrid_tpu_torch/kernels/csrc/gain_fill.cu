@@ -24,9 +24,11 @@
 // columns, and for each nonzero its contributions in a host-fixed order,
 // each two entry references and a weight (w[r], or pair_off[p] for a pair
 // term): w * (a * b). rhs's column lists name each column's entries in
-// ascending row with their rows. The G rows are cut into bands of `band`
-// consecutive rows (about 512 elements of G a scenario), and each band
-// lists the duplicated entries its contributions read.
+// ascending row with their rows. For the fleet regime the G rows are cut
+// into bands of `band` consecutive rows (about 512 elements of G a
+// scenario), and each band lists the duplicated entries its contributions
+// read (built at a table's first fleet launch, gain_fill.py::fleet_bands;
+// null before).
 //
 // The values are read through two strides, v[ref * se + b * sb]: row-major
 // [B, E] (se 1, sb E) or scenario-minor, an [E, B] buffer (se B, sb 1),
@@ -44,9 +46,9 @@
 // chunk of 32 VEC columns, quarter of the scenarios), a lane per VEC
 // columns (VEC = 2 when N is even: 16-byte stores, lanes on neighbouring
 // addresses), zeros included, each element once. Other blocks form rhs: a
-// block per (group, 32 columns), a warp a column at a time, a
-// lane a scenario, staged in shared memory and stored row by row; they
-// come first in the grid, so that they run beside the bands.
+// block per (group, 8 columns), a warp a column, a lane a scenario, staged
+// in shared memory and stored a scenario's columns at a time; they come
+// first in the grid, so that they run beside the bands.
 //
 // Small-B regime (B < FLEET_MIN: single estimates, LNR, the DC and PMU
 // estimators): a warp per (scenario, G row, span of kSpan chunks). The warp
@@ -112,7 +114,7 @@ struct GainTables {
   int entries;          // raw entries a scenario
   int slack;            // the slack column, or -1
   int slack_nz;         // the nonzero (slack, slack), or -1
-  int band;             // G rows a band
+  int band;             // G rows a band (the fleet regime, as below)
   int band_dups;        // the most duplicated entries of a band
   int band_nz;          // the most nonzeros of a band
 };
@@ -193,29 +195,6 @@ __device__ __forceinline__ void store_pair(double* __restrict__ row, int c,
     row[c] = a;
   }
 }
-
-#if GAIN_FILL_BULK_STORE
-// The variant of the fleet regime's stores that scripts/k8_timeline.py
-// measures against the 16-byte stores: a warp assembles a chunk of one
-// scenario's row in shared memory (two buffers a warp) and lane 0 stores
-// it with one bulk copy (cp.async.bulk, shared to global). N even only.
-constexpr int kStage = kWarps * 2 * kMaxChunk;  // doubles
-
-__device__ __forceinline__ void bulk_store(double* dst, const double* src,
-                                           int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-               ::"l"(dst), "r"(s), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-template <int kLeft>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kLeft) : "memory");
-}
-#else
-constexpr int kStage = 0;
-#endif
 
 #ifdef GAIN_FILL_TIMELINE
 constexpr int kStampBlocks = 4096;
@@ -432,33 +411,6 @@ gain_fleet_kernel(GainTables t, Values v, const double* __restrict__ w,
     }
     const int lo = part * kPer;
     const int hi = min(lo + kPer, batch - b0);
-#if GAIN_FILL_BULK_STORE
-    if (VEC == 2) {
-      // 16-byte aligned, as the bulk copy needs
-      double* stage =
-          nzv + (t.band_nz * kPad + 1) / 2 * 2 + warp * 2 * kMaxChunk;
-      const int bytes = 8 * min(kChunk, n - c0);
-      for (int s = lo; s < hi; ++s) {
-        double* buf = stage + (s & 1) * kMaxChunk;
-        if (lane == 0) bulk_wait_read<1>();  // the buffer's last copy read
-        __syncwarp();
-        if (c < n) {
-          *reinterpret_cast<double2*>(buf + VEC * lane) =
-              make_double2(s0 >= 0 ? nzv[s0 + s] : 0.0,
-                           s1 >= 0 ? nzv[s1 + s] : 0.0);
-        }
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        __syncwarp();
-        if (lane == 0) {
-          bulk_store(g + (static_cast<int64_t>(b0 + s) * n + i) * n + c0, buf,
-                     bytes);
-        }
-      }
-      if (lane == 0) bulk_wait_read<0>();
-      __syncwarp();
-      continue;
-    }
-#endif
     if (c >= n) continue;
     for (int s = lo; s < hi; ++s) {
       double* row = g + (static_cast<int64_t>(b0 + s) * n + i) * n;
@@ -583,12 +535,10 @@ gain_fill_kernel(GainTables t, Values v, const double* __restrict__ w,
 }
 
 // The fleet regime's dynamic shared memory a block (bytes): a band's
-// duplicate sums and nonzeros (16-byte aligned after them, the bulk-store
-// variant's buffers), or rhs's staging; gain_fill.py::_band_shared.
+// duplicate sums and nonzeros, or rhs's staging; gain_fill.py::_band_shared.
 size_t fleet_shared(const GainTables* t) {
   const size_t band = static_cast<size_t>(t->band_dups) * kGroup +
-                      (static_cast<size_t>(t->band_nz) * kPad + 1) / 2 * 2 +
-                      kStage;
+                      static_cast<size_t>(t->band_nz) * kPad;
   const size_t rhs = static_cast<size_t>(kWarps) * kPad;
   return 8 * (band > rhs ? band : rhs);
 }
@@ -613,7 +563,8 @@ extern "C" int gain_fill_launch(const GainTables* t, const double* vals,
                                 const double* off, const double* r, double* g,
                                 double* rhs, int batch, int fleet,
                                 void* stream) {
-  if (t == nullptr || t->n <= 0 || t->m <= 0 || batch <= 0 || t->band <= 0) {
+  if (t == nullptr || t->n <= 0 || t->m <= 0 || batch <= 0 ||
+      (fleet && (t->band <= 0 || t->bdup_ptr == nullptr))) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

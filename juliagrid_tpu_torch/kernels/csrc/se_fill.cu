@@ -650,9 +650,7 @@ se_values_kernel(SeTables t, const double* __restrict__ status, int slack,
 // status) and, kState, the group's whole state into shared memory, reading
 // rows of the inputs, so that the lanes' reads are shared-memory reads; h
 // and r go to shared memory too and leave as rows of [B, m]. The launch
-// bound caps the registers at 128 a thread. SE_FILL_STRIDED_HR writes h
-// and r straight from the lanes instead
-// (scripts/k8_timeline.py measures the two).
+// bound caps the registers at 128 a thread.
 constexpr int kSliceRows = 32;
 constexpr int kSlicePad = kWarp + 1;  // a row's 32 scenarios, padded
 constexpr int kStateMax = 128;        // buses whose state a block stages
@@ -739,31 +737,20 @@ se_entries_minor_kernel(SeTables t, const double* __restrict__ status,
     for (int j = threadIdx.x / kWarp; j < rows; j += kThreads / kWarp) {
       const double st = dst[j];
       const EntryPut put{vals + b, batch, dep, kSliceRows, j, slack, st};
-#ifdef SE_FILL_STRIDED_HR
-      const double* mo = mean;
-      double* ho = h;
-      double* ro = r;
-      const int64_t out = static_cast<int64_t>(b) * m + r0 + j;
-#else
-      const double* mo = ms;
-      double* ho = hs;
-      double* ro = rs;
       const int64_t out = j * kSlicePad + lane;
-#endif
       const int code = dix[j];
       if (code == 6 || code == 9) {
-        injection_row(code, dix[kSliceRows + j], t, st, vmb, vab, mo, ho, ro,
+        injection_row(code, dix[kSliceRows + j], t, st, vmb, vab, ms, hs, rs,
                       out, put);
       } else {  // lane 0 of fill_row's warp: the closed-form rows, their
                 // descriptors the slice's (row j of kSliceRows)
         fill_row<true>(j, kSliceRows, 0, dix, dco, st, t.row_ptr, t.cols,
-                       t.yg, t.yb, t.diag, vmb, vab, n, mo, ho, ro, out, put);
+                       t.yg, t.yb, t.diag, vmb, vab, n, ms, hs, rs, out, put);
       }
     }
   }
   __syncthreads();
   stamp(2);
-#ifndef SE_FILL_STRIDED_HR
   for (int x = threadIdx.x; x < nb * rows; x += kThreads) {
     const int s = x / rows;
     const int j = x % rows;
@@ -771,7 +758,6 @@ se_entries_minor_kernel(SeTables t, const double* __restrict__ status,
     h[o] = hs[j * kSlicePad + s];
     r[o] = rs[j * kSlicePad + s];
   }
-#endif
   stamp(3);
 }
 

@@ -23,9 +23,11 @@ rhs. Row status, weights and values only multiply, so status and variance
 edits and every scenario of a fleet reuse a table (``cached_table``, held
 for as long as the pattern's tensors live); a measurement added or removed
 builds a new one. ``dense_entries`` gives the linear estimators' dense H
-as entries and tables. The G rows are cut into bands of about 512 elements
-a scenario (``band_rows``), and each band lists the duplicated entries its
-contributions read: the fleet regime sums those once for 32 scenarios.
+as entries and tables. For the fleet regime alone the G rows are cut into
+bands of about 512 elements a scenario (``band_rows``), and each band lists
+the duplicated entries its contributions read, so that those are summed
+once for 32 scenarios (``band_lists``): built at a table's first fleet
+launch (``fleet_bands``), so that a single estimate never pays for them.
 
 The values come in one of two layouts (``value_strides``): row-major ``[B,
 E]``, or scenario-minor, the transpose of a contiguous ``[E, B]`` buffer,
@@ -55,7 +57,12 @@ from ..ops.segments import segment_sum
 from . import _build
 
 #: the batch from which K8 runs its fleet regime (a lane a scenario) and
-#: K3's entry mode writes the values scenario-minor
+#: K3's entry mode writes the values scenario-minor: where the two ways (K3
+#: and K8 together) tie at case118, 0.0534 against 0.0526 ms at 32
+#: scenarios, the small-B way 12-30% faster at 16-24 and the fleet way 30%
+#: faster at 64; at 1,369 buses the fleet way wins from 8 (no main path
+#: sends 2-31 scenarios). scripts/k8_crossover.py on an H100 80GB HBM3 at
+#: 700 W.
 FLEET_MIN = 32
 #: G elements a band holds for one scenario, about (``band_rows``): small
 #: bands put more blocks on an SM, so that some store while others sum
@@ -85,8 +92,7 @@ def _band_shared(dups: int, nonzeros: int) -> int:
     """Bytes of shared memory a fleet block takes for a band of ``dups``
     duplicated entries and ``nonzeros`` nonzeros (32 scenarios; rhs's
     staging if larger): ``fleet_shared`` in the source."""
-    return 8 * max(32 * int(dups) + (33 * int(nonzeros) + 1) // 2 * 2,
-                   8 * 33)
+    return 8 * max(32 * int(dups) + 33 * int(nonzeros), 8 * 33)
 
 
 class GainHost(NamedTuple):
@@ -108,14 +114,19 @@ class GainHost(NamedTuple):
     col_u: np.ndarray     # row
     pair_of: np.ndarray   # [m] the pair of a row, or -1
     partner: np.ndarray   # [m] the other row of that pair, or -1
-    f_a: np.ndarray       # [C] the reference of c_a, a duplicate as
-    f_b: np.ndarray       # [C]  -(slot + 1), its slot in its band's list
-    bdup_ptr: np.ndarray  # [bands + 1] each band's duplicated entries
-    bdup: np.ndarray      # their d, ascending
     n: int                # N, the order of G
     m: int                # rows
     entries: int          # E, raw entries a scenario
     slack: int            # the slack column, or -1
+
+
+class Bands(NamedTuple):
+    """The fleet regime's band lists of a ``GainHost`` (numpy, int64)."""
+
+    f_a: np.ndarray       # [C] the reference of c_a, a duplicate as
+    f_b: np.ndarray       # [C]  -(slot + 1), its slot in its band's list
+    bdup_ptr: np.ndarray  # [bands + 1] each band's duplicated entries
+    bdup: np.ndarray      # their d, ascending
     band: int             # G rows a band
 
 
@@ -136,10 +147,6 @@ class GainTable(NamedTuple):
     col_row: torch.Tensor
     pair_of: torch.Tensor
     partner: torch.Tensor
-    f_a: torch.Tensor     # the fleet regime's references (``GainHost``)
-    f_b: torch.Tensor
-    bdup_ptr: torch.Tensor
-    bdup: torch.Tensor
     c_nz: torch.Tensor    # i64[C] the nonzero of each contribution
     nz_flat: torch.Tensor  # i64[Z] i N + j of each nonzero
     dup_of: torch.Tensor  # i64[..] the duplicate of each dup_raw position
@@ -151,6 +158,16 @@ class GainTable(NamedTuple):
     entries: int
     slack: int
     pairs: int
+    host: GainHost        # what the fleet regime's band lists come from
+
+
+class DeviceBands(NamedTuple):
+    """``Bands`` on the device (int32), with the sizes of its bands."""
+
+    f_a: torch.Tensor
+    f_b: torch.Tensor
+    bdup_ptr: torch.Tensor
+    bdup: torch.Tensor
     band: int             # G rows a band
     band_dups: int        # the most duplicated entries of a band
     band_nz: int          # the most nonzeros of a band
@@ -247,37 +264,12 @@ def gain_fill_table(ent_rows, ent_cols, m: int, n: int, pair_r1=(),
     col_u = np.argsort(u_col, kind="stable")   # by column, then row
     col_ptr = np.searchsorted(u_col[col_u], np.arange(n + 1))
 
-    # each band's duplicated entries (ascending d) and the contributions'
-    # references with a duplicate as its slot in its band's list; a band
-    # halves until its shared memory fits BAND_SHARED
-    c_row = np.repeat(nz_row, np.diff(c_ptr))
-    refs = u_ref[ca], u_ref[cb]
-    dups = [np.flatnonzero(ref < 0) for ref in refs]
-    ndup = max(len(dup), 1)
-    band = band_rows(n)
-    while True:
-        nbands = -(-n // band)
-        key = np.concatenate([c_row[d] // band * ndup - ref[d] - 1
-                              for ref, d in zip(refs, dups)])
-        keys, slot = np.unique(key, return_inverse=True)
-        bdup_ptr = np.searchsorted(keys // ndup, np.arange(nbands + 1))
-        band_nz = np.diff(nz_ptr[np.minimum(np.arange(nbands + 1) * band, n)])
-        if band == 1 or _band_shared(np.diff(bdup_ptr).max(initial=0),
-                                     band_nz.max(initial=0)) <= BAND_SHARED:
-            break
-        band //= 2
-    slot = slot.reshape(-1) - bdup_ptr[key // ndup]
-    f_a, f_b = (ref.copy() for ref in refs)
-    f_a[dups[0]] = -(slot[:len(dups[0])] + 1)
-    f_b[dups[1]] = -(slot[len(dups[0]):] + 1)
-
     host = GainHost(
         nz_ptr=nz_ptr, nz_col=nz_col, c_ptr=c_ptr, c_a=ca, c_b=cb, c_w=cw,
         u_row=u_row, u_col=u_col, u_ref=u_ref, dup_ptr=dup_ptr,
         dup_raw=dup_raw, col_ptr=col_ptr, col_u=col_u, pair_of=pair_of,
-        partner=partner, f_a=f_a, f_b=f_b, bdup_ptr=bdup_ptr,
-        bdup=keys % ndup, n=int(n), m=int(m), entries=len(rows),
-        slack=int(slack), band=int(band))
+        partner=partner, n=int(n), m=int(m), entries=len(rows),
+        slack=int(slack))
     if max(len(ca), len(rows), len(nz)) >= 2 ** 31:
         raise ValueError("K8's tables index with int32")
     return host
@@ -302,21 +294,58 @@ def check_gain_table(host: GainHost) -> None:
         raise ValueError("a contribution lies off its nonzero")
     if not np.array_equal(np.sort(host.col_u), np.arange(len(host.u_row))):
         raise ValueError("rhs's column lists do not hold every entry once")
-    # the fleet regime's references: a raw position as in c_a/c_b, a
-    # duplicate through its band's list, which ascends
-    for f, c in ((host.f_a, host.c_a), (host.f_b, host.c_b)):
+
+
+def band_lists(host: GainHost) -> Bands:
+    """The fleet regime's bands of ``host``: consecutive G rows, about
+    ``BAND_ELEMENTS`` elements a scenario, halved until a band's shared
+    memory fits ``BAND_SHARED``; each band's duplicated entries (ascending
+    d), and the contributions' references with a duplicate as its slot in
+    its band's list."""
+    n = host.n
+    row = host.u_col[host.c_a]   # a contribution's G row: a's column
+    refs = host.u_ref[host.c_a], host.u_ref[host.c_b]
+    dups = [np.flatnonzero(ref < 0) for ref in refs]
+    ndup = max(len(host.dup_ptr) - 1, 1)
+    band = band_rows(n)
+    while True:
+        nbands = -(-n // band)
+        key = np.concatenate([row[d] // band * ndup - ref[d] - 1
+                              for ref, d in zip(refs, dups)])
+        keys, slot = np.unique(key, return_inverse=True)
+        bdup_ptr = np.searchsorted(keys // ndup, np.arange(nbands + 1))
+        band_nz = np.diff(host.nz_ptr[np.minimum(np.arange(nbands + 1) * band,
+                                                 n)])
+        if band == 1 or _band_shared(np.diff(bdup_ptr).max(initial=0),
+                                     band_nz.max(initial=0)) <= BAND_SHARED:
+            break
+        band //= 2
+    slot = slot.reshape(-1) - bdup_ptr[key // ndup]
+    f_a, f_b = refs
+    f_a[dups[0]] = -(slot[:len(dups[0])] + 1)
+    f_b[dups[1]] = -(slot[len(dups[0]):] + 1)
+    return Bands(f_a=f_a, f_b=f_b, bdup_ptr=bdup_ptr, bdup=keys % ndup,
+                 band=int(band))
+
+
+def check_bands(host: GainHost, bands: Bands) -> None:
+    """Raise unless ``bands`` reads every contribution's entries as
+    ``host`` does: a raw position as in c_a/c_b, a duplicate through its
+    band's list, which ascends (``host`` checked by ``check_gain_table``)."""
+    if len(bands.bdup_ptr) != -(-host.n // bands.band) + 1 or np.any(
+            np.diff(bands.bdup_ptr) < 0):
+        raise ValueError("bdup_ptr is not a pointer over the bands")
+    row = host.u_col[host.c_a]
+    for f, c in ((bands.f_a, host.c_a), (bands.f_b, host.c_b)):
         ref = host.u_ref[c]
         dup = np.flatnonzero(ref < 0)
-        band = row[owner[dup]] // host.band
+        band = row[dup] // bands.band
         slot = -f[dup] - 1
-        lo = host.bdup_ptr[band]
+        lo = bands.bdup_ptr[band]
         if (np.any((f != ref) & (ref >= 0)) or np.any(slot < 0)
-                or np.any(lo + slot >= host.bdup_ptr[band + 1])
-                or np.any(host.bdup[lo + slot] != -ref[dup] - 1)):
+                or np.any(lo + slot >= bands.bdup_ptr[band + 1])
+                or np.any(bands.bdup[lo + slot] != -ref[dup] - 1)):
             raise ValueError("a band's duplicate list misses a reference")
-    if len(host.bdup_ptr) != -(-n // host.band) + 1 or np.any(
-            np.diff(host.bdup_ptr) < 0):
-        raise ValueError("bdup_ptr is not a pointer over the bands")
 
 
 def _device(host: GainHost, device) -> GainTable:
@@ -332,8 +361,6 @@ def _device(host: GainHost, device) -> GainTable:
     slack_nz = -1
     if host.slack >= 0:
         slack_nz = int(np.flatnonzero(nz_flat == host.slack * (host.n + 1))[0])
-    band_nz = np.diff(host.nz_ptr[np.minimum(
-        np.arange(0, host.n + host.band, host.band), host.n)])
     return GainTable(
         nz_ptr=i32(host.nz_ptr), nz_col=i32(host.nz_col),
         c_ptr=i32(host.c_ptr), c_a=i32(host.u_ref[host.c_a]),
@@ -341,17 +368,13 @@ def _device(host: GainHost, device) -> GainTable:
         dup_ptr=i32(host.dup_ptr), dup_raw=i32(host.dup_raw),
         col_ptr=i32(host.col_ptr), col_ref=i32(host.u_ref[host.col_u]),
         col_row=i32(host.u_row[host.col_u]), pair_of=i32(host.pair_of),
-        partner=i32(host.partner), f_a=i32(host.f_a), f_b=i32(host.f_b),
-        bdup_ptr=i32(host.bdup_ptr), bdup=i32(host.bdup), c_nz=i64(c_nz),
-        nz_flat=i64(nz_flat),
+        partner=i32(host.partner), c_nz=i64(c_nz), nz_flat=i64(nz_flat),
         dup_of=i64(np.repeat(np.arange(len(host.dup_ptr) - 1),
                              np.diff(host.dup_ptr))),
         col_of=i64(np.repeat(np.arange(host.n), np.diff(host.col_ptr))),
         paired=i64(np.flatnonzero(host.pair_of >= 0)), slack_nz=slack_nz,
         n=host.n, m=host.m, entries=host.entries, slack=host.slack,
-        pairs=int(np.count_nonzero(host.pair_of >= 0)) // 2, band=host.band,
-        band_dups=int(np.diff(host.bdup_ptr).max(initial=0)),
-        band_nz=int(band_nz.max(initial=0)))
+        pairs=int(np.count_nonzero(host.pair_of >= 0)) // 2, host=host)
 
 
 def device_table(host: GainHost, device) -> GainTable:
@@ -494,27 +517,51 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-#: the tensors of ``GainTables`` in csrc/gain_fill.cu, in order
+#: the tensors of ``GainTables`` in csrc/gain_fill.cu, in order: the
+#: table's, then its bands' (null until the table's first fleet launch)
 _FIELDS = ("nz_ptr", "nz_col", "c_ptr", "c_a", "c_b", "c_w", "dup_ptr",
-           "dup_raw", "col_ptr", "col_ref", "col_row", "pair_of", "partner",
-           "f_a", "f_b", "bdup_ptr", "bdup")
-#: its ints, in order
-_INTS = ("n", "m", "entries", "slack", "slack_nz", "band", "band_dups",
-         "band_nz")
+           "dup_raw", "col_ptr", "col_ref", "col_row", "pair_of", "partner")
+_BAND_FIELDS = ("f_a", "f_b", "bdup_ptr", "bdup")
+#: its ints, in order: the table's, then its bands'
+_INTS = ("n", "m", "entries", "slack", "slack_nz")
+_BAND_INTS = ("band", "band_dups", "band_nz")
 
 
 class _Tables(ctypes.Structure):
     """``GainTables`` of csrc/gain_fill.cu."""
 
-    _fields_ = ([(name, ctypes.c_void_p) for name in _FIELDS]
-                + [(name, ctypes.c_int) for name in _INTS])
+    _fields_ = ([(name, ctypes.c_void_p) for name in _FIELDS + _BAND_FIELDS]
+                + [(name, ctypes.c_int) for name in _INTS + _BAND_INTS])
 
 
-#: the ``_Tables`` of each table (keyed by its ``nz_ptr``)
+#: the ``_Tables`` and the ``DeviceBands`` of each table (keyed by its
+#: ``nz_ptr``)
 _STRUCTS = WeakIdKeyDictionary()
+_BANDS = WeakIdKeyDictionary()
 
 
-def _struct(table: GainTable) -> int:
+def fleet_bands(table: GainTable) -> DeviceBands:
+    """The checked band lists of ``table`` on its device, built from its
+    host tables at the first call, for as long as the table lives."""
+    bands = _BANDS.get(table.nz_ptr)
+    if bands is None:
+        host = table.host
+        lists = band_lists(host)
+        check_bands(host, lists)
+        band = lists.band
+        band_nz = np.diff(host.nz_ptr[np.minimum(
+            np.arange(0, host.n + band, band), host.n)])
+        bands = DeviceBands(
+            **{name: torch.as_tensor(getattr(lists, name).astype(np.int32),
+                                     device=table.nz_ptr.device)
+               for name in _BAND_FIELDS},
+            band=band, band_dups=int(np.diff(lists.bdup_ptr).max(initial=0)),
+            band_nz=int(band_nz.max(initial=0)))
+        _BANDS[table.nz_ptr] = bands
+    return bands
+
+
+def _struct(table: GainTable, bands: DeviceBands | None = None) -> int:
     held = _STRUCTS.get(table.nz_ptr)
     if held is None:
         for name in _FIELDS:
@@ -525,18 +572,25 @@ def _struct(table: GainTable) -> int:
                           for name in _FIELDS},
                        **{name: getattr(table, name) for name in _INTS})
         _STRUCTS[table.nz_ptr] = held
+    if bands is not None and not held.bdup_ptr:
+        for name in _BAND_FIELDS:
+            setattr(held, name, getattr(bands, name).data_ptr())
+        for name in _BAND_INTS:
+            setattr(held, name, getattr(bands, name))
     return ctypes.addressof(held)
 
 
 def fleet_shared(table: GainTable) -> int:
     """Bytes of shared memory a block of the fleet regime takes."""
-    return _band_shared(table.band_dups, table.band_nz)
+    bands = fleet_bands(table)
+    return _band_shared(bands.band_dups, bands.band_nz)
 
 
 def _launch(table: GainTable, vals, strides, w, pair_off, r):
     batch = vals.shape[0]
     n = table.n
     fleet = scenario_minor(batch)
+    bands = fleet_bands(table) if fleet else None
     if fleet and fleet_shared(table) > SHARED_LIMIT:
         raise ValueError(f"a band of this table needs {fleet_shared(table)} "
                          f"bytes of shared memory, above {SHARED_LIMIT}")
@@ -547,7 +601,7 @@ def _launch(table: GainTable, vals, strides, w, pair_off, r):
     ctx, stream = _build.launch_context(vals.device)
     with ctx:
         err = _library().gain_fill_launch(
-            _struct(table), vals.data_ptr(), *strides, w.data_ptr(),
+            _struct(table, bands), vals.data_ptr(), *strides, w.data_ptr(),
             pair_off.data_ptr() if pair_off.numel() else None, r.data_ptr(),
             gain.data_ptr(), rhs.data_ptr(), batch, int(fleet), stream)
     if err != 0:

@@ -20,9 +20,14 @@ as device ms with the calls queued, beside the dense route they replaced
 the bound (K8: G and rhs written once, the values, weights, residuals and
 the gain table's pattern arrays read once; K3: its inputs read and outputs
 written once), and SHA-256 digests of the values, of G and of rhs, so that
-two trees can be compared for the same bits. Run the trees in turns (parent, new, new,
-parent) in one call: times of one card move between calls. About 60 s a
-tree.
+two trees can be compared for the same bits. Then the host side: the
+wall seconds of building the gain table anew (``chip_smoke.gain_table``:
+the host tables, their checks and their copy to the card; the least and
+the median of 5) for the case118 and 1,369-bus sets, and the live
+measurement edits of ``chip_smoke.py``'s phase 19 (``se_edits``: a reused
+and a fresh 1,369-bus estimate after each of two edits), run 3 times. Run
+the trees in turns (parent, new, new, parent) in one call: times of one
+card move between calls. About 80 s a tree.
 """
 
 from __future__ import annotations
@@ -105,6 +110,14 @@ def main() -> None:
               f"{digest(res.h)}, r {digest(res.r)}", flush=True)
         dense = cs.dense_gain_ms(arr, net, vm, va, mean, 3)
         k8_line(label, table, res.vals, arr.w, arr.pair_off, res.r, dense)
+        if batch == 1 or batch == cs.SE_FLEET:   # one a set: the host side
+            walls = []
+            for _ in range(5):
+                k8._CACHE.pop(arr.desc.idx, None)
+                walls.append(cs.wall_s(lambda: cs.gain_table(arr, net))[0])
+            print(f"{root.name} gain table build {label.split()[0]}: least "
+                  f"{min(walls)!r} s, median {float(np.median(walls))!r} s",
+                  flush=True)
         del res, table, arr, net
         torch.cuda.empty_cache()
 
@@ -123,6 +136,8 @@ def main() -> None:
                 for _ in range(3))
     k8_line(f"{cs.GRID[0]}x{cs.GRID[1]} DC x1", table, vals, arr.w,
             arr.w.new_zeros(0), arr.mean[None], dense)
+    for _ in range(3):
+        cs.se_edits()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -15,9 +15,9 @@ It builds a copy of ``csrc/gain_fill.cu`` into ``build/k8_timeline/`` with
 fleet regime stamps ``%globaltimer`` (the card's nanosecond clock, shared
 by all SMs) when the block starts and when each of its phases ends (a
 band's duplicate sums, its nonzeros' and rhs elements' sums, its stores)
-and records its SM, with each ``--define`` passed to nvcc (such as
-``GAIN_FILL_BULK_STORE=1``, the stores by bulk copies) and each
-``--replace OLD NEW`` applied to the source (every OLD must occur). On the
+and records its SM, with each ``--define`` passed to nvcc and each
+``--replace OLD NEW`` applied to the source (every OLD must occur), so
+that a variant of the kernel is timed against the package's. On the
 seeded inputs of ``scripts/k8_pair.py`` at case118 x1024, x256 and the
 37x37 grid x32 it checks that the copy gives the package's bits, times
 the copy and the package's K8 in turns (CUDA events, device ms with the
@@ -27,8 +27,7 @@ an SM at once, and the share of the summed block time each phase takes.
 It does the same for a copy of ``csrc/se_fill.cu`` built with
 ``SE_FILL_TIMELINE`` (each block of the scenario-minor entry mode stamps
 its start, the end of its staging, of its rows and of its h and r
-stores), with each ``--k3-define`` (such as ``SE_FILL_STRIDED_HR``, h and
-r stored from the lanes) and ``--k3-replace``. ``--band-elements`` sets
+stores), with each ``--k3-define`` and ``--k3-replace``. ``--band-elements`` sets
 ``gain_fill.BAND_ELEMENTS`` (the G elements a band holds a scenario)
 for the tables of both K8s. Then ptxas's registers and
 spills of the copies, and the card's ``nvidia-smi`` name and power limit.
@@ -207,7 +206,8 @@ def main() -> None:
                 times[which].append(cs.queued_ms(fn, args.reps))
         print(f"{label} K8 device ms in turns: package "
               f"{times['package']!r}, copy {times['copy']!r}", flush=True)
-        blocks = min(-(-batch // 32) * -(-table.n // table.band),
+        band = k8.fleet_bands(table).band
+        blocks = min(-(-batch // 32) * -(-table.n // band),
                      STAMP_BLOCKS)   # the band blocks
         report(f"{label} K8 copy", timeline(k8, copy8, "gain_fill_timeline",
                                             fn, blocks), blocks,

@@ -36,6 +36,8 @@ and carried across, go through the JAX package's pieces and the port's:
 The CUDA kernels themselves are held to the plain versions on the card by
 ``chip_smoke.py`` (phase 5b)."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -63,6 +65,7 @@ from juliagrid_tpu_torch.parallel import batched_se_solve
 
 GAIN_TOL = 1e-13       # of max|G| (max|rhs|): one f64 formula, two orders
 SPAN = 8               # chunks a small-B warp streams (kSpan, gain_fill.cu)
+RHS_COLS = 8           # rhs columns a fleet block (kWarps, gain_fill.cu)
 ENTRY_TOL = dict(rtol=1e-12, atol=1e-12)
 STATE_TOL = dict(rtol=0, atol=1e-9)
 CASES = ("case14test", "case30test", "case118")
@@ -246,15 +249,18 @@ def _walk_small(host, v, w, off, r):
 
 
 def _walk_fleet(host, v, w, off, r):
-    """csrc/gain_fill.cu's fleet regime in numpy: a block per (band of
-    ``host.band`` G rows, group of 32 scenarios, a lane each) sums the
-    band's duplicated entries once into shared memory, then a warp per
-    nonzero sums its contributions (a duplicate read through its band
-    slot, ``f_a``/``f_b``) from 0.0 and a warp per band row i sums rhs[i],
-    then a warp per (row, chunk, quarter of the scenarios) stores the chunk
-    whole, a lane per VEC columns finding its nonzero among the chunk's,
-    and the block stores its rhs elements. Returns G, rhs and the write
-    counts."""
+    """csrc/gain_fill.cu's fleet regime in numpy, for each group of 32
+    scenarios (a lane each). First the rhs blocks: a block per RHS_COLS
+    columns, a warp a column summing its terms in order for its lanes into
+    shared memory, then the block's threads storing the staged elements a
+    scenario's columns at a time. Then a block per band of G rows
+    (``band_lists``): it sums the band's duplicated entries once into
+    shared memory, a warp per nonzero sums its contributions (a duplicate
+    read through its band slot, ``f_a``/``f_b``) from 0.0, and a warp per
+    (row, chunk,
+    quarter of the scenarios) stores the chunk whole, a lane per VEC
+    columns finding its nonzero among the chunk's. Returns G, rhs and the
+    write counts."""
     batch, n = len(v), host.n
     vec = 2 if n % 2 == 0 else 1
     chunk = 32 * vec
@@ -265,14 +271,28 @@ def _walk_fleet(host, v, w, off, r):
     rhs = np.full((batch, n), np.nan)
     rhs_writes = np.zeros((batch, n), dtype=np.int64)
     wr = _wr(host, w, off, r)
+    bands = k8.band_lists(host)
+    k8.check_bands(host, bands)
     for b0 in range(0, batch, 32):
         lanes = np.arange(b0, min(b0 + 32, batch))
         vg = v[lanes]
-        for band in range(len(host.bdup_ptr) - 1):
-            i0, i1 = band * host.band, min(n, (band + 1) * host.band)
+        for c0 in range(0, n, RHS_COLS):
+            ncol = min(RHS_COLS, n - c0)
+            staged = np.full((RHS_COLS, 33), np.nan)
+            for warp in range(ncol):
+                staged[warp, :len(lanes)] = _rhs_column(host, vg, wr[lanes],
+                                                        c0 + warp)
+            for x in range(32 * ncol):   # the block's threads in turn
+                s, cl = divmod(x, ncol)
+                if b0 + s < batch:
+                    rhs[b0 + s, c0 + cl] = staged[cl, s]
+                    rhs_writes[b0 + s, c0 + cl] += 1
+        for band in range(len(bands.bdup_ptr) - 1):
+            i0, i1 = band * bands.band, min(n, (band + 1) * bands.band)
             z0, z1 = host.nz_ptr[i0], host.nz_ptr[i1]
-            d0, d1 = host.bdup_ptr[band], host.bdup_ptr[band + 1]
-            dsum = [_entries(host, vg, -int(d) - 1) for d in host.bdup[d0:d1]]
+            d0, d1 = bands.bdup_ptr[band], bands.bdup_ptr[band + 1]
+            dsum = [_entries(host, vg, -int(d) - 1)
+                    for d in bands.bdup[d0:d1]]
 
             def value(ref):
                 return vg[:, ref] if ref >= 0 else dsum[-ref - 1]
@@ -281,13 +301,11 @@ def _walk_fleet(host, v, w, off, r):
             for k in range(z0, z1):
                 s = np.zeros(len(lanes))
                 for e in range(host.c_ptr[k], host.c_ptr[k + 1]):
-                    s = s + weight[host.c_w[e]] * (value(host.f_a[e])
-                                                   * value(host.f_b[e]))
+                    s = s + weight[host.c_w[e]] * (value(bands.f_a[e])
+                                                   * value(bands.f_b[e]))
                 if k == slack_nz:
                     s = s + 1.0
                 nzv[k - z0] = s
-            rhv = {i: _rhs_column(host, vg, wr[lanes], i)
-                   for i in range(i0, i1)}
             for i in range(i0, i1):
                 lo, end = host.nz_ptr[i], host.nz_ptr[i + 1]
                 for c0 in range(0, n, chunk):
@@ -302,9 +320,6 @@ def _walk_fleet(host, v, w, off, r):
                         sel = lanes[part * 8:(part + 1) * 8]
                         g[sel[:, None], i, cols] = row[sel - b0][:, cols - c0]
                         writes[sel[:, None], i, cols] += 1
-            for i, val in rhv.items():
-                rhs[lanes, i] = val
-                rhs_writes[lanes, i] += 1
     return g, rhs, writes, rhs_writes
 
 
@@ -322,8 +337,10 @@ def test_table_gives_one_writer_and_coalesces_duplicates(carried):
                           np.unique(key[kept]))
     assert not np.any(host.u_col == int(c["host"].slack))
     # every band lists the duplicates its contributions read
-    assert np.array_equal(np.unique(host.bdup), np.arange(len(host.dup_ptr)
-                                                          - 1))
+    bands = k8.band_lists(host)
+    k8.check_bands(host, bands)
+    assert np.array_equal(np.unique(bands.bdup),
+                          np.arange(len(host.dup_ptr) - 1))
     # the kernel's small-B walk writes every element once, and the plain
     # version's bits
     vm, va = _state(c, 11)
@@ -407,24 +424,49 @@ def test_band_duplicate_sums_taken_once_give_the_same_bits(carried):
     the bands' sums are fewer than those references."""
     c = carried
     host = c["gain_host"]
+    bands = k8.band_lists(host)
     rng = np.random.default_rng(21)
     v = rng.standard_normal((33, host.entries))
     owner = np.repeat(np.arange(len(host.nz_col)), np.diff(host.c_ptr))
     band = np.repeat(np.arange(host.n), np.diff(host.nz_ptr))[owner] \
-        // host.band
+        // bands.band
     sums = {}
-    for b in range(len(host.bdup_ptr) - 1):
-        for q in range(host.bdup_ptr[b], host.bdup_ptr[b + 1]):
-            sums[b, q - host.bdup_ptr[b]] = _entries(host, v,
-                                                     -int(host.bdup[q]) - 1)
+    for b in range(len(bands.bdup_ptr) - 1):
+        for q in range(bands.bdup_ptr[b], bands.bdup_ptr[b + 1]):
+            sums[b, q - bands.bdup_ptr[b]] = _entries(
+                host, v, -int(bands.bdup[q]) - 1)
     refs = 0
-    for f, cu in ((host.f_a, host.c_a), (host.f_b, host.c_b)):
+    for f, cu in ((bands.f_a, host.c_a), (bands.f_b, host.c_b)):
         for e in np.flatnonzero(f < 0):
             got = sums[band[e], -f[e] - 1]
             want = _entries(host, v, host.u_ref[cu[e]])
             assert np.array_equal(got.view(np.int64), want.view(np.int64))
             refs += 1
     assert refs > 0 and len(sums) < refs
+
+
+def test_fleet_bands_built_once_at_first_use(carried):
+    """A table carries no band lists until the fleet regime asks for them
+    (a single estimate never builds them); ``fleet_bands`` then builds the
+    checked lists once, on the table's device, for as long as it lives;
+    ``check_bands`` refuses a list that misses a reference."""
+    host = carried["gain_host"]
+    table = k8.device_table(host, "cpu")
+    assert k8._BANDS.get(table.nz_ptr) is None
+    bands = k8.fleet_bands(table)
+    assert k8.fleet_bands(table) is bands
+    want = k8.band_lists(host)
+    for name in ("f_a", "f_b", "bdup_ptr", "bdup"):
+        got = getattr(bands, name)
+        assert got.dtype == torch.int32 and got.device == table.nz_ptr.device
+        assert np.array_equal(got.numpy(), getattr(want, name))
+    assert bands.band == want.band
+    assert k8.fleet_shared(table) <= k8.BAND_SHARED
+    dup = np.flatnonzero(want.f_a < 0)[0]
+    bad = want.f_a.copy()
+    bad[dup] = -(np.diff(want.bdup_ptr).max() + 1)   # past its band's list
+    with pytest.raises(ValueError, match="duplicate list"):
+        k8.check_bands(host, want._replace(f_a=bad))
 
 
 def test_plain_versions_take_the_scenario_minor_layout(carried):
@@ -795,3 +837,9 @@ def test_build_flags_and_sources():
     assert "-fmad=false" in _build.nvcc_flags("gain_fill")
     assert _build.sources("gain_fill") == [_build.CSRC / "gain_fill.cu"]
     assert _build.library_path("gain_fill").parent == _build.BUILD_DIR
+    # the numpy walks' constants are the source's
+    src = (_build.CSRC / "gain_fill.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(const["kSpan"]) == SPAN
+    assert int(const["kThreads"]) // int(const["kWarp"]) == RHS_COLS
+    assert int(const["kGroup"]) == 32 and int(const["kParts"]) == 4
