@@ -40,6 +40,7 @@ from .powerflow.ac import AcArrays, check_entry_list
 from .powerflow.dc import DcArrays
 from .powerflow.fast_decoupled import FnrArrays
 from .powerflow.gauss_seidel import GsArrays, level_schedule, row_counts
+from .utils.profiling import default_timings
 
 
 def ac_arrays_from_numpy(*, rows, cols, yg, yb, diag, bus_type, slack,
@@ -172,11 +173,14 @@ def se_arrays_from_numpy(host, device=None) -> SeArrays:
     """``SeArrays`` on ``device`` (default ``config.device``), with K3's
     descriptor table, from a host mirror whose fields are numpy arrays.
     Index fields become int64 tensors; the table is checked on the host
-    (``se_fill_table``, ``entry_positions``) before it reaches K3."""
+    (``se_fill_table``, ``entry_positions``) before it reaches K3; their
+    build is the span ``tables.build`` of
+    ``utils.profiling.default_timings``."""
     dev = resolve_device(device)
-    idx, coef = se_fill_table(host)
-    order, closed = row_classes(idx)
-    epos, entries = entry_positions(host)
+    with default_timings.span("tables.build"):
+        idx, coef = se_fill_table(host)
+        order, closed = row_classes(idx)
+        epos, entries = entry_positions(host)
 
     def i64(a):
         return torch.tensor(np.asarray(a, dtype=np.int64), device=dev)

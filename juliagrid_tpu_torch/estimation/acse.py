@@ -48,7 +48,7 @@ from ..powerflow.ac import AcArrays, Polar, compile_ac_arrays
 from ..system.model import model
 from ..system.types import PowerSystem
 from ..utils.errors import MethodError_
-from ..utils.profiling import Timings, default_timings
+from ..utils.profiling import Timings, default_timings, mark
 
 
 class BranchGroup(NamedTuple):
@@ -659,11 +659,18 @@ def _gain_equations(arr: SeArrays, net: AcArrays, vm, va, mean,
     (W with the correlated pairs) for ``[B, n]`` states and ``[B, m]``
     means: one launch of K3's entry mode, one of K8. A ``fill`` that gives
     the dense H (``se_fill``, ``se_fill_ref``) takes the dense route,
-    ``_normal_equations``."""
-    res = fill(arr, net, vm, va, mean)
-    if isinstance(res, SeFill):
-        return _normal_equations(arr, res)
-    return gain(gain_table(arr, net), res.vals, arr.w, arr.pair_off, res.r)
+    ``_normal_equations``. Marks the stages ``fill`` and ``gain``
+    (``utils.profiling.mark``)."""
+    try:
+        mark("fill")
+        res = fill(arr, net, vm, va, mean)
+        mark("gain")
+        if isinstance(res, SeFill):
+            return _normal_equations(arr, res)
+        return gain(gain_table(arr, net), res.vals, arr.w, arr.pair_off,
+                    res.r)
+    finally:
+        mark(None)
 
 
 def _normal_increment(arr: SeArrays, net: AcArrays, vm, va, mean,
@@ -673,9 +680,13 @@ def _normal_increment(arr: SeArrays, net: AcArrays, vm, va, mean,
     Cholesky. Returns ``dx [B, 2n]``, ``max|dx| [B]`` and ``rel [B]``.
     ``fill`` and ``gain`` exist so a check can run the same step on
     ``se_fill_entries_ref`` and ``gain_fill_ref``; the main path never
-    passes them."""
+    passes them. Marks ``fill``, ``gain`` and ``solve``."""
     g, rhs = _gain_equations(arr, net, vm, va, mean, fill, gain)
-    return _solve_normal(arr, g, rhs)
+    try:
+        mark("solve")
+        return _solve_normal(arr, g, rhs)
+    finally:
+        mark(None)
 
 
 def _sqrt_increment(arr: SeArrays, net: AcArrays, vm, va, kind: str):

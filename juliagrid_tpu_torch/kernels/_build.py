@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiling import default_timings
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "juliagrid_tpu_torch"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -85,23 +87,28 @@ def library_path(name: str) -> Path:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` unless already built, and load it."""
-    nvcc = nvcc_path()
-    so = library_path(name)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not so.exists():
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed with code {res.returncode} building "
-                    f"{name}:\n{res.stdout}{res.stderr}")
-            os.replace(tmp, so)
-    return ctypes.CDLL(str(so))
+    """Build ``csrc/<name>.cu`` unless already built, and load it. The
+    whole load is the span ``kernels.load`` of
+    ``utils.profiling.default_timings``, the nvcc run alone
+    ``kernels.build``."""
+    with default_timings.span("kernels.load"):
+        nvcc = nvcc_path()
+        so = library_path(name)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / f"{name}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not so.exists():
+                tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+                cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp),
+                       str(CSRC / f"{name}.cu")]
+                with default_timings.span("kernels.build"):
+                    res = subprocess.run(cmd, capture_output=True, text=True)
+                if res.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed with code {res.returncode} building "
+                        f"{name}:\n{res.stdout}{res.stderr}")
+                os.replace(tmp, so)
+        return ctypes.CDLL(str(so))
 
 
 def launch_context(device: torch.device):

@@ -54,6 +54,7 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ..ops.segments import segment_sum
+from ..utils.profiling import default_timings
 from . import _build
 
 #: the batch from which K8 runs its fleet regime (a lane a scenario) and
@@ -392,12 +393,14 @@ def cached_table(key: torch.Tensor, held: tuple, build) -> GainTable:
     """The table ``build()`` gives for the pattern of ``key`` and
     ``held``, built once for as long as ``key`` lives and the same
     ``held`` come with it. The entry holds ``held`` but not ``key``, so
-    that it goes when ``key`` does."""
+    that it goes when ``key`` does. A build is the span ``tables.build``
+    of ``utils.profiling.default_timings``."""
     entry = _CACHE.get(key)
     if entry is None or len(entry[1]) != len(held) or any(
             (a is not b) if isinstance(a, torch.Tensor) else a != b
             for a, b in zip(entry[1], held)):
-        entry = (build(), held)
+        with default_timings.span("tables.build"):
+            entry = (build(), held)
         _CACHE[key] = entry
     return entry[0]
 
@@ -542,21 +545,24 @@ _BANDS = WeakIdKeyDictionary()
 
 def fleet_bands(table: GainTable) -> DeviceBands:
     """The checked band lists of ``table`` on its device, built from its
-    host tables at the first call, for as long as the table lives."""
+    host tables at the first call (the span ``tables.build``), for as long
+    as the table lives."""
     bands = _BANDS.get(table.nz_ptr)
     if bands is None:
-        host = table.host
-        lists = band_lists(host)
-        check_bands(host, lists)
-        band = lists.band
-        band_nz = np.diff(host.nz_ptr[np.minimum(
-            np.arange(0, host.n + band, band), host.n)])
-        bands = DeviceBands(
-            **{name: torch.as_tensor(getattr(lists, name).astype(np.int32),
-                                     device=table.nz_ptr.device)
-               for name in _BAND_FIELDS},
-            band=band, band_dups=int(np.diff(lists.bdup_ptr).max(initial=0)),
-            band_nz=int(band_nz.max(initial=0)))
+        with default_timings.span("tables.build"):
+            host = table.host
+            lists = band_lists(host)
+            check_bands(host, lists)
+            band = lists.band
+            band_nz = np.diff(host.nz_ptr[np.minimum(
+                np.arange(0, host.n + band, band), host.n)])
+            bands = DeviceBands(
+                **{name: torch.as_tensor(
+                    getattr(lists, name).astype(np.int32),
+                    device=table.nz_ptr.device) for name in _BAND_FIELDS},
+                band=band,
+                band_dups=int(np.diff(lists.bdup_ptr).max(initial=0)),
+                band_nz=int(band_nz.max(initial=0)))
         _BANDS[table.nz_ptr] = bands
     return bands
 

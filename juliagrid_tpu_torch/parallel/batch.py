@@ -18,6 +18,20 @@ scenarios and runs the same loop on it; the loop's "any scenario active"
 test is an all-reduce (max) over the ranks, the JAX program's global
 ``while_loop`` condition, so every rank runs the same number of trips, and
 the results come back whole on every rank, as a JAX global array does.
+
+Each fleet call is a profiler range, ``jgt.nr_fleet`` or ``jgt.se_fleet``,
+split into stages by ``utils.profiling.mark``: in trip order, NR
+``fill`` (K1 with its Jacobian's memset, the mismatch maxima and the
+convergence mask), ``test`` (the "any scenario active" readback, or the
+mesh's all-reduce, marked ``all-reduce`` within it) and ``solve`` (K2 or
+the library's LU, the masked state update, the counts); SE ``fill`` (K3's
+entry mode), ``gain`` (K8's table lookup and launch), ``solve`` (K2 or
+the library's Cholesky, the residual and the increment's maximum: these
+three marked in ``estimation.acse._normal_increment``), ``test`` (the
+convergence flags and the readback) and ``update`` (the state adds, the
+counts). A call makes one more ``test`` than its largest count. The marks
+cost a few flag tests a stage while neither a profiler nor a
+``utils.profiling.device_stages`` block records.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ from ..kernels.gain_fill import gain_fill
 from ..kernels.se_fill import se_fill_entries
 from ..powerflow.ac import AcArrays, _max_mismatch, _nr_update
 from ..powerflow.dc import DcArrays, _masked_b
+from ..utils.profiling import annotate, mark
 from .mesh import Mesh
 
 
@@ -55,22 +70,33 @@ def batched_nr_solve(arr: AcArrays, vm0, va0, p_sched, q_sched,
     the main path never passes it. ``any_active`` decides whether the loop
     goes on (over the ranks of a mesh in ``sharded_nr_solve``).
     """
-    vm, va = vm0, va0
-    res = fill(arr, vm, va, p_sched, q_sched, jacobian=True)
-    dpq = _max_mismatch(res)
-    active = ~((dpq[:, 0] < tol) & (dpq[:, 1] < tol))
-    iters = torch.zeros(vm.shape[0], dtype=torch.int32, device=vm.device)
-    it = 0
-    while it < max_iter and any_active(active):
-        vm_new, va_new = _nr_update(arr, vm, va, res, "LU", check=False)
-        vm = torch.where(active[:, None], vm_new, vm)
-        va = torch.where(active[:, None], va_new, va)
-        iters += active.to(iters.dtype)
-        res = fill(arr, vm, va, p_sched, q_sched, jacobian=True)
-        dpq = _max_mismatch(res)
-        active &= ~((dpq[:, 0] < tol) & (dpq[:, 1] < tol))
-        it += 1
-    return vm, va, iters, ~active
+    with annotate("jgt.nr_fleet"):
+        try:
+            mark("fill")
+            vm, va = vm0, va0
+            res = fill(arr, vm, va, p_sched, q_sched, jacobian=True)
+            dpq = _max_mismatch(res)
+            active = ~((dpq[:, 0] < tol) & (dpq[:, 1] < tol))
+            iters = torch.zeros(vm.shape[0], dtype=torch.int32,
+                                device=vm.device)
+            it = 0
+            mark("test")
+            while it < max_iter and any_active(active):
+                mark("solve")
+                vm_new, va_new = _nr_update(arr, vm, va, res, "LU",
+                                            check=False)
+                vm = torch.where(active[:, None], vm_new, vm)
+                va = torch.where(active[:, None], va_new, va)
+                iters += active.to(iters.dtype)
+                mark("fill")
+                res = fill(arr, vm, va, p_sched, q_sched, jacobian=True)
+                dpq = _max_mismatch(res)
+                active &= ~((dpq[:, 0] < tol) & (dpq[:, 1] < tol))
+                it += 1
+                mark("test")
+            return vm, va, iters, ~active
+        finally:
+            mark(None)
 
 
 def batched_se_solve(arr: SeArrays, net: AcArrays, vm0, va0, means,
@@ -93,22 +119,31 @@ def batched_se_solve(arr: SeArrays, net: AcArrays, vm0, va0, means,
     ``batched_nr_solve``.
     """
     n = vm0.shape[1]
-    vm, va = vm0, va0
-    dx, maxinc, relmax = _normal_increment(arr, net, vm, va, means, fill,
-                                           gain)
-    active = maxinc >= tol
-    iters = torch.zeros(vm.shape[0], dtype=torch.int32, device=vm.device)
-    it = 0
-    while it < max_iter and any_active(active):
-        va = torch.where(active[:, None], va + dx[:, :n], va)
-        vm = torch.where(active[:, None], vm + dx[:, n:], vm)
-        iters += active.to(iters.dtype)
-        dx, maxinc, rel = _normal_increment(arr, net, vm, va, means, fill,
-                                            gain)
-        relmax = torch.where(active, torch.maximum(relmax, rel), relmax)
-        active &= maxinc >= tol
-        it += 1
-    return vm, va, iters, ~active & (relmax <= 1e-6)
+    with annotate("jgt.se_fleet"):
+        try:
+            vm, va = vm0, va0
+            dx, maxinc, relmax = _normal_increment(arr, net, vm, va, means,
+                                                   fill, gain)
+            mark("test")
+            active = maxinc >= tol
+            iters = torch.zeros(vm.shape[0], dtype=torch.int32,
+                                device=vm.device)
+            it = 0
+            while it < max_iter and any_active(active):
+                mark("update")
+                va = torch.where(active[:, None], va + dx[:, :n], va)
+                vm = torch.where(active[:, None], vm + dx[:, n:], vm)
+                iters += active.to(iters.dtype)
+                dx, maxinc, rel = _normal_increment(arr, net, vm, va, means,
+                                                    fill, gain)
+                mark("test")
+                relmax = torch.where(active, torch.maximum(relmax, rel),
+                                     relmax)
+                active &= maxinc >= tol
+                it += 1
+            return vm, va, iters, ~active & (relmax <= 1e-6)
+        finally:
+            mark(None)
 
 
 def batched_dc_solve(arr: DcArrays, p_sched, method: str = "LU"):
@@ -178,7 +213,10 @@ def sharded_nr_solve(mesh: Mesh, arr: AcArrays, vm0, va0, p_sched, q_sched,
     vm, va, ps, qs = shard_scenarios(mesh, vm0, va0, p_sched, q_sched)
     out = batched_nr_solve(_on(arr, mesh.device), vm, va, ps, qs, tol=tol,
                            max_iter=max_iter, any_active=mesh.any)
-    return _gather_rows(mesh, nscen, out)
+    try:
+        return _gather_rows(mesh, nscen, out)
+    finally:
+        mark(None)  # the gather's all-reduce stage
 
 
 def sharded_se_solve(mesh: Mesh, arr: SeArrays, net: AcArrays, vm0, va0,
@@ -191,4 +229,7 @@ def sharded_se_solve(mesh: Mesh, arr: SeArrays, net: AcArrays, vm0, va0,
     out = batched_se_solve(_on(arr, mesh.device), _on(net, mesh.device), vm,
                            va, mean, tol=tol, max_iter=max_iter,
                            any_active=mesh.any)
-    return _gather_rows(mesh, nscen, out)
+    try:
+        return _gather_rows(mesh, nscen, out)
+    finally:
+        mark(None)  # the gather's all-reduce stage

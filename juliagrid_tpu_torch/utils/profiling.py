@@ -3,25 +3,41 @@
 Named wall-clock sections (build / iterate / postprocess) accumulated per
 analysis and printable as a table. Driver code wraps its phases in
 ``span`` so every solve carries its own timing breakdown
-(``analysis.method.timings``) without external tooling.
+(``analysis.method.timings``) without external tooling. Set-up work
+records into the process-wide ``default_timings``: ``kernels.load`` (a
+kernel library's whole load, once per library), ``kernels.build`` (its
+nvcc run alone, so the count says how many this process built) and
+``tables.build`` (a host-built kernel table at its first use: K3's
+descriptor table and entry positions, K8's gain table and its band lists).
 
 Spans measure *host-observed* wall time: a CUDA launch returns before the
 device finishes, so drivers that want honest numbers end the span at a
 host readback (ours do — every iteration reads its mismatch back).
 
-Device stages measure the card's time instead: a solver calls
-``mark(name)`` where a stage begins, and inside a ``device_stages()`` block
-each mark records a CUDA event on the current stream, so the time from one
-mark to the next is the named stage's. Outside such a block ``mark`` does
-nothing.
+Stages: a solver calls ``mark(name)`` where a stage begins; the stage ends
+at the next mark, and ``mark(None)`` ends it with no new one. The fleets
+and the SE increment end their last stage with ``mark(None)`` in a
+``finally``, so none outlives the function that opened it. Inside a
+``device_stages()`` block each mark records a CUDA event on the current
+stream, so the time from one mark to the next is the named stage's card
+time. While ``torch.profiler`` records, each stage is also a profiler
+range named ``jgt.<name>``, on the trace's clock beside the card's
+activity. The fleets (``parallel/batch.py``) mark ``fill``, ``gain``,
+``solve``, ``test`` and ``update``; the BBD paths, the interior point and
+the mesh's all-reduce mark their own. With neither a profiler nor a
+``device_stages`` block active a mark costs a few flag tests: no event,
+no range.
 
 Device traces: ``trace(logdir)`` wraps ``torch.profiler`` so a real solve
 can be captured with the card's kernels and inspected as a Chrome trace
-(chrome://tracing, Perfetto); ``annotate(name)`` names a region in it.
+(chrome://tracing, Perfetto); ``annotate(name)`` names a region in it (the
+fleets' call spans ``jgt.nr_fleet`` and ``jgt.se_fleet``, which hold their
+stages) and costs nothing while no profiler records.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from contextlib import contextmanager
@@ -115,24 +131,53 @@ def trace(logdir: str, device=None):
     prof.export_chrome_trace(path)
 
 
+#: what ``annotate`` gives while no profiler records
+_OFF = contextlib.nullcontext()
+#: the prefix of a stage's profiler range
+PREFIX = "jgt."
+#: a stage's range: a RecordFunction entered and left from C++ without a
+#: dispatcher call, about 1.5 µs a range on the card's host where
+#: ``record_function`` takes about 14 (NVIDIA H100 host, CPU and CUDA
+#: activity profiled)
+_stage_range = torch._C._profiler._RecordFunctionFast
+
+
+def _recording() -> bool:
+    """True while a ``torch.profiler`` (any RecordFunction profiler) is
+    recording."""
+    return torch._C._autograd._profiler_enabled()
+
+
 def annotate(name: str):
     """A named range in a ``trace`` (``torch.profiler.record_function``);
-    a context manager."""
-    return torch.profiler.record_function(name)
+    a context manager. While no profiler records it is a null context and
+    makes no range."""
+    return torch.profiler.record_function(name) if _recording() else _OFF
 
 
 #: (name, CUDA event) of each mark while a ``device_stages()`` block records
 _marks: list | None = None
+#: the profiler range of the open stage, while a profiler records
+_range = None
 
 
 def mark(name: str | None):
-    """Begin the device stage ``name`` (None: no stage) on the current
-    CUDA stream; it ends at the next mark. A no-op unless a
-    ``device_stages()`` block is recording."""
+    """Begin the stage ``name`` (None: no stage); it ends at the next
+    mark. Inside a ``device_stages()`` block it records a CUDA event on
+    the current stream; while a profiler records it ends the open range
+    and opens the RecordFunction ``jgt.<name>``. Otherwise it does
+    nothing."""
+    global _range
     if _marks is not None:
         event = torch.cuda.Event(enable_timing=True)
         event.record()
         _marks.append((name, event))
+    if _range is not None:
+        _range.__exit__(None, None, None)
+        _range = None
+    if name is not None and _recording():
+        _range = _stage_range(PREFIX + name)
+        _range.__enter__()
 
 
 @contextmanager
