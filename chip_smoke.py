@@ -233,8 +233,8 @@ from juliagrid_tpu_torch.oracle import (oracle_dc, oracle_fdpf, oracle_nr,
 from juliagrid_tpu_torch.parallel import (batched_dc_solve, batched_nr_solve,
                                           batched_se_solve, launch,
                                           sharded_nr_solve, sharded_se_solve)
-from juliagrid_tpu_torch.powerflow.ac import (_masks, _max_mismatch,
-                                              _nr_solve, _nr_update,
+from juliagrid_tpu_torch.powerflow.ac import (_max_mismatch, _nr_move,
+                                              _nr_rhs, _nr_solve, _nr_update,
                                               compile_ac_arrays)
 from juliagrid_tpu_torch.powerflow.dc import _dc_solve
 from juliagrid_tpu_torch.postprocessing import ac as ac_post
@@ -931,13 +931,14 @@ def k2_random(n, batch, chol, seed):
 
 
 def k2_nr_inputs(case, batch, rng):
-    """NR Jacobians and mismatches of ``case`` from K1 at ``batch`` random
-    states (``random_inputs``)."""
+    """NR Jacobians and right-hand sides of ``case`` (the Newton system at
+    the unknowns' order) from K1 at ``batch`` random states
+    (``random_inputs``)."""
     system = case_system(case)
     arr = compile_ac_arrays(system, "cuda")
     res = k1.nr_fill(arr, *random_inputs(arr, system.bus.number, batch,
                                          rng), jacobian=True)
-    return res.jac, torch.cat([res.mp, res.mq], -1)
+    return res.jac, _nr_rhs(arr, res)
 
 
 def k2_lu_checks():
@@ -965,8 +966,6 @@ def fleet_nr_split(arr, inputs, solve):
     the solve, the state update and the readback. Returns the lockstep
     iterations and the split's ms per iteration."""
     vm, va, ps, qs = inputs
-    n = vm.shape[1]
-    not_slack, is_pq = _masks(arr, n)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     split = dict.fromkeys(("K1", "solve", "update", "readback"), 0.0)
     res = k1.nr_fill(arr, vm, va, ps, qs, jacobian=True)
@@ -976,12 +975,11 @@ def fleet_nr_split(arr, inputs, solve):
     it = 0
     while it < 20 and go:
         ev[0].record()
-        dx, _ = solve(res.jac, torch.cat([res.mp, res.mq], -1))
+        dx, _ = solve(res.jac, _nr_rhs(arr, res))
         ev[1].record()
-        vm = torch.where(active[:, None],
-                         vm - torch.where(is_pq, dx[:, n:], 0.0), vm)
-        va = torch.where(active[:, None],
-                         va - torch.where(not_slack, dx[:, :n], 0.0), va)
+        vm_new, va_new = _nr_move(arr, vm, va, dx)
+        vm = torch.where(active[:, None], vm_new, vm)
+        va = torch.where(active[:, None], va_new, va)
         ev[2].record()
         res = k1.nr_fill(arr, vm, va, ps, qs, jacobian=True)
         ev[3].record()
@@ -1071,7 +1069,7 @@ def singular_fleet():
         qs = arr.q_sched.expand(4, -1).contiguous()
         if device == "cuda":
             res = k1.nr_fill(arr, vm, va, ps, qs, jacobian=True)
-            a, b = res.jac, torch.cat([res.mp, res.mq], -1)
+            a, b = res.jac, _nr_rhs(arr, res)
             compare_k2("case14 x4, scenario 1 singular", False, a, b, 4)
             info = k2.fleet_lu_solve(a, b)[1].tolist()
             check(info[1] != 0 and info[0] == info[2] == info[3] == 0,

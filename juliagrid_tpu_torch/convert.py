@@ -4,7 +4,8 @@ device snapshots.
 ``ac_arrays_from_numpy`` takes the fields of an ``AcArrays`` as numpy arrays
 — from the port's own host layer, or ``np.asarray`` of each field of the JAX
 package's ``AcArrays`` — and places them on a torch device with the CSR row
-offsets K1 needs. ``dc_arrays_from_numpy``, ``fnr_arrays_from_numpy`` and
+offsets and the Newton system's variable map K1 needs.
+``dc_arrays_from_numpy``, ``fnr_arrays_from_numpy`` and
 ``gs_arrays_from_numpy`` do the same for the ``DcArrays``, ``FnrArrays``
 (whose masked B' and B'' they factor in f64) and ``GsArrays`` (to which they
 add the PQ and PV bus lists of the sequential sweep and K4's level
@@ -36,7 +37,7 @@ from .kernels.schur_gather import schur_route
 from .kernels.se_fill import (SeFillTable, SeRoute, entry_positions,
                                row_classes, se_fill_table, slot_rows)
 from .ops import linalg
-from .powerflow.ac import AcArrays, check_entry_list
+from .powerflow.ac import AcArrays, check_entry_list, newton_unknowns
 from .powerflow.dc import DcArrays
 from .powerflow.fast_decoupled import FnrArrays
 from .powerflow.gauss_seidel import GsArrays, level_schedule, row_counts
@@ -45,7 +46,9 @@ from .utils.profiling import default_timings
 
 def ac_arrays_from_numpy(*, rows, cols, yg, yb, diag, bus_type, slack,
                          p_sched, q_sched, device=None) -> AcArrays:
-    """``AcArrays`` on ``device`` (default ``config.device``) from numpy."""
+    """``AcArrays`` on ``device`` (default ``config.device``) from numpy,
+    with the CSR row offsets and the Newton system's variable map
+    (``newton_unknowns``) built here on the host."""
     dev = resolve_device(device)
     rows = np.asarray(rows, dtype=np.int32)
     cols = np.asarray(cols, dtype=np.int32)
@@ -53,6 +56,7 @@ def ac_arrays_from_numpy(*, rows, cols, yg, yb, diag, bus_type, slack,
     n = len(p_sched)
     check_entry_list(rows, cols, diag, n)
     row_ptr = np.searchsorted(rows, np.arange(n + 1)).astype(np.int32)
+    pos, unknowns = newton_unknowns(bus_type, int(slack))
 
     def i32(a):
         return torch.tensor(np.asarray(a, dtype=np.int32), device=dev)
@@ -63,7 +67,9 @@ def ac_arrays_from_numpy(*, rows, cols, yg, yb, diag, bus_type, slack,
     return AcArrays(rows=i32(rows), cols=i32(cols), yg=f64(yg), yb=f64(yb),
                     diag=i32(diag), bus_type=i32(bus_type), slack=int(slack),
                     p_sched=f64(p_sched), q_sched=f64(q_sched),
-                    row_ptr=i32(row_ptr))
+                    row_ptr=i32(row_ptr), pos=i32(pos),
+                    unknowns=torch.tensor(unknowns, device=dev),
+                    order=len(unknowns))
 
 
 def dc_arrays_from_numpy(*, b_dense, slack, p_sched, shift, gshunt,
@@ -84,8 +90,10 @@ def dc_arrays_from_numpy(*, b_dense, slack, p_sched, shift, gshunt,
 def fnr_arrays(base: AcArrays, bp: torch.Tensor,
                bq: torch.Tensor) -> FnrArrays:
     """``FnrArrays`` of the network ``base`` and the masked B' and B'' on
-    its device, each factored once in f64."""
-    return FnrArrays(*base, bp=linalg.factorize(bp, linalg.LU),
+    its device, each factored once in f64 (of ``base``, the fields K1 reads
+    without the Jacobian: FDPF takes no Newton system's map)."""
+    fields = {f: getattr(base, f) for f in FnrArrays._fields[:-2]}
+    return FnrArrays(**fields, bp=linalg.factorize(bp, linalg.LU),
                      bq=linalg.factorize(bq, linalg.LU))
 
 

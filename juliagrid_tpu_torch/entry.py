@@ -4,8 +4,8 @@ multi-device dry run.
 The counterparts of the JAX package's ``__graft_entry__.py``. ``entry``: a
 caller gets a function and its example arguments, and one call of the
 function is one step of the port's main path — K1's fill (injections,
-mismatch and the masked Jacobian in one launch), an f64 LU solve and the
-state update. ``dryrun_multichip(n)``: the scenario-sharded NR and SE
+mismatch and the Jacobian over the unknowns in one launch), an f64 LU
+solve and the state update. ``dryrun_multichip(n)``: the scenario-sharded NR and SE
 fleets, the block-sharded Schur solve and the AC OPF with its KKT over a
 block mesh, each on ``n`` ranks (``parallel/mesh.py::launch``), with the
 JAX package's shapes and checks.

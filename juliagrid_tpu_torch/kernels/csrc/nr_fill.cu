@@ -1,28 +1,37 @@
-// K1 nr_fill: Newton-Raphson injections, mismatch and masked Jacobian fill.
+// K1 nr_fill: Newton-Raphson injections, mismatch and Jacobian fill.
 //
 // Replaces the jnp device routines of juliagrid_tpu/powerflow/ac.py:
 // _injections (:92), _mismatch (:111) and _nr_jacobian (:125). There they
 // are a gather, trig, two segment sums and eight dense scatters over the
 // Y-bus entry list; here one launch does all of it for B >= 1 scenarios.
 //
+// The Jacobian is the Newton system's, at the unknowns' order N = npv +
+// 2 npq, not the JAX package's 2n x 2n with the fixed rows and columns
+// (the slack angle, non-PQ magnitudes) masked to identity (ac.py:158-161):
+// a fixed variable's row and column only pad the system with an identity,
+// and K2's LU at 2n did (2n / N)^3 = 2.2x the arithmetic at case118. The
+// host builds the map pos[2n] once (powerflow/ac.py::newton_unknowns): the
+// row and column of angle k is pos[k], of magnitude k pos[n + k], -1 where
+// the variable is fixed; the unknowns keep the masked system's order.
+//
 // Mapping: one warp per (scenario, bus row). The Y entries are sorted by
 // row (CSR, row_ptr), so a row is a contiguous range; its lanes stride over
 // it 32 entries at a time. Each lane computes theta = theta_i - theta_j,
 // t1 = Vi Vj (G cos + B sin) and t2 = Vi Vj (G sin - B cos) for its
 // entries, keeps a partial sum of P and Q, and writes the entries' four
-// off-diagonal partials of ac.py:137-148 already multiplied by the row and
-// column masks (m_ang[k] = k != slack, m_mag[k] = bus_type[k] == 1). A warp
-// shuffle sums P and Q; lane 0 writes P, Q, the masked mismatch
-// (ac.py:116-119) and the four diagonal partials (ac.py:150-156), with a
-// masked diagonal position set to 1 (ac.py:161). (row, col) pairs are
-// unique, so every Jacobian element has one writer and no atomics are
-// needed.
+// off-diagonal partials of ac.py:137-148 at (pos[r or n + r], pos[c or n +
+// c]), skipping each one whose row or column is -1. A warp shuffle sums P
+// and Q; lane 0 writes P, Q, the masked mismatch (ac.py:116-119; its masks
+// are k != slack and bus_type[k] == 1, the same fixed variables) and the
+// four diagonal partials (ac.py:150-156) through the map the same way.
+// (row, col) pairs are unique and the map is one to one, so every
+// Jacobian element has one writer and no atomics are needed.
 //
 // Routed mode (nr_fill_routed_launch) replaces the BBD Jacobian routing of
 // juliagrid_tpu/powerflow/newton_bbd.py: _quadrant_values (:253) and the
 // four scatters with the family masks of _nr_bbd_step (:296-319). It shares
 // the per-entry work and the row sums above (entry_terms, warp_sum2), but
-// instead of indexing a dense 2n x 2n Jacobian it writes each of an entry's
+// instead of indexing the dense Jacobian it writes each of an entry's
 // four partials H, N, J, L (off[q * nnz + k], q = 0..3; a diagonal entry
 // carries the bus's four diagonal terms) to a 64-bit offset into one flat
 // buffer that holds a_ii | a_ib | a_bi | a_bb back to back. Offset -1 drops
@@ -32,13 +41,13 @@
 // `ones` (masked variables and padded interior slots), is unique, so again
 // every element has one writer.
 //
-// Bound: with the Jacobian, the launcher zeroes B (2n)^2 doubles first
+// Bound: with the Jacobian, the launcher zeroes B N^2 doubles first
 // (cudaMemsetAsync), which is a write at full memory bandwidth and
-// dominates at the main path's sizes (3.2 GB for a 10k-bus grid); the fill
-// itself writes 4 nnz scattered doubles. Without the Jacobian the launch
-// reads about 24 bytes per entry and is bound by launch latency at these
-// sizes. Offsets into the Jacobian are 64-bit: B (2n)^2 passes 2^31 at
-// 10k buses with B > 5. The routed mode likewise zero-fills its flat buffer
+// dominates at the main path's sizes (268 MB at case118 x1024, N = 181;
+// about 2.6 GB for a 10k-bus grid); the fill itself writes at most 4 nnz
+// scattered doubles. Without the Jacobian the launch reads about 24 bytes
+// per entry and is bound by launch latency at these sizes. Offsets into
+// the Jacobian are 64-bit: B N^2 passes 2^31 at 10k buses with B > 5. The routed mode likewise zero-fills its flat buffer
 // (k (2ni)^2 + 2 k 2ni 2mbl + (2mb)^2 doubles, 1.2 GB on the 25k lattice at
 // k = 16), which dominates it.
 
@@ -95,7 +104,8 @@ nr_fill_kernel(const int* __restrict__ row_ptr,
                double* __restrict__ mp,
                double* __restrict__ mq,
                double* __restrict__ jac,
-               int n, int batch) {
+               const int* __restrict__ pos,
+               int order, int n, int batch) {
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -113,14 +123,21 @@ nr_fill_kernel(const int* __restrict__ row_ptr,
   const bool ang_r = r != slack;
   const bool mag_r = bus_type[r] == 1;
 
-  const int64_t n2 = 2 * static_cast<int64_t>(n);
-  double* jp = nullptr;  // row r of scenario b: dP_r
-  double* jq = nullptr;  // row n + r of scenario b: dQ_r
+  // The rows of scenario b's Jacobian that this bus's equations fill:
+  // dP_r at the angle's row, dQ_r at the magnitude's; null where fixed.
+  double* jp = nullptr;
+  double* jq = nullptr;
+  int pa_r = -1;
+  int pm_r = -1;
   if (jac != nullptr) {
-    double* jb = jac + static_cast<int64_t>(b) * n2 * n2;
-    jp = jb + r * n2;
-    jq = jb + (n + r) * n2;
+    const int64_t nn = order;
+    double* jb = jac + static_cast<int64_t>(b) * nn * nn;
+    pa_r = pos[r];
+    pm_r = pos[n + r];
+    if (pa_r >= 0) jp = jb + pa_r * nn;
+    if (pm_r >= 0) jq = jb + pm_r * nn;
   }
+  const bool fill = jp != nullptr || jq != nullptr;
 
   double sp = 0.0;
   double sq = 0.0;
@@ -131,13 +148,17 @@ nr_fill_kernel(const int* __restrict__ row_ptr,
     const EntryTerms e = entry_terms(vi, ti, vj, vab[c], yg[k], yb[k]);
     sp += e.vv * e.gc_bs;
     sq += e.vv * e.gs_bc;
-    if (jp != nullptr && c != r) {
-      const bool ang_c = c != slack;
-      const bool mag_c = bus_type[c] == 1;
-      if (ang_r && ang_c) jp[c] = e.vv * e.gs_bc;       // dP/dtheta_j
-      if (ang_r && mag_c) jp[n + c] = vi * e.gc_bs;     // dP/dV_j
-      if (mag_r && ang_c) jq[c] = -e.vv * e.gc_bs;      // dQ/dtheta_j
-      if (mag_r && mag_c) jq[n + c] = vi * e.gs_bc;     // dQ/dV_j
+    if (fill && c != r) {
+      const int pa_c = pos[c];
+      const int pm_c = pos[n + c];
+      if (jp != nullptr) {
+        if (pa_c >= 0) jp[pa_c] = e.vv * e.gs_bc;       // dP/dtheta_j
+        if (pm_c >= 0) jp[pm_c] = vi * e.gc_bs;         // dP/dV_j
+      }
+      if (jq != nullptr) {
+        if (pa_c >= 0) jq[pa_c] = -e.vv * e.gc_bs;      // dQ/dtheta_j
+        if (pm_c >= 0) jq[pm_c] = vi * e.gs_bc;         // dQ/dV_j
+      }
     }
   }
   warp_sum2(sp, sq);
@@ -148,14 +169,18 @@ nr_fill_kernel(const int* __restrict__ row_ptr,
   q[i] = sq;
   mp[i] = ang_r ? sp - p_sched[i] : 0.0;
   mq[i] = mag_r ? sq - q_sched[i] : 0.0;
-  if (jp != nullptr) {
+  if (fill) {
     const double gii = yg[diag[r]];
     const double bii = yb[diag[r]];
     const double v2 = vi * vi;
-    jp[r] = ang_r ? -sq - bii * v2 : 1.0;
-    jp[n + r] = (ang_r && mag_r) ? sp / vi + gii * vi : 0.0;
-    jq[r] = (mag_r && ang_r) ? sp - gii * v2 : 0.0;
-    jq[n + r] = mag_r ? sq / vi - bii * vi : 1.0;
+    if (jp != nullptr) {
+      jp[pa_r] = -sq - bii * v2;
+      if (pm_r >= 0) jp[pm_r] = sp / vi + gii * vi;
+    }
+    if (jq != nullptr) {
+      if (pa_r >= 0) jq[pa_r] = sp - gii * v2;
+      jq[pm_r] = sq / vi - bii * vi;
+    }
   }
 }
 
@@ -236,20 +261,24 @@ __global__ void set_ones_kernel(const int64_t* __restrict__ pos,
 
 // Launch K1 on `stream`. All arrays are device pointers: the entry list
 // (row_ptr[n + 1], cols/yg/yb[nnz]), diag/bus_type[n], and the row-major
-// [batch, n] state, schedules and outputs. `jac` is a [batch, 2n, 2n]
-// buffer, or null to skip the Jacobian. Returns a cudaError_t code.
+// [batch, n] state, schedules and outputs. `jac` is a [batch, order,
+// order] buffer, or null to skip the Jacobian; `pos` ([2n], the unknowns'
+// rows, -1 where fixed) is read only with it. Returns a cudaError_t code.
 extern "C" int nr_fill_launch(const int* row_ptr, const int* cols,
                               const double* yg, const double* yb,
                               const int* diag, const int* bus_type, int slack,
                               const double* vm, const double* va,
                               const double* p_sched, const double* q_sched,
                               double* p, double* q, double* mp, double* mq,
-                              double* jac, int n, int batch, void* stream) {
-  if (n <= 0 || batch <= 0) return cudaErrorInvalidValue;
+                              double* jac, const int* pos, int order, int n,
+                              int batch, void* stream) {
+  if (n <= 0 || batch <= 0 || order < 0) return cudaErrorInvalidValue;
+  if (order == 0) jac = nullptr;
+  if (jac != nullptr && pos == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (jac != nullptr) {
-    const size_t bytes = static_cast<size_t>(batch) * 4 *
-                         static_cast<size_t>(n) * n * sizeof(double);
+    const size_t bytes = static_cast<size_t>(batch) *
+                         static_cast<size_t>(order) * order * sizeof(double);
     const cudaError_t err = cudaMemsetAsync(jac, 0, bytes, s);
     if (err != cudaSuccess) return err;
   }
@@ -258,7 +287,7 @@ extern "C" int nr_fill_launch(const int* row_ptr, const int* cols,
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
   nr_fill_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       row_ptr, cols, yg, yb, diag, bus_type, slack, vm, va, p_sched, q_sched,
-      p, q, mp, mq, jac, n, batch);
+      p, q, mp, mq, jac, pos, order, n, batch);
   return cudaGetLastError();
 }
 

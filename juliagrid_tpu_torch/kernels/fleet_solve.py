@@ -25,7 +25,7 @@ build or launch or if ``N`` is above ``CAP``; a CPU tensor goes to the plain
 versions ``fleet_lu_solve_ref`` (``lu_factor_ex`` + ``lu_solve``) and
 ``fleet_cholesky_solve_ref`` (``cholesky_ex`` + ``cholesky_solve``). Above
 ``CAP`` the call sites keep ``torch.linalg`` (cuSOLVER on the card): the
-10k-bus Newton-Raphson's 20,000² getrf and the large estimators' gains.
+10k-bus Newton-Raphson's 17,999² getrf and the large estimators' gains.
 ``fleet_lu_solve.launches`` and ``fleet_cholesky_solve.launches`` count
 kernel launches.
 """

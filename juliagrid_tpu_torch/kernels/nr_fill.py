@@ -3,9 +3,11 @@
 One launch computes, for B >= 1 scenarios of one network, what
 ``juliagrid_tpu/powerflow/ac.py`` computes in ``_injections`` (:92),
 ``_mismatch`` (:111) and ``_nr_jacobian`` (:125): per-bus P and Q, the
-masked mismatch, and optionally the dense masked 2n x 2n polar Jacobian.
-The CUDA source, its mapping and what bounds it are described in
-``csrc/nr_fill.cu``.
+masked mismatch, and optionally the dense polar Jacobian at the Newton
+system's order N = npv + 2·npq (``AcArrays.pos`` gives each variable's row
+and column, -1 for a fixed one; the JAX package's 2n x 2n masked layout is
+``powerflow/ac.py::_masked_jacobian``). The CUDA source, its mapping and
+what bounds it are described in ``csrc/nr_fill.cu``.
 
 ``nr_fill`` dispatches on the device of its tensors: a CUDA tensor goes to
 the kernel (and the call raises if the kernel does not build or launch), a
@@ -39,7 +41,8 @@ class NrFill(NamedTuple):
     q: torch.Tensor    # f64[B, n] reactive injection
     mp: torch.Tensor   # f64[B, n] p - p_sched, zero at the slack
     mq: torch.Tensor   # f64[B, n] q - q_sched, zero off PQ buses
-    jac: Optional[torch.Tensor]  # f64[B, 2n, 2n] masked Jacobian, or None
+    jac: Optional[torch.Tensor]  # f64[B, N, N] Jacobian over the
+                                 # unknowns (AcArrays.pos), or None
 
 
 class NrRoute(NamedTuple):
@@ -90,8 +93,8 @@ def _check_inputs(arr, vm, va, p_sched, q_sched):
 
 
 def nr_fill(arr, vm, va, p_sched, q_sched, jacobian: bool = False) -> NrFill:
-    """Injections, masked mismatch and (``jacobian=True``) the masked
-    Jacobian for the ``[B, n]`` states ``vm``/``va`` and schedules
+    """Injections, masked mismatch and (``jacobian=True``) the Jacobian
+    over the unknowns for the ``[B, n]`` states ``vm``/``va`` and schedules
     ``p_sched``/``q_sched`` on the network ``arr`` (``AcArrays``)."""
     _check_inputs(arr, vm, va, p_sched, q_sched)
     if vm.device.type == "cpu":
@@ -110,7 +113,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("nr_fill")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.nr_fill_launch.argtypes = (
-        [ptr] * 6 + [i32] + [ptr] * 4 + [ptr] * 5 + [i32, i32, ptr])
+        [ptr] * 6 + [i32] + [ptr] * 4 + [ptr] * 6 + [i32, i32, i32, ptr])
     lib.nr_fill_launch.restype = i32
     i64 = ctypes.c_int64
     lib.nr_fill_routed_launch.argtypes = (
@@ -122,8 +125,8 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_network(arr, f64=("yg", "yb")) -> None:
-    for name in ("row_ptr", "cols", "diag", "bus_type"):
+def _check_network(arr, f64=("yg", "yb"), pos: bool = False) -> None:
+    for name in ("row_ptr", "cols", "diag", "bus_type") + ("pos",) * pos:
         t = getattr(arr, name)
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"AcArrays.{name} must be contiguous int32")
@@ -134,14 +137,17 @@ def _check_network(arr, f64=("yg", "yb")) -> None:
 
 
 def _launch(arr, vm, va, p_sched, q_sched, jacobian: bool) -> NrFill:
-    _check_network(arr)
+    _check_network(arr, pos=jacobian)
+    if jacobian and arr.pos.numel() != 2 * vm.shape[1]:
+        raise TypeError("AcArrays.pos must have 2n entries")
+    order = arr.order if jacobian else 0
     vm, va, p_sched, q_sched = (t.contiguous()
                                 for t in (vm, va, p_sched, q_sched))
     batch, n = vm.shape
     lib = _library()
     out = torch.empty((4, batch, n), dtype=torch.float64, device=vm.device)
     p, q, mp, mq = out.unbind(0)
-    jac = (torch.empty((batch, 2 * n, 2 * n), dtype=torch.float64,
+    jac = (torch.empty((batch, order, order), dtype=torch.float64,
                        device=vm.device) if jacobian else None)
     with torch.cuda.device(vm.device):
         stream = torch.cuda.current_stream(vm.device).cuda_stream
@@ -151,7 +157,9 @@ def _launch(arr, vm, va, p_sched, q_sched, jacobian: bool) -> NrFill:
             int(arr.slack), vm.data_ptr(), va.data_ptr(),
             p_sched.data_ptr(), q_sched.data_ptr(), p.data_ptr(),
             q.data_ptr(), mp.data_ptr(), mq.data_ptr(),
-            None if jac is None else jac.data_ptr(), n, batch, stream)
+            None if jac is None else jac.data_ptr(),
+            arr.pos.data_ptr() if jacobian else None, order, n, batch,
+            stream)
     if err != 0:
         raise RuntimeError("nr_fill launch failed: "
                            + lib.nr_fill_error_string(err).decode())
@@ -231,8 +239,10 @@ def nr_fill_routed_ref(arr, route: NrRoute, vm, va) -> NrFillRouted:
 def nr_fill_ref(arr, vm, va, p_sched, q_sched,
                 jacobian: bool = False) -> NrFill:
     """Plain PyTorch K1: a direct transcription of ac.py:92-162 with a
-    leading scenario axis (gathers, ``index_add_`` segment sums, masked
-    scatters). The CPU path, and the check K1 is held to on the card."""
+    leading scenario axis (gathers, ``index_add_`` segment sums, scatters at
+    the unknowns' rows and columns ``arr.pos``, so the Jacobian is
+    ``[B, N, N]``). The CPU path, and the check K1 is held to on the
+    card."""
     batch, n = vm.shape
     rows = arr.rows.long()
     cols = arr.cols.long()
@@ -255,29 +265,27 @@ def nr_fill_ref(arr, vm, va, p_sched, q_sched,
     if not jacobian:
         return NrFill(p, q, mp, mq, None)
 
-    off = rows != cols
-    h = torch.where(off, vv * gs_bc, 0.0)        # dP/dθj
-    nn = torch.where(off, vi * gc_bs, 0.0)       # dP/dVj
-    jj = torch.where(off, -vv * gc_bs, 0.0)      # dQ/dθj
-    ll = torch.where(off, vi * gs_bc, 0.0)       # dQ/dVj
-
-    n2 = 2 * n
-    jac = torch.zeros((batch, n2 * n2), dtype=vm.dtype, device=vm.device)
-    jac.index_add_(1, rows * n2 + cols, h)
-    jac.index_add_(1, rows * n2 + n + cols, nn)
-    jac.index_add_(1, (n + rows) * n2 + cols, jj)
-    jac.index_add_(1, (n + rows) * n2 + n + cols, ll)
-
+    # the four partials of each off-diagonal entry (ac.py:137-148) and of
+    # each bus's diagonal (ac.py:150-156), at their row and column of the
+    # Newton system; a fixed variable's row or column is left out
+    pos = arr.pos.long()
+    pa, pm = pos[:n], pos[n:]
     diag = arr.diag.long()
     gii = arr.yg[diag]
     bii = arr.yb[diag]
-    jac.index_add_(1, i * n2 + i, -q - bii * vm**2)
-    jac.index_add_(1, i * n2 + n + i, p / vm + gii * vm)
-    jac.index_add_(1, (n + i) * n2 + i, p - gii * vm**2)
-    jac.index_add_(1, (n + i) * n2 + n + i, q / vm - bii * vm)
-    jac = jac.view(batch, n2, n2)
-
-    # slack-angle and non-PQ-magnitude rows/cols -> identity (ac.py:158-161)
-    m = torch.cat([not_slack, is_pq]).to(vm.dtype)
-    jac = m[:, None] * jac * m[None, :] + torch.diag(1.0 - m)
-    return NrFill(p, q, mp, mq, jac)
+    off = rows != cols
+    order = arr.order
+    jac = torch.zeros((batch, order * order), dtype=vm.dtype,
+                      device=vm.device)
+    for r, c, vals, sel in (
+            (pa[rows], pa[cols], vv * gs_bc, off),       # dP/dθj
+            (pa[rows], pm[cols], vi * gc_bs, off),       # dP/dVj
+            (pm[rows], pa[cols], -vv * gc_bs, off),      # dQ/dθj
+            (pm[rows], pm[cols], vi * gs_bc, off),       # dQ/dVj
+            (pa, pa, -q - bii * vm**2, True),
+            (pa, pm, p / vm + gii * vm, True),
+            (pm, pa, p - gii * vm**2, True),
+            (pm, pm, q / vm - bii * vm, True)):
+        keep = (r >= 0) & (c >= 0) & sel
+        jac.index_add_(1, (r * order + c)[keep], vals[:, keep])
+    return NrFill(p, q, mp, mq, jac.view(batch, order, order))

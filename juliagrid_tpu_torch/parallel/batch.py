@@ -4,12 +4,12 @@ estimation over a fleet of scenarios, on one device or sharded over a mesh.
 The reference runs scenario studies by re-running scripts. Here the scenario
 axis is a leading tensor dimension: K1 and K3 run with scenarios on their
 launch grids (one warp per scenario and bus, or scenario and measurement
-row), every scenario's NR Jacobian is factored and solved in one launch of
-K2 (``kernels/fleet_solve.py``: f64 LU with partial pivoting, a scenario a
-thread-block cluster), the SE gains form in one K8 launch from H's entry
-pattern (``kernels/gain_fill.py``) and are solved in one K2 launch in its
-Cholesky mode (both solves up to K2's order cap of 256, the batched
-``torch.linalg`` calls above it), and the DC fleet shares
+row), every scenario's NR Jacobian, at the unknowns' order npv + 2·npq, is
+factored and solved in one launch of K2 (``kernels/fleet_solve.py``: f64 LU
+with partial pivoting, a thread block a scenario), the SE gains form in one
+K8 launch from H's entry pattern (``kernels/gain_fill.py``) and are solved
+in one K2 launch in its Cholesky mode (both solves up to K2's order cap of
+256, the batched ``torch.linalg`` calls above it), and the DC fleet shares
 one factorization of B and solves every scenario in one call.
 
 Across ranks (``sharded_nr_solve``, ``sharded_se_solve`` over a
@@ -23,8 +23,9 @@ Each fleet call is a profiler range, ``jgt.nr_fleet`` or ``jgt.se_fleet``,
 split into stages by ``utils.profiling.mark``: in trip order, NR
 ``fill`` (K1 with its Jacobian's memset, the mismatch maxima and the
 convergence mask), ``test`` (the "any scenario active" readback, or the
-mesh's all-reduce, marked ``all-reduce`` within it) and ``solve`` (K2 or
-the library's LU, the masked state update, the counts); SE ``fill`` (K3's
+mesh's all-reduce, marked ``all-reduce`` within it) and ``solve`` (the
+right-hand side's gather, K2 or the library's LU, the step at the unknowns,
+the counts); SE ``fill`` (K3's
 entry mode), ``gain`` (K8's table lookup and launch), ``solve`` (K2 or
 the library's Cholesky, the residual and the increment's maximum: these
 three marked in ``estimation.acse._normal_increment``), ``test`` (the

@@ -9,10 +9,15 @@ and a dense f64 ``torch.linalg`` factorization (``ops/linalg.py``) above
 it, and the outer iteration is a host loop that reads back one pair of
 scalars per iteration.
 
-State formulation: the Jacobian is the full 2n x 2n polar Jacobian with
-inactive rows/columns (slack angle, non-PQ magnitudes) masked to identity,
-so shapes stay fixed under bus-type changes — the dense equivalent of the
-reference's pq/pvpq index remapping (acPowerFlow.jl:89-175).
+State formulation: the Newton system is solved at the unknowns' order N =
+npv + 2·npq: the angles at PV and PQ buses, then the magnitudes at PQ
+buses, each in bus order, the reference's pvpq/pq index remapping
+(acPowerFlow.jl:89-175). ``AcArrays.pos`` maps each of the 2n polar
+variables to its row (and column) of that system, or -1 where the variable
+is fixed (the slack angle, non-PQ magnitudes); K1 writes the Jacobian
+through it, and it is rebuilt with the bus types. The JAX package keeps the
+2n x 2n Jacobian with the fixed rows and columns masked to identity;
+``_nr_jacobian`` gives that layout for the parity tests.
 
 Iteration-count semantics match the reference driver exactly
 (acPowerFlow.jl:1389-1433): compute mismatch, stop if max|dP|,max|dQ| < tol,
@@ -60,6 +65,25 @@ class AcArrays(NamedTuple):
     p_sched: torch.Tensor  # f64[n] supply - demand, active
     q_sched: torch.Tensor  # f64[n] supply - demand, reactive
     row_ptr: torch.Tensor  # i32[n+1] CSR offsets of the sorted rows (K1)
+    pos: torch.Tensor      # i32[2n] row of each angle, then each magnitude,
+                           # in the Newton system; -1 where it is fixed
+    unknowns: torch.Tensor  # i64[N] the variable (k or n + k) of each row
+    order: int             # N = npv + 2 npq (host int, as ``slack``)
+
+
+def newton_unknowns(bus_type, slack: int):
+    """``(pos, unknowns)`` of the Newton system, in numpy: the unknowns are
+    the angles of every bus but the slack and the magnitudes of PQ buses,
+    in that order and each in bus order (the masked system's order with its
+    fixed variables left out); ``pos`` (int32[2n]) gives each variable's
+    row, -1 where it is fixed, and ``unknowns`` (int64[N]) the inverse."""
+    bus_type = np.asarray(bus_type)
+    n = len(bus_type)
+    unknowns = np.flatnonzero(np.concatenate([np.arange(n) != slack,
+                                              bus_type == 1]))
+    pos = np.full(2 * n, -1, dtype=np.int32)
+    pos[unknowns] = np.arange(len(unknowns), dtype=np.int32)
+    return pos, unknowns.astype(np.int64)
 
 
 def check_entry_list(rows, cols, diag, n: int) -> None:
@@ -130,17 +154,24 @@ def _mismatch(arr: AcArrays, vm, va):
     return mp, mq, mp.abs().amax(), mq.abs().amax()
 
 
-def _masks(arr: AcArrays, n: int):
-    not_slack = torch.arange(n, device=arr.cols.device) != arr.slack
-    return not_slack, arr.bus_type == 1
+def _masked_jacobian(arr: AcArrays, jac):
+    """The 2n x 2n layout of the reduced ``[B, N, N]`` Jacobian ``jac``:
+    its rows and columns at the unknowns' places, identity at the fixed
+    variables (the JAX package's masked Jacobian)."""
+    n2 = arr.pos.numel()
+    full = jac.new_zeros(jac.shape[:-2] + (n2, n2))
+    idx = arr.unknowns
+    full[..., idx[:, None], idx] = jac
+    full.diagonal(dim1=-2, dim2=-1)[..., arr.pos < 0] = 1.0
+    return full
 
 
 def _nr_jacobian(arr: AcArrays, vm, va):
-    """Full 2n x 2n polar Jacobian with masked identity rows/cols (K1),
-    and the mask vector."""
+    """Full 2n x 2n polar Jacobian with masked identity rows/cols (K1's
+    reduced Jacobian laid out as the JAX package's), and the mask vector.
+    Not on the solves' path."""
     jac = _fill(arr, vm, va, jacobian=True).jac[0]
-    not_slack, is_pq = _masks(arr, vm.shape[0])
-    return jac, torch.cat([not_slack, is_pq]).to(vm.dtype)
+    return _masked_jacobian(arr, jac), (arr.pos >= 0).to(vm.dtype)
 
 
 def _max_mismatch(res: NrFill):
@@ -148,20 +179,38 @@ def _max_mismatch(res: NrFill):
     return torch.stack([res.mp.abs().amax(-1), res.mq.abs().amax(-1)], -1)
 
 
+def _nr_rhs(arr: AcArrays, res: NrFill):
+    """``[B, N]``: K1's mismatch at the unknowns, the Newton system's
+    right-hand side."""
+    return torch.cat([res.mp, res.mq], dim=-1).index_select(-1,
+                                                            arr.unknowns)
+
+
+def _nr_move(arr: AcArrays, vm, va, dx):
+    """``(vm, va)`` less the step ``dx [B, N]`` at the unknowns; a fixed
+    variable has 0.0 taken off, so it keeps its bits, as the masked route's
+    ``torch.where`` gave."""
+    n = vm.shape[-1]
+    step = dx.new_zeros(dx.shape[:-1] + (2 * n,)).index_copy_(
+        -1, arr.unknowns, dx)
+    return vm - step[..., n:], va - step[..., :n]
+
+
 def _nr_update(arr: AcArrays, vm, va, res: NrFill, kind: str,
                check: bool = True):
     """Newton step for ``[B, n]`` states from K1's output at those states.
 
-    The right-hand side needs no mask: K1's mismatch is already zero at the
-    slack angle and at non-PQ magnitudes (rhs * m of ac.py:176). An LU of
-    order up to ``fleet_solve.CAP`` is one K2 launch (``fleet_lu_solve``,
-    no factors written; its plain version on the CPU), larger ones and the
-    other kinds go to ``linalg.factorize``/``solve`` (cuSOLVER on the card).
-    A singular Jacobian raises ``LinAlgError`` unless ``check`` is off:
-    then a singular scenario's step comes out inf or NaN."""
-    n = vm.shape[-1]
-    rhs = torch.cat([res.mp, res.mq], dim=-1)
-    if kind in (linalg.LU, linalg.KLU) and 2 * n <= fleet_solve.CAP:
+    The system is the reduced one at the unknowns' order N (``res.jac``,
+    ``[B, N, N]``), its right-hand side the mismatch gathered at the
+    unknowns (``_nr_rhs``), and the step moves the unknowns only
+    (``_nr_move``). An LU of order up to ``fleet_solve.CAP`` is one K2
+    launch (``fleet_lu_solve``, no factors written; its plain version on
+    the CPU), larger ones and the other kinds go to
+    ``linalg.factorize``/``solve`` (cuSOLVER on the card). A singular
+    Jacobian raises ``LinAlgError`` unless ``check`` is off: then a
+    singular scenario's step comes out inf or NaN."""
+    rhs = _nr_rhs(arr, res)
+    if kind in (linalg.LU, linalg.KLU) and 0 < arr.order <= fleet_solve.CAP:
         dx, bad = fleet_solve.fleet_lu_solve(res.jac, rhs)
         if check and bool(bad.any()):
             b = int(bad.ne(0).nonzero()[0, 0])
@@ -171,10 +220,7 @@ def _nr_update(arr: AcArrays, vm, va, res: NrFill, kind: str,
                 "zero")
     else:
         dx = linalg.solve(linalg.factorize(res.jac, kind, check), rhs)
-    not_slack, is_pq = _masks(arr, n)
-    va_new = va - torch.where(not_slack, dx[..., :n], 0.0)
-    vm_new = vm - torch.where(is_pq, dx[..., n:], 0.0)
-    return vm_new, va_new
+    return _nr_move(arr, vm, va, dx)
 
 
 def _nr_step(arr: AcArrays, vm, va, kind: str):

@@ -1,8 +1,9 @@
 """Newton-Raphson power flow on the BBD/Schur substrate, on PyTorch tensors.
 
 Port of ``juliagrid_tpu/powerflow/newton_bbd.py``. The plain NR path
-(``ac.py``) builds one dense 2n x 2n Jacobian — fine to a few thousand
-buses, out of reach at 25k and more (49,928² f64 is 19.9 GB). Here the bus
+(``ac.py``) builds one dense Jacobian over the unknowns (npv + 2·npq, at
+most 2n) — fine to a few thousand buses, out of reach at 25k and more
+(49,928² f64 is 19.9 GB). Here the bus
 graph is partitioned on the host (``ops/partition.nd_partition``: border
 buses separate the blocks, so no Y entry joins two interiors) and every
 Jacobian entry is routed at compile time to its destination: a per-block

@@ -25,7 +25,8 @@ from juliagrid_tpu_torch.estimation import acse as torch_acse
 from juliagrid_tpu_torch.kernels import fleet_solve as k2
 from juliagrid_tpu_torch.kernels.nr_fill import nr_fill_ref
 from juliagrid_tpu_torch.kernels.se_fill import se_fill_ref
-from juliagrid_tpu_torch.powerflow.ac import _nr_update
+from juliagrid_tpu_torch.powerflow.ac import (_masked_jacobian, _nr_rhs,
+                                              _nr_update)
 
 CASES = ("case14test", "case30test", "case118")
 JAX_TOL = 1e-9
@@ -34,8 +35,10 @@ WALK_TOL = 1e-10
 
 
 def _nr_inputs(data_path, case, batch, seed=0):
-    """NR Jacobians and mismatches ``[B, 2n, 2n]``, ``[B, 2n]`` of
-    ``case`` at states perturbed from its stored start (numpy, seeded)."""
+    """The network, the states and K1's plain output at them: the NR
+    Jacobians ``[B, N, N]`` at the unknowns' order and the mismatches of
+    ``case`` at states perturbed from its stored start (numpy, seeded);
+    ``_nr_rhs`` gathers the right-hand sides ``[B, N]``."""
     analysis = jgt.newton_raphson(jgt.power_system(
         str(data_path / f"{case}.m")), device="cpu")
     arr = analysis.arrays
@@ -52,9 +55,9 @@ def _nr_inputs(data_path, case, batch, seed=0):
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("case", CASES)
 def test_plain_lu_solve_matches_jax_refined_step(data_path, case, batch):
-    _, _, _, res = _nr_inputs(data_path, case, batch)
+    arr, _, _, res = _nr_inputs(data_path, case, batch)
     a = res.jac.contiguous()
-    b = torch.cat([res.mp, res.mq], -1)
+    b = _nr_rhs(arr, res)
     x, info = k2.fleet_lu_solve(a, b)
     assert info.dtype == torch.int32 and not info.any()
     step = jax.vmap(lambda m, v: lu_solve_refined(*lu_factor32(m), m, v))
@@ -213,15 +216,17 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
 @pytest.mark.parametrize("case", ["case14test", "case118"])
 def test_nr_update_keeps_its_cpu_bits(data_path, case):
     """``_nr_update`` on the CPU: the bits of the route before K2
-    (``lu_factor`` + ``lu_solve``), for a fleet and a single state."""
+    (``lu_factor`` + ``lu_solve``) on the Newton system at the unknowns'
+    order, the step taken at the unknowns and 0.0 at the fixed variables,
+    for a fleet and a single state."""
     arr, vm, va, res = _nr_inputs(data_path, case, 4, seed=2)
     lu, piv = torch.linalg.lu_factor(res.jac)
-    rhs = torch.cat([res.mp, res.mq], -1)
+    rhs = torch.cat([res.mp, res.mq], -1)[:, arr.unknowns]
     dx = torch.linalg.lu_solve(lu, piv, rhs[..., None])[..., 0]
     n = vm.shape[1]
-    not_slack = torch.arange(n) != arr.slack
-    want_va = va - torch.where(not_slack, dx[:, :n], 0.0)
-    want_vm = vm - torch.where(arr.bus_type == 1, dx[:, n:], 0.0)
+    step = torch.zeros(4, 2 * n, dtype=dx.dtype)
+    step[:, arr.unknowns] = dx
+    want_va, want_vm = va - step[:, :n], vm - step[:, n:]
     for check in (True, False):
         got_vm, got_va = _nr_update(arr, vm, va, res, "LU", check)
         assert torch.equal(got_vm, want_vm) and torch.equal(got_va, want_va)
@@ -424,18 +429,22 @@ def _walk(a, b, chol=False, factors=False):
 def _lu_input(data_path, n, kind, rng):
     """A general N(0, 1) matrix, ``2 I + N(0, 1/n)`` with its rows shuffled
     (every column pivots, each by a wide margin), or case118's NR
-    Jacobian."""
+    Jacobian: at the unknowns' order (181, what the fleets solve) or in the
+    JAX package's masked 2n x 2n layout (236)."""
     if kind == "normal":
         return rng.standard_normal((n, n))
     if kind == "dominant":
         a = rng.standard_normal((n, n)) / np.sqrt(n) + 2 * np.eye(n)
         return a[rng.permutation(n)]
-    return _nr_inputs(data_path, "case118", 1)[3].jac[0].numpy()
+    arr, _, _, res = _nr_inputs(data_path, "case118", 1)
+    jac = res.jac if n == arr.order else _masked_jacobian(arr, res.jac)
+    assert jac.shape[-1] == n
+    return jac[0].numpy()
 
 
 @pytest.mark.parametrize("n,kind", [(n, kind) for n in ORDERS
                                     for kind in ("normal", "dominant")]
-                         + [(236, "case118")])
+                         + [(236, "case118"), (181, "case118")])
 def test_walk_of_the_kernel_layout_lu(data_path, n, kind):
     """Below, at and above the panel's and the one-row kernel's edges and
     at the fleets' orders: getrf's pivots, its factors and the solution,
