@@ -46,7 +46,7 @@ from ..report.log import info
 from ..system.model import model
 from ..system.types import PowerSystem
 from ..utils.errors import SlackDefinitionError
-from ..utils.profiling import Timings
+from ..utils.profiling import Timings, default_timings, mark
 
 #: method names of the fast decoupled analyses (``fast_decoupled.py``)
 FAST_DECOUPLED = ("fast_newton_raphson_bx", "fast_newton_raphson_xb")
@@ -237,20 +237,32 @@ def _nr_solve(arr: AcArrays, vm, va, tol: float, max_iter: int, kind: str,
 
     The count equals the number of linear solves, and convergence is judged
     on the freshly recomputed mismatch. ``fill`` exists so a check can run
-    the same loop on ``nr_fill_ref``; the main path never passes it."""
+    the same loop on ``nr_fill_ref``; the main path never passes it.
+
+    Stages (``utils.profiling.mark``), in loop order: ``fill`` (K1 with its
+    Jacobian's memset), ``test`` (the mismatch pair's readback) and
+    ``solve`` (the factorization, the solve and the step); a solve of k
+    iterations makes k + 1 ``fill`` and ``test`` stages."""
     vm, va = vm[None], va[None]
     ps, qs = arr.p_sched[None], arr.q_sched[None]
-    res = fill(arr, vm, va, ps, qs, jacobian=True)
-    it = 0
-    while True:
-        del_p, del_q = _max_mismatch(res)[0].tolist()
-        converged = del_p < tol and del_q < tol
-        if converged or it >= max_iter:
-            break
-        vm, va = _nr_update(arr, vm, va, res, kind)
-        it += 1
+    try:
+        mark("fill")
         res = fill(arr, vm, va, ps, qs, jacobian=True)
-    return vm[0], va[0], it, del_p, del_q, converged
+        it = 0
+        while True:
+            mark("test")
+            del_p, del_q = _max_mismatch(res)[0].tolist()
+            converged = del_p < tol and del_q < tol
+            if converged or it >= max_iter:
+                break
+            mark("solve")
+            vm, va = _nr_update(arr, vm, va, res, kind)
+            it += 1
+            mark("fill")
+            res = fill(arr, vm, va, ps, qs, jacobian=True)
+        return vm[0], va[0], it, del_p, del_q, converged
+    finally:
+        mark(None)
 
 
 # --------------------------------------------------------------------------
@@ -289,7 +301,9 @@ class AcPowerFlow:
         """Signature staleness protocol: rebuild the device snapshot when the
         system moved past the captured revision (reference acPowerFlow.jl:
         802-811, 890-895 decides rebuild vs refactorize; the dense path
-        treats both as a snapshot refresh)."""
+        treats both as a snapshot refresh). Each rebuild is a span
+        ``pf.rebuild`` of ``default_timings``, whose count is the
+        rebuilds."""
         rev = self.system.model.revision
         sig = self.signature
         if sig and (sig.get("type") != rev.type
@@ -317,25 +331,26 @@ class AcPowerFlow:
                 or sig.get("type") != rev.type
                 or sig.get("injection") != rev.injection
                 or sig.get("slack") != rev.slack):
-            if self.method.name in FAST_DECOUPLED:
-                from .fast_decoupled import compile_fnr_arrays
-                self.arrays = compile_fnr_arrays(
-                    self.system, self.method.name.endswith("bx"),
-                    self.device)
-            elif self.method.name == "gauss_seidel":
-                from .gauss_seidel import compile_gs_arrays
-                self.arrays = compile_gs_arrays(self.system, self.device)
-            elif self.method.name == "newton_raphson_bbd":
-                from .newton_bbd import compile_nr_bbd
-                self.arrays, self._bbd_layout = compile_nr_bbd(
-                    self.system, self._bbd_n_blocks, self.device)
-            elif self.method.name.startswith("fast_newton_raphson_bbd"):
-                from .fast_decoupled import compile_fnr_bbd
-                self.arrays, self._bbd_factors = compile_fnr_bbd(
-                    self.system, self.method.name.endswith("bx"),
-                    self._bbd_n_blocks, self.device)
-            else:
-                self.arrays = compile_ac_arrays(self.system, self.device)
+            with default_timings.span("pf.rebuild"):
+                if self.method.name in FAST_DECOUPLED:
+                    from .fast_decoupled import compile_fnr_arrays
+                    self.arrays = compile_fnr_arrays(
+                        self.system, self.method.name.endswith("bx"),
+                        self.device)
+                elif self.method.name == "gauss_seidel":
+                    from .gauss_seidel import compile_gs_arrays
+                    self.arrays = compile_gs_arrays(self.system, self.device)
+                elif self.method.name == "newton_raphson_bbd":
+                    from .newton_bbd import compile_nr_bbd
+                    self.arrays, self._bbd_layout = compile_nr_bbd(
+                        self.system, self._bbd_n_blocks, self.device)
+                elif self.method.name.startswith("fast_newton_raphson_bbd"):
+                    from .fast_decoupled import compile_fnr_bbd
+                    self.arrays, self._bbd_factors = compile_fnr_bbd(
+                        self.system, self.method.name.endswith("bx"),
+                        self._bbd_n_blocks, self.device)
+                else:
+                    self.arrays = compile_ac_arrays(self.system, self.device)
             sig["ac_model"] = rev.ac_model
             sig["ac_pattern"] = rev.ac_pattern
             sig["type"] = rev.type

@@ -9,6 +9,13 @@ one scalar-pair readback per iteration (``ac._nr_solve``,
 semantics match the reference exactly: the count equals the number of
 iterations performed, and convergence is judged on the freshly recomputed
 mismatches.
+
+A Newton-Raphson call is the profiler range ``jgt.power_flow``
+(``utils.profiling.annotate``) holding its stages: ``refresh`` (the device
+arrays brought up to the system's revision, ``AcPowerFlow._refresh_arrays``,
+whose rebuilds ``default_timings`` counts as ``pf.rebuild``), then
+``_nr_solve``'s ``fill``, ``test`` and ``solve``. With no profiler
+recording they cost a few flag tests.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import numpy as np
 from ..config import config
 from ..report.solver import (print_exit, print_increments_pf,
                              print_middle_pf, print_solver_pf, print_top)
-from ..utils.profiling import default_timings
+from ..utils.profiling import annotate, default_timings, mark
 from .ac import FAST_DECOUPLED, AcPowerFlow, _nr_solve
 from .dc import DcPowerFlow, dc_solve
 
@@ -56,9 +63,28 @@ def power_flow(analysis, iteration: int = 20, tolerance: float = 1e-8,
             "none of them")
 
     verbose = config.verbose if verbose is None else verbose
+    if analysis.method.name != "newton_raphson":
+        return _ac_power_flow(analysis, iteration, tolerance, power, current,
+                              verbose, stages=False)
+    with annotate("jgt.power_flow"):
+        try:
+            return _ac_power_flow(analysis, iteration, tolerance, power,
+                                  current, verbose, stages=True)
+        finally:
+            mark(None)
+
+
+def _ac_power_flow(analysis, iteration, tolerance, power, current, verbose,
+                   stages):
+    """The AC methods' driver; with ``stages`` the array refresh is the
+    stage ``refresh`` (``utils.profiling.mark``)."""
     method = analysis.method
+    if stages:
+        mark("refresh")
     with method.timings.span("refresh"), default_timings.span("pf.refresh"):
         analysis._refresh_arrays()
+    if stages:
+        mark(None)
     method.iteration = 0
 
     if verbose >= 2:

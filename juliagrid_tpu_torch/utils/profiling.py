@@ -23,16 +23,19 @@ stream, so the time from one mark to the next is the named stage's card
 time. While ``torch.profiler`` records, each stage is also a profiler
 range named ``jgt.<name>``, on the trace's clock beside the card's
 activity. The fleets (``parallel/batch.py``) mark ``fill``, ``gain``,
-``solve``, ``test`` and ``update``; the BBD paths, the interior point and
-the mesh's all-reduce mark their own. With neither a profiler nor a
+``solve``, ``test`` and ``update``; a single Newton-Raphson
+``power_flow`` (``powerflow/driver.py``) marks ``refresh``, then ``fill``,
+``test`` and ``solve``; the BBD paths, the interior point and the mesh's
+all-reduce mark their own. With neither a profiler nor a
 ``device_stages`` block active a mark costs a few flag tests: no event,
 no range.
 
 Device traces: ``trace(logdir)`` wraps ``torch.profiler`` so a real solve
 can be captured with the card's kernels and inspected as a Chrome trace
 (chrome://tracing, Perfetto); ``annotate(name)`` names a region in it (the
-fleets' call spans ``jgt.nr_fleet`` and ``jgt.se_fleet``, which hold their
-stages) and costs nothing while no profiler records.
+fleets' call spans ``jgt.nr_fleet`` and ``jgt.se_fleet`` and the single
+Newton-Raphson call's ``jgt.power_flow``, which hold their stages) and
+costs nothing while no profiler records.
 """
 
 from __future__ import annotations

@@ -103,6 +103,9 @@ def analyse(prof, spec):
     from portbench.program_spans import (CALLS, busy_in, is_launch, is_sync,
                                          merged)
 
+    # the fleets' calls and the single Newton-Raphson power flow's
+    call_ranges = (*CALLS, "jgt.power_flow")
+
     cuda = torch.autograd.DeviceType.CUDA
     host_ranges, launches, device, annotations = [], {}, [], 0
     calls_api, ops = [], []
@@ -130,7 +133,7 @@ def analyse(prof, spec):
                 calls_api.append((e.start_ns(), name))
     host_ranges.sort()
     lo, hi = window
-    calls = [(s, e) for s, e, n in host_ranges if n in CALLS]
+    calls = [(s, e) for s, e, n in host_ranges if n in call_ranges]
     ncalls = len(calls)
     by_stage, unlinked, by_api, linked_kind = {}, 0, {}, {}
     total = 0
@@ -203,7 +206,8 @@ def analyse(prof, spec):
         unlinked_share_pct=100.0 * unlinked / max(total, 1),
         outside_stages_share_pct=100.0 * sum(
             v for k, v in by_stage.items()
-            if not k.startswith("jgt.") or k in CALLS) / max(total, 1),
+            if not k.startswith("jgt.") or k in call_ranges)
+        / max(total, 1),
         linked_by_kernel={k: dict(linked=v[1], unlinked=v[0])
                           for k, v in linked_kind.items()},
         launch_api=by_api,
