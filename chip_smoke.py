@@ -882,6 +882,7 @@ def k2_times(label, chol, a, b, phase, reps=10):
     and local (spilled) bytes a thread as built. Returns ``(ms, plain_ms,
     bound), library_ms``."""
     solve, plain = k2_pair(chol)
+    launched = (k2.fleet_lu_solve.launches, k2.fleet_lu_solve.on_chip)
     turns = {"K2": [], "route": [], "solve_ex": []}
     for _ in range(2):
         turns["K2"].append(cuda_ms(lambda: solve(a, b), reps))
@@ -895,9 +896,15 @@ def k2_times(label, chol, a, b, phase, reps=10):
     per_sm = k2.blocks_per_sm(n, chol)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     regs, local = k2.kernel_attributes(n, chol)
+    first = k2.fleet_plan(n, cholesky=chol).first_on_chip
+    runs = k2.fleet_lu_solve.launches - launched[0]
+    on_chip = k2.fleet_lu_solve.on_chip - launched[1]
     print(f"phase {phase} K2 {'Cholesky' if chol else 'LU'} {label} "
           f"B={a.shape[0]} N={n} ({per_sm} blocks an SM, {per_sm * sms} "
-          f"scenarios in flight; {regs} registers, {local} local bytes a "
+          f"scenarios in flight; first on-chip panel {first} of "
+          f"{-(-n // k2.PANEL)}"
+          + ("" if chol else f", {on_chip} of {runs} launches on chip")
+          + f"; {regs} registers, {local} local bytes a "
           f"thread): in turns K2 "
           + ", ".join(f"{t!r}" for t in turns["K2"])
           + " ms, plain (library route) "
@@ -1000,11 +1007,13 @@ def phase4():
     batched_nr_solve(arr, *inputs)      # warm-up
     k2_err, k2_times_ = k2_lu_checks()
     runs = []
-    k2.fleet_lu_solve.launches = 0
+    k2.fleet_lu_solve.launches = k2.fleet_lu_solve.on_chip = 0
     with k2_plain_barred():
         seconds, out = wall_s(lambda: batched_nr_solve(arr, *inputs))
     launches = k2.fleet_lu_solve.launches
     check(launches > 0, "fleet: the NR fleet launched no K2")
+    check(k2.fleet_lu_solve.on_chip == launches, f"fleet: "
+          f"{k2.fleet_lu_solve.on_chip} of {launches} K2 launches on chip")
     runs.append((True, seconds, out))
     for fill in (k1.nr_fill_ref, k1.nr_fill_ref, k1.nr_fill):
         seconds, out = wall_s(lambda: batched_nr_solve(arr, *inputs,
@@ -1038,7 +1047,7 @@ def phase4():
     print(f"phase 4 case118 fleet x{FLEET}: all converged, "
           f"{total} NR iterations (max {int(ker[2].max())}), state vs "
           f"nr_fill_ref {dstate!r}, vs the library route {dlib!r}; K2 "
-          f"launches {launches}; NR iterations/s "
+          f"launches {launches}, all on chip; NR iterations/s "
           + ", ".join(f"{name} {rate!r}" for name, rate in rates)
           + "; by the step's solve (K1 fill) "
           + ", ".join(f"{name} {rate!r}" for name, rate in routes))

@@ -1,7 +1,8 @@
 // K2 fleet_solve: a fleet of dense f64 solves A x = b, one scenario a
-// thread block, built for the fleet's throughput: many scenarios in flight,
-// the working matrix in device memory, one panel of columns in shared
-// memory.
+// thread block, built for the fleet's throughput. The Cholesky and the LU
+// up to order 128 keep the working matrix in device memory and one panel of
+// columns in shared memory; the LU above 128 keeps the trailing matrix in
+// shared memory once it fits there, one block an SM.
 //
 // Replaces the batched torch.linalg route of the scenario fleets' dense
 // solves (cuSOLVER/MAGMA's batched getrf + getrs for the Newton-Raphson
@@ -29,33 +30,28 @@
 //   below by rsqrt(a_jj); info is the first a_jj that is not positive. The
 //   solves run with L (forward) and Lᵀ (backward, L read by columns).
 //
-// Mapping, at N = 236 with the defaults (kThreads = 128, kW = 32):
+// Mapping of the Cholesky and the LU up to 128 (the panel layout), at N =
+// 236 with the defaults (kThreads = 128, kW = 32):
 // - One block a scenario, 4 warps. The working matrix lives in device
-//   memory: the caller's factor buffer, or a scratch [B, N, N] the wrapper
-//   allocates (none when N <= kW and no factors are asked for: one panel
-//   holds the whole matrix). Shared memory holds one panel of kW columns
-//   (rows k0 .. N - 1, column-major, leading dimension N | 1 so that the
-//   warps' row-wise and column-wise walks hit distinct banks), the
+//   memory: a scratch [B, N, N] the wrapper allocates (none when N <= kW:
+//   one panel holds the whole matrix). Shared memory holds one panel of kW
+//   columns (rows k0 .. N - 1, column-major, leading dimension N | 1 so
+//   that the warps' row-wise and column-wise walks hit distinct banks), the
 //   right-hand side, 1 / U's diagonal, the panel's row permutation, and a
 //   region that is first the pivot step's candidates and then each warp's
 //   kW x 8 block of U12: 73.7 KB, so three blocks (396 scenarios) fit on
-//   an SM at 168 registers a thread (kMinBlocks), in 2.6 waves over 1,024
-//   scenarios. The LU above 128 is built for two (kWideLuMinBlocks), at up
-//   to 255 registers: at 168 it spilled in its column steps and ran 4%
-//   slower at N = 236. As built (cudaFuncGetAttributes and the occupancy
-//   query in chip_smoke.py's k2_times; ptxas -v in scripts/k2_sweep.py):
-//   the LU above 128 250 registers, no spills, 2 blocks an SM at N = 236;
-//   the LU to 128 168 registers, 64 local bytes a thread (68 bytes of
-//   spill stores); the Cholesky 168 registers, 112 local bytes a thread
-//   (116 bytes of spill stores to 128, 136 above), 3 blocks an SM at N =
-//   236.
-//   One block's barriers and loads hide behind the other blocks' work: the
-//   design is for the fleet's throughput, not one scenario's latency.
+//   an SM at 168 registers a thread (kMinBlocks). As built
+//   (cudaFuncGetAttributes in chip_smoke.py's k2_times; ptxas -v): the LU
+//   to 128 168 registers, 64 local bytes a thread (68 bytes of spill
+//   stores); the Cholesky 168 registers, 112 local bytes a thread (116
+//   bytes of spill stores to 128, 136 above), 3 blocks an SM at N = 236.
+//   One block's barriers and loads hide behind the other blocks' work.
 // - Right-looking, a panel at a time. The panel is staged from device
-//   memory (panel 0 straight from A) and factored with a thread a row (two
-//   rows a thread; orders up to 128 have a kernel of their own with one,
-//   half the registers), one __syncthreads a column, or a __syncwarp where the
-//   panel's rows all lie in one warp (N <= 32, the last panel). A row's
+//   memory (panel 0 straight from A) and factored with a thread a row (the
+//   Cholesky above 128 two rows a thread; orders up to 128 have kernels of
+//   their own with one, half the registers), one __syncthreads a column,
+//   or a __syncwarp where the panel's rows all lie in one warp (N <= 32,
+//   the last panel). A row's
 //   values and its right-hand side stay in registers for the whole panel,
 //   shifted down every 2 (LU) or 4 (Cholesky) columns, so that the column
 //   step is a compact loop (fully unrolled, a panel is thousands of
@@ -90,6 +86,42 @@
 //   shuffle), and a thread a row above subtracts the panel's columns times
 //   its unknowns.
 //
+// The LU above 128 (the wide LU; the kernel fleet_solve_kernel<false,
+// kWideSlots>, 256 threads, a row a thread in the column steps):
+// - It keeps the trailing matrix in shared memory from panel p* on, the
+//   first panel at which that matrix (rows and columns 32 p* .. N - 1,
+//   column-major at leading dimension (N - 32 p*) | 1) fits beside the
+//   region (2,048 doubles: each of 8 warps' U12 block), the right-hand
+//   side, 1 / U's diagonal and the ints (first_on_chip, from the card's
+//   room): on an H100 p* = 0 up to N = 161 (A read once into it), 1 at
+//   case118's 181 (149 x 149, 219 KB a block), 3 at 236, 4 at 256. One
+//   block an SM.
+// - The panels before p* are staged and streamed as above (their trailing
+//   updates, device memory to device memory, a lane a row); the last of
+//   them (the handover) writes the rows below it into the on-chip matrix
+//   and its U rows into the scratch, which the back substitution reads.
+//   Its staging lies over the on-chip matrix's last columns, which its
+//   last round of 64 columns writes only after a block barrier. Its U12 is
+//   solved a thread a column of the round (gathered through src from A or
+//   w, solved in registers, into the region), then each warp updates 8
+//   columns, a lane a row, and writes their U12 to w after its gathers.
+// - From p* on a panel is factored in place (the column steps as above,
+//   only the warps that hold rows k0 .. N - 1 taking part, on a named
+//   barrier), then a thread a trailing column applies the panel's row swaps
+//   to it and solves its U12 in registers, and the warps update groups of
+//   8 columns, a lane a row with a compile-time count of row slots
+//   (tile_update), A22 -= L21 U12 in place.
+// - The back substitution reads an on-chip panel's triangle and the rows
+//   above it from the on-chip matrix (above 32 p*: from the scratch). With
+//   factors, the on-chip part is written out at the end, in getrf's
+//   layout, the left swaps applied.
+// - As built (ptxas -v): 255 registers, 24 bytes of stack, 2 barriers.
+//   What sets its time at N = 181 (scripts/k2_timeline.py, per panel of
+//   block 0): the column steps' chain, ~1.3 us a step, ~40 us a panel, ~220
+//   of a block's ~320 us; the handover ~45 us; the on-chip updates 7-20 us a
+//   panel. One block an SM no longer hides one block's chain behind
+//   another's memory waits.
+//
 // Arithmetic: no atomics, and every value is a fixed sequence of FMAs. An
 // element (i, c) is updated by fma(-L[i][t], U[t][c], a) for t = 0, 1, ...
 // in order, whichever phase, warp or panel does it; the right-hand side by
@@ -98,19 +130,12 @@
 // on the panel width or the block size, one input gives one bit pattern,
 // and the arithmetic is that of the cluster kernel this one replaced.
 //
-// Bound: at case118 x1024 (N = 236) the input is 456 MB, read once
-// (0.137 ms at 3.35 TB/s), and the LU 8.97e9 f64 operations (0.134 ms at 67
-// TFLOP/s; 0.27 ms on the FMA pipes this kernel uses). The right-looking
-// update reads and writes the trailing matrix once a panel, about
-// N³ / (3 kW) x 16 bytes = 2.2 MB a scenario at kW = 32 (0.67 ms over the
-// fleet at the HBM rate). What sets the time (PERF.md; scripts/
-// k2_timeline.py stamps the phases of every block on one SM and each
-// trailing group of block 0, scripts/k2_sweep.py sweeps the build's
-// options): the trailing groups wait on device memory, ~15 µs a group
-// whatever its size, with 12 warps an SM and 28 KB of L1 beside the 221 KB
-// of shared memory; then the column steps' chain. The arithmetic is far
-// from the FMA pipes' rate, so the tensor cores' f64 mma would not move
-// it.
+// Bound: at case118 x1024 (N = 181) the input is 268 MB, read once
+// (0.081 ms at 3.35 TB/s), and the LU 4.05e9 f64 operations (0.060 ms at 67
+// TFLOP/s; 0.12 ms on the FMA pipes this kernel uses). The panel layout's
+// right-looking update reads and writes the trailing matrix once a panel
+// (~N³ / (3 kW) x 16 bytes a scenario); the wide LU reads A once and
+// writes and reads the handover's U rows (38 KB a scenario at 181).
 
 #include <cuda_runtime.h>
 
@@ -133,14 +158,20 @@ constexpr int kThreads = FLEET_SOLVE_THREADS;
 constexpr int kWarps = kThreads / kWarp;
 // blocks an SM the kernels are built for (__launch_bounds__): 12 warps an
 // SM, at most 168 registers a thread at 128 threads; the LU above
-// kThreads (two rows a thread), which spills at 168, 8 warps at up to 255
+// kThreads (two rows a thread), which spills at 168, one block an SM (its
+// working matrix fills the SM's shared memory) at up to 255
 constexpr int kMinBlocks = 12 * kWarp / kThreads;
-constexpr int kWideLuMinBlocks = 8 * kWarp / kThreads;
+constexpr int kWideLuMinBlocks = 1;
 // column steps between two shifts of a row's registers
 constexpr int kLuStep = 2;
 constexpr int kCholStep = 4;
 constexpr int kW = FLEET_SOLVE_PANEL;  // panel width
 constexpr int kMaxN = 256;             // the largest order K2 takes
+// the LU above kThreads: a thread a row of the largest order
+constexpr int kWideThreads = kMaxN;
+constexpr int kWideWarps = kWideThreads / kWarp;
+// rows below a panel a lane of the wide LU's trailing update holds
+constexpr int kWideRows = (kMaxN - kW + kWarp - 1) / kWarp;
 // rows a thread owns in a panel: orders up to kThreads take one, which
 // halves the panel's registers, larger ones kMaxN / kThreads
 constexpr int kWideSlots = kMaxN / kThreads;
@@ -165,21 +196,24 @@ struct Problem {
   int ld;       // leading dimension of the panel in shared memory, n | 1
   int factors;  // write getrf's L: the swaps applied left of each panel
   int aligned;  // a and w start on 16 bytes (the trailing tiles' loads)
+  int chip;     // the wide LU: the first panel factored in shared memory
 };
 
 // The pivot step's per-column buffers, double-buffered by the column's
 // parity. They share their room with the warps' U12 blocks, which only the
 // trailing update uses.
-struct PanelSmall {
+template <int kNW>  // warps of the block
+struct PanelSmallT {
   // rows from column j on, the right-hand side at [kW]
-  double crow[2][kWarps][kW + 1];  // LU: each warp's candidate's row
-  double cval[2][kWarps];          // ... its |a|
-  double crcp[2][kWarps];  // ... 1 / its pivot (Cholesky [0]: 1 / s)
+  double crow[2][kNW][kW + 1];  // LU: each warp's candidate's row
+  double cval[2][kNW];          // ... its |a|
+  double crcp[2][kNW];  // ... 1 / its pivot (Cholesky [0]: 1 / s)
   double jrow[2][kW + 1];  // LU: row j; Cholesky: column j from row j down
-  int cidx[2][kWarps];         // ... the candidate's row
-  int corg[2][kWarps];         // ... its panel-start row
-  int jorg[2];                 // LU: row j's panel-start row
+  int cidx[2][kNW];         // ... the candidate's row
+  int corg[2][kNW];         // ... its panel-start row
+  int jorg[2];              // LU: row j's panel-start row
 };
+using PanelSmall = PanelSmallT<kWarps>;
 
 // Doubles of the shared region that is first PanelSmall, then the warps'
 // U12 blocks, then (back substitution) the panel's unknowns.
@@ -188,6 +222,11 @@ constexpr int kSmallDoubles =
     static_cast<int>((sizeof(PanelSmall) + sizeof(double) - 1) /
                      sizeof(double));
 constexpr int kRegion = kUs > kSmallDoubles ? kUs : kSmallDoubles;
+// ... and the wide LU's, for its warps
+constexpr int kWideUs = kWideWarps * kW * kCols;
+constexpr int kWideSmall = static_cast<int>(
+    (sizeof(PanelSmallT<kWideWarps>) + sizeof(double) - 1) / sizeof(double));
+constexpr int kWideRegion = kWideUs > kWideSmall ? kWideUs : kWideSmall;
 
 __host__ __device__ inline int ld_of(int n) { return n | 1; }
 
@@ -226,6 +265,89 @@ __device__ View view(double* base, int n) {
   v.info = v.piv + kW;
   return v;
 }
+
+// The LU above kThreads (the wide LU) keeps the working matrix in shared
+// memory from panel `chip` on: rows and columns ks = kW chip .. n - 1,
+// column-major at leading dimension (n - ks) | 1. The panels before it are
+// staged and streamed as the panel layout streams them.
+__host__ __device__ inline int chip_rows(int n, int chip) {
+  return n > kW * chip ? n - kW * chip : 0;
+}
+
+// Where streamed panel p is staged, in doubles from the matrix area's
+// start, at leading dimension stage_ld. The last one (chip - 1), whose
+// trailing update writes the on-chip matrix, lies above the columns that
+// the update's rounds before its last write (a round: a group of kCols
+// columns a warp); the last round holds its stores until every warp is
+// done with the panel.
+__host__ __device__ inline int stage_ld(int n, int p) {
+  return (n - kW * p) | 1;
+}
+__host__ __device__ inline int64_t stage_at(int n, int chip, int p) {
+  if (p != chip - 1) return 0;
+  const int m = chip_rows(n, chip);
+  const int groups = (m + kCols - 1) / kCols;
+  const int rounds = (groups + kWideWarps - 1) / kWideWarps;
+  return rounds > 0
+             ? static_cast<int64_t>(m | 1) * kCols * kWideWarps * (rounds - 1)
+             : 0;
+}
+
+// Doubles of the matrix area: the on-chip matrix and the staged panels.
+__host__ __device__ inline int64_t area_doubles(int n, int chip) {
+  const int m = chip_rows(n, chip);
+  int64_t area = static_cast<int64_t>(m) * (m | 1);
+  for (int p = 0; p < chip; ++p) {
+    const int64_t end =
+        stage_at(n, chip, p) + static_cast<int64_t>(kW) * stage_ld(n, p);
+    area = end > area ? end : area;
+  }
+  return area;
+}
+
+// Dynamic shared memory of a wide LU block: the region, the right-hand
+// side and 1 / U's diagonal, the matrix area (doubles), then the row
+// permutation, the panel's pivots and info (ints).
+__host__ __device__ inline int64_t wide_bytes(int n, int chip) {
+  const int64_t doubles =
+      kWideRegion + 2 * static_cast<int64_t>(n) + area_doubles(n, chip);
+  return 8 * doubles + 4 * (static_cast<int64_t>(n) + kW + 1);
+}
+
+// The first panel from which a wide LU block fits in `room` bytes (the
+// panel count: none), or -1 where no layout fits.
+inline int first_on_chip(int n, int64_t room) {
+  const int panels = (n + kW - 1) / kW;
+  for (int chip = 0; chip <= panels; ++chip) {
+    if (wide_bytes(n, chip) <= room) return chip;
+  }
+  return -1;
+}
+
+__device__ View wide_view(double* base, int n, int chip) {
+  View v;
+  v.ps = reinterpret_cast<PanelSmall*>(base);
+  v.us = base;
+  v.xpan = base;
+  v.y = base + kWideRegion;
+  v.urcp = v.y + n;
+  v.L = v.urcp + n;  // the matrix area; each panel sets its own view
+  v.src = reinterpret_cast<int*>(v.L + area_doubles(n, chip));
+  v.piv = v.src + n;
+  v.info = v.piv + kW;
+  return v;
+}
+
+// The wide LU's on-chip matrix: element (r, c), r, c >= ks, of a
+// scenario's working matrix at a[(c - ks) * ld + r - ks].
+struct Chip {
+  double* a;
+  int ld;
+  int ks;
+  __device__ double& at(int r, int c) const {
+    return a[(c - ks) * ld + r - ks];
+  }
+};
 
 #ifdef FLEET_SOLVE_TIMELINE
 // scripts/k2_timeline.py builds with this defined: thread 0 of every block
@@ -266,16 +388,29 @@ __device__ __forceinline__ void stamp(int) {}
 __device__ __forceinline__ void stamp_group(int, int, int) {}
 #endif
 
+// A barrier of the threads that factor a panel: the block, or (kPart)
+// `warps` warps through named barrier 1.
+template <bool kPart>
+__device__ __forceinline__ void panel_sync(int warps) {
+  if constexpr (kPart) {
+    asm volatile("bar.sync 1, %0;" : : "r"(warps * kWarp) : "memory");
+  } else {
+    __syncthreads();
+  }
+}
+
 // Factors the staged panel (global columns k0 .. k0 + nf - 1, rows k0 ..
-// n - 1) and carries the right-hand side through it: a thread a row (rows
-// tid, tid + kThreads, ...), one __syncthreads a column. A row's values
-// and its right-hand side stay in registers for the whole panel, shifted
-// down kStep columns every kStep steps (kLuStep, kCholStep; a[h][s] is
-// column j at step s), so that the step is one compact loop body: a fully
-// unrolled panel is thousands of instructions. Column j of a row, final after step j,
-// goes to the panel at the row's panel-start position (org); the LU's rows
-// are put in pivot order at the end.
-template <bool kChol, int kSlots>
+// n - 1) and carries the right-hand side through it, with kT threads: a
+// thread a row (rows tid, tid + kT, ...), one __syncthreads a column (kPart,
+// a row a thread: only the warps that hold rows k0 .. n - 1 take part, the
+// others return at once, and a named barrier of theirs replaces it). A
+// row's values and its right-hand side stay in registers for the whole
+// panel, shifted down kStep columns every kStep steps (kLuStep, kCholStep;
+// a[h][s] is column j at step s), so that the step is one compact loop
+// body: a fully unrolled panel is thousands of instructions. Column j of a
+// row, final after step j, goes to the panel at the row's panel-start
+// position (org); the LU's rows are put in pivot order at the end.
+template <bool kChol, int kSlots, int kT = kThreads, bool kPart = false>
 __device__ void factor_panel(const View& v, const Problem& pb, int k0, int nf,
                              int64_t s) {
   constexpr int kStep = kChol ? kCholStep : kLuStep;
@@ -285,14 +420,15 @@ __device__ void factor_panel(const View& v, const Problem& pb, int k0, int nf,
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
-  PanelSmall& sm = *v.ps;
+  constexpr int kNW = kT / kWarp;  // warps
+  PanelSmallT<kNW>& sm = *reinterpret_cast<PanelSmallT<kNW>*>(v.ps);
   double a[kSlots][kW];
   double yv[kSlots];  // the row's right-hand side
   int org[kSlots];
   bool own[kSlots];
 #pragma unroll
   for (int h = 0; h < kSlots; ++h) {
-    const int r = tid + kThreads * h;
+    const int r = tid + kT * h;
     own[h] = r >= k0 && r < n;
     org[h] = r;
     yv[h] = own[h] ? v.y[r] : 0.0;
@@ -304,10 +440,12 @@ __device__ void factor_panel(const View& v, const Problem& pb, int k0, int nf,
   // the panel's rows all in one warp (an order up to 32, the last panel of
   // a larger one): that warp factors alone, a __syncwarp a column
   const bool solo = n - k0 <= kWarp && k0 % kWarp == 0;
-  const int ow = (k0 % kThreads) / kWarp;
-  const int w0 = solo ? ow : 0;
-  const int w1 = solo ? ow + 1 : kWarps;
+  const int ow = (k0 % kT) / kWarp;
+  const int w0 = kPart ? k0 / kWarp : solo ? ow : 0;
+  const int w1 = kPart ? (n + kWarp - 1) / kWarp : solo ? ow + 1 : kNW;
   const int boss = w0 * kWarp;  // the thread that keeps the pivots
+  static_assert(!kPart || kSlots == 1, "a row a thread");
+  if (kPart && (warp < w0 || warp >= w1)) return;
 #pragma unroll 1
   for (int j4 = 0; j4 < nf && (!solo || warp == ow); j4 += kStep) {
 #pragma unroll
@@ -331,7 +469,7 @@ __device__ void factor_panel(const View& v, const Problem& pb, int k0, int nf,
           int idx = tid;
 #pragma unroll
           for (int h = 0; h < kSlots; ++h) {
-            const int r = tid + kThreads * h;
+            const int r = tid + kT * h;
             if (own[h] && r >= j) {
               const double k = isnan(a[h][st]) ? INFINITY : fabs(a[h][st]);
               if (k > key) {
@@ -354,7 +492,7 @@ __device__ void factor_panel(const View& v, const Problem& pb, int k0, int nf,
           // pivot's row to take
 #pragma unroll
           for (int h = 0; h < kSlots; ++h) {
-            const int r = tid + kThreads * h;
+            const int r = tid + kT * h;
             if (key >= 0.0 && r == idx) {
 #pragma unroll
               for (int t = st; t < kW; ++t) {
@@ -378,13 +516,13 @@ __device__ void factor_panel(const View& v, const Problem& pb, int k0, int nf,
           if (solo) {
             __syncwarp();
           } else {
-            __syncthreads();
+            panel_sync<kPart>(w1 - w0);
           }
           double best = sm.cval[par][w0];
           int win = w0;
           p = sm.cidx[par][w0];
 #pragma unroll
-          for (int w = 1; w < kWarps; ++w) {
+          for (int w = 1; w < kNW; ++w) {
             if (w <= w0 || w >= w1) continue;
             const double k = sm.cval[par][w];
             const int q = sm.cidx[par][w];
@@ -403,7 +541,7 @@ __device__ void factor_panel(const View& v, const Problem& pb, int k0, int nf,
           // column j, row j its 1 / s and its right-hand side
 #pragma unroll
           for (int h = 0; h < kSlots; ++h) {
-            const int r = tid + kThreads * h;
+            const int r = tid + kT * h;
             if (own[h] && r >= j && r < k0 + nf) {
               sm.jrow[par][r - j] = a[h][st];
               if (r == j) {
@@ -415,7 +553,7 @@ __device__ void factor_panel(const View& v, const Problem& pb, int k0, int nf,
           if (solo) {
             __syncwarp();
           } else {
-            __syncthreads();
+            panel_sync<kPart>(w1 - w0);
           }
           pr = sm.jrow[par];
           rcp = sm.crcp[par][0];
@@ -426,7 +564,7 @@ __device__ void factor_panel(const View& v, const Problem& pb, int k0, int nf,
         bool below[kSlots];
 #pragma unroll
         for (int h = 0; h < kSlots; ++h) {
-          const int r = tid + kThreads * h;
+          const int r = tid + kT * h;
           below[h] = own[h] && r > j;
           if constexpr (!kChol) {
             if (own[h] && r == j) {
@@ -497,24 +635,24 @@ __device__ void factor_panel(const View& v, const Problem& pb, int k0, int nf,
   // moved with it)
 #pragma unroll
   for (int h = 0; h < kSlots; ++h) {
-    if (own[h]) v.y[tid + kThreads * h] = yv[h];
+    if (own[h]) v.y[tid + kT * h] = yv[h];
   }
-  __syncthreads();
+  panel_sync<kPart>(w1 - w0);
   if constexpr (!kChol) {
     // the rows in pivot order: new row r is panel-start row src[r]
 #pragma unroll
     for (int h = 0; h < kSlots; ++h) {
-      const int r = tid + kThreads * h;
+      const int r = tid + kT * h;
       if (own[h]) {
         const int o = v.src[r];
 #pragma unroll
         for (int t = 0; t < kW; ++t) a[h][t] = t < nf ? v.L[t * ld + o] : 0.0;
       }
     }
-    __syncthreads();
+    panel_sync<kPart>(w1 - w0);
 #pragma unroll
     for (int h = 0; h < kSlots; ++h) {
-      const int r = tid + kThreads * h;
+      const int r = tid + kT * h;
       if (own[h]) {
 #pragma unroll
         for (int t = 0; t < kW; ++t) {
@@ -522,7 +660,7 @@ __device__ void factor_panel(const View& v, const Problem& pb, int k0, int nf,
         }
       }
     }
-    __syncthreads();
+    panel_sync<kPart>(w1 - w0);
   }
 }
 
@@ -670,12 +808,550 @@ __device__ void update_group(const View& v, const Problem& pb, int k0, int c0,
   stamp_group(pnl, gslot, 3);
 }
 
+// A lane's M rows r, r + 32, ... of a group of cn <= kCols columns (row
+// slots, all in use: a count known at compile time, so that no slot waits
+// behind another's branch) updated with A22 -= L21 U12 over the panel's kW
+// columns, t = 0, 1, ... in order: L21's row of panel column t at L[t * ld
+// + row], U12's row t of the group's column q at U[t * ut + q * uq] (the
+// columns past cn read column cn - 1: their sums are never stored, and the
+// on-chip matrix may end at the group's last column).
+template <int M>
+__device__ __forceinline__ void tile_fma(double (&acc)[kWideRows][kCols],
+                                         const double* L, int ld, int r,
+                                         int n, const double* U, int ut,
+                                         int uq, int cn) {
+  static_assert(M >= 1 && M <= kWideRows, "row slots of a lane");
+#pragma unroll 2
+  for (int t = 0; t < kW; ++t) {
+    double u[kCols];
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) {
+      u[q] = U[t * ut + (q < cn ? q : cn - 1) * uq];
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int row = r + kWarp * m;
+      const double l = L[t * ld + (row < n ? row : n - 1)];
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) acc[m][q] = fma(-l, u[q], acc[m][q]);
+    }
+  }
+}
+
+// ... for the mcnt row slots in use (1 .. kWideRows).
+__device__ __forceinline__ void tile_update(double (&acc)[kWideRows][kCols],
+                                            const double* L, int ld, int r,
+                                            int n, const double* U, int ut,
+                                            int uq, int cn, int mcnt) {
+  switch (mcnt) {
+    case 1: tile_fma<1>(acc, L, ld, r, n, U, ut, uq, cn); break;
+    case 2: tile_fma<2>(acc, L, ld, r, n, U, ut, uq, cn); break;
+    case 3: tile_fma<3>(acc, L, ld, r, n, U, ut, uq, cn); break;
+    case 4: tile_fma<4>(acc, L, ld, r, n, U, ut, uq, cn); break;
+    case 5: tile_fma<5>(acc, L, ld, r, n, U, ut, uq, cn); break;
+    case 6: tile_fma<6>(acc, L, ld, r, n, U, ut, uq, cn); break;
+    default: tile_fma<kWideRows>(acc, L, ld, r, n, U, ut, uq, cn); break;
+  }
+}
+
+// The wide LU's phases. Each rebuilds its view of shared memory from the
+// layout, the panel's view at loff doubles from the matrix area at leading
+// dimension ld, so that little state lives across them (inlined, the
+// kernel builds at 255 registers with 24 bytes of stack; as separate calls
+// it spilled and saved registers around each).
+__device__ __forceinline__ void wide_factor(int n, int chip, int ld,
+                                            int loff, int* piv, int k0) {
+  extern __shared__ __align__(16) double smem[];
+  View v = wide_view(smem, n, chip);
+  v.L += loff;
+  Problem q{};
+  q.n = n;
+  q.ld = ld;
+  q.piv = piv;
+  factor_panel<false, 1, kWideThreads, true>(v, q, k0,
+                                             n - k0 < kW ? n - k0 : kW, 0);
+}
+
+// A streamed panel's trailing update before the handover, device memory
+// to device memory (`from`: A or w), a warp a group of kCols columns in
+// turn: U12, the panel's rows of these columns gathered through src,
+// solved with L11 into the warp's block (update_group's lanes and
+// arithmetic); the rows below gathered through src, a lane a row with all
+// its columns (kWideRows rows a lane, 32 apart; 16-byte loads and stores
+// where `vec`), updated (tile_update) and stored in place, and U12 too.
+__device__ __forceinline__ void wide_stream_panel(int n, int chip, int ld,
+                                                  int loff, int k0,
+                                                  const double* from,
+                                                  double* w, bool vec) {
+  extern __shared__ __align__(16) double smem[];
+  const View v = wide_view(smem, n, chip);
+  const double* L = v.L + loff;  // row r of panel column t at L[t * ld + r]
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  double* us = v.us + warp * kW * kCols;  // [kW][kCols]
+  const int pnl = k0 / kW;
+  const int rb = k0 + kW;
+  const int mcnt = (n - rb + kWarp - 1) / kWarp;
+  const int groups = (n - rb + kCols - 1) / kCols;
+  for (int g = warp; g < groups; g += kWideWarps) {
+    const int c0 = rb + g * kCols;
+    const int cn = n - c0 < kCols ? n - c0 : kCols;
+    const bool whole = vec && cn == kCols;
+    const int gslot = g / kWideWarps;
+    stamp_group(pnl, gslot, 0);
+    // the warp's lanes are done with its previous group's U12 first
+    __syncwarp();
+#pragma unroll
+    for (int e = lane; e < kW * kCols; e += kWarp) {
+      const int t = e / kCols;
+      const int q = e % kCols;
+      us[e] = q < cn ? from[static_cast<int64_t>(v.src[k0 + t]) * n + c0 + q]
+                     : 0.0;
+    }
+    __syncwarp();
+    {
+      const int q = lane % kCols;
+      const int gl = lane / kCols;
+      double u[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        u[i] = us[(gl + kLanesPerCol * i) * kCols + q];
+      }
+#pragma unroll 1
+      for (int t4 = 0; t4 < kPer; ++t4) {
+#pragma unroll
+        for (int gs = 0; gs < kLanesPerCol; ++gs) {
+          const int t = kLanesPerCol * t4 + gs;
+          const double ut = __shfl_sync(kFull, u[0], q + kCols * gs);
+#pragma unroll
+          for (int i = 0; i < kPer; ++i) {
+            const int r = gl + kLanesPerCol * (i + t4);
+            if (i + t4 < kPer && r > t) {
+              u[i] = fma(-L[t * ld + k0 + r], ut, u[i]);
+            }
+          }
+        }
+        us[(gl + kLanesPerCol * t4) * kCols + q] = u[0];
+#pragma unroll
+        for (int i = 0; i + 1 < kPer; ++i) u[i] = u[i + 1];
+      }
+    }
+    double acc[kWideRows][kCols];
+#pragma unroll
+    for (int m = 0; m < kWideRows; ++m) {
+      const int r = rb + lane + kWarp * m;
+      const bool ok = m < mcnt && r < n;
+      const int64_t row = ok ? v.src[r] : 0;
+      if (ok && whole) {
+        const double2* sp =
+            reinterpret_cast<const double2*>(from + row * n + c0);
+#pragma unroll
+        for (int h = 0; h < kCols / 2; ++h) {
+          const double2 x = sp[h];
+          acc[m][2 * h] = x.x;
+          acc[m][2 * h + 1] = x.y;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) {
+          acc[m][q] = ok && q < cn ? from[row * n + c0 + q] : 0.0;
+        }
+      }
+    }
+    stamp_group(pnl, gslot, 1);
+    // every read of these columns is done before any of them is written
+    __syncwarp();
+    tile_update(acc, L, ld, rb + lane, n, us, kCols, 1, cn, mcnt);
+    stamp_group(pnl, gslot, 2);
+#pragma unroll
+    for (int m = 0; m < kWideRows; ++m) {
+      const int r = rb + lane + kWarp * m;
+      if (m < mcnt && r < n) {
+        double* dp = w + static_cast<int64_t>(r) * n + c0;
+        if (whole) {
+#pragma unroll
+          for (int h = 0; h < kCols / 2; ++h) {
+            reinterpret_cast<double2*>(dp)[h] =
+                make_double2(acc[m][2 * h], acc[m][2 * h + 1]);
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < kCols; ++q) {
+            if (q < cn) dp[q] = acc[m][q];
+          }
+        }
+      }
+    }
+    for (int e = lane; e < kW * kCols; e += kWarp) {
+      const int t = e / kCols;
+      const int q = e % kCols;
+      if (q < cn) w[static_cast<int64_t>(k0 + t) * n + c0 + q] = us[e];
+    }
+    stamp_group(pnl, gslot, 3);
+  }
+}
+
+// The on-chip panel k0's trailing update, in place in the on-chip matrix.
+// First a thread a trailing column applies the panel's row swaps to it
+// (the rows end in pivot order: new row r is old row src[r]) and solves
+// its U12 (the panel's rows) with L11 in registers, each row r by t = 0 ..
+// r - 1 in order; then the warps take groups of kCols columns, a lane a
+// row below the panel (tile_fma), with U12 read from the panel's rows.
+__device__ __forceinline__ void wide_chip_panel(int n, int chip, int k0) {
+  extern __shared__ __align__(16) double smem[];
+  const View v = wide_view(smem, n, chip);
+  const Chip cm{v.L, chip_rows(n, chip) | 1, kW * chip};
+  const int c1 = k0 + kW;
+  const int tid = threadIdx.x;
+  stamp_group(k0 / kW, 0, 0);
+  if (tid < n - c1) {
+    const int c = c1 + tid;
+    for (int t = 0; t < kW; ++t) {
+      const int r = v.piv[t];
+      if (r != k0 + t) {
+        const double x = cm.at(k0 + t, c);
+        cm.at(k0 + t, c) = cm.at(r, c);
+        cm.at(r, c) = x;
+      }
+    }
+    double u[kW];
+#pragma unroll
+    for (int t = 0; t < kW; ++t) u[t] = cm.at(k0 + t, c);
+#pragma unroll
+    for (int t = 0; t < kW; ++t) {
+#pragma unroll
+      for (int r = t + 1; r < kW; ++r) {
+        u[r] = fma(-cm.at(k0 + r, k0 + t), u[t], u[r]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kW; ++t) cm.at(k0 + t, c) = u[t];
+  }
+  stamp_group(k0 / kW, 0, 1);
+  __syncthreads();
+  stamp_group(k0 / kW, 0, 2);
+  const int lane = tid % kWarp;
+  const int rb = c1;
+  const int mcnt = (n - rb + kWarp - 1) / kWarp;
+  // row r of panel column t at L[t * ld + r]
+  const double* L = v.L + (k0 - cm.ks) * cm.ld - cm.ks;
+  const int groups = (n - c1 + kCols - 1) / kCols;
+  for (int g = tid / kWarp; g < groups; g += kWideWarps) {
+    const int c0 = c1 + g * kCols;
+    const int cn = n - c0 < kCols ? n - c0 : kCols;
+    double acc[kWideRows][kCols];
+#pragma unroll
+    for (int m = 0; m < kWideRows; ++m) {
+      const int r = rb + lane + kWarp * m;
+      const bool ok = m < mcnt && r < n;
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) {
+        acc[m][q] = ok && q < cn ? cm.at(r, c0 + q) : 0.0;
+      }
+    }
+    // U12 of these columns: row t of column c0 + q at U[t + q * ld]
+    tile_update(acc, L, cm.ld, rb + lane, n, &cm.at(k0, c0), 1, cm.ld, cn,
+                mcnt);
+#pragma unroll
+    for (int m = 0; m < kWideRows; ++m) {
+      const int r = rb + lane + kWarp * m;
+      if (m < mcnt && r < n) {
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) {
+          if (q < cn) cm.at(r, c0 + q) = acc[m][q];
+        }
+      }
+    }
+  }
+  stamp_group(k0 / kW, 0, 3);
+}
+
+// The handover's trailing update (panel k0, staged at loff doubles from the
+// matrix area at leading dimension ld, its rows in device memory `from`):
+// the rows below it into the on-chip matrix. A round of kCols columns a
+// warp at a time: a thread a column of the round gathers its U12 through
+// src and solves it with L11 in registers into the region; then each warp
+// gathers the rows below of its kCols columns through src, a lane a row,
+// updates them (tile_update) and stores them into the on-chip matrix, and
+// their U12 into w (after its gathers: a pivot row may be one of them).
+// The staging lies over the columns of the last round, whose stores wait
+// at a block barrier until every warp is done with the panel.
+__device__ __forceinline__ void wide_handover_panel(int n, int chip, int ld,
+                                                    int loff, int k0,
+                                                    const double* from,
+                                                    double* w, bool vec) {
+  extern __shared__ __align__(16) double smem[];
+  const View v = wide_view(smem, n, chip);
+  const Chip cm{v.L, chip_rows(n, chip) | 1, kW * chip};
+  const double* L = v.L + loff;  // row r of panel column t at L[t * ld + r]
+  constexpr int kRound = kWideWarps * kCols;
+  double* us = v.us;  // [kW][kRound] the round's U12
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const int c1 = k0 + kW;
+  const int rb = c1;
+  const int mcnt = (n - rb + kWarp - 1) / kWarp;
+  const int rounds = (n - c1 + kRound - 1) / kRound;
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int cb = c1 + rd * kRound;
+    stamp_group(k0 / kW, rd, 0);
+    if (tid < kRound && cb + tid < n) {
+      const int c = cb + tid;
+      double u[kW];
+#pragma unroll
+      for (int t = 0; t < kW; ++t) {
+        u[t] = from[static_cast<int64_t>(v.src[k0 + t]) * n + c];
+      }
+#pragma unroll
+      for (int t = 0; t < kW; ++t) {
+#pragma unroll
+        for (int r = t + 1; r < kW; ++r) {
+          u[r] = fma(-L[t * ld + k0 + r], u[t], u[r]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kW; ++t) us[t * kRound + tid] = u[t];
+    }
+    __syncthreads();
+    stamp_group(k0 / kW, rd, 1);
+    const int c0 = cb + warp * kCols;
+    const int cn = n - c0 < kCols ? n - c0 : kCols;
+    double acc[kWideRows][kCols];
+    if (cn > 0) {
+      const bool whole = vec && cn == kCols;
+#pragma unroll
+      for (int m = 0; m < kWideRows; ++m) {
+        const int r = rb + lane + kWarp * m;
+        const bool ok = m < mcnt && r < n;
+        const int64_t row = ok ? v.src[r] : 0;
+        if (ok && whole) {
+          const double2* sp =
+              reinterpret_cast<const double2*>(from + row * n + c0);
+#pragma unroll
+          for (int h = 0; h < kCols / 2; ++h) {
+            const double2 x = sp[h];
+            acc[m][2 * h] = x.x;
+            acc[m][2 * h + 1] = x.y;
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < kCols; ++q) {
+            acc[m][q] = ok && q < cn ? from[row * n + c0 + q] : 0.0;
+          }
+        }
+      }
+      // every gather of these columns is done before w's are written
+      __syncwarp();
+      for (int e = lane; e < kW * kCols; e += kWarp) {
+        const int t = e / kCols;
+        const int q = e % kCols;
+        if (q < cn) {
+          w[static_cast<int64_t>(k0 + t) * n + c0 + q] =
+              us[t * kRound + warp * kCols + q];
+        }
+      }
+      tile_update(acc, L, ld, rb + lane, n, us + warp * kCols, kRound, 1, cn,
+                  mcnt);
+    }
+    stamp_group(k0 / kW, rd, 2);
+    if (rd == rounds - 1) __syncthreads();
+    if (cn > 0) {
+#pragma unroll
+      for (int m = 0; m < kWideRows; ++m) {
+        const int r = rb + lane + kWarp * m;
+        if (m < mcnt && r < n) {
+#pragma unroll
+          for (int q = 0; q < kCols; ++q) {
+            if (q < cn) cm.at(r, c0 + q) = acc[m][q];
+          }
+        }
+      }
+    }
+    stamp_group(k0 / kW, rd, 3);
+    __syncthreads();  // the region is the next round's
+  }
+}
+
+// The wide LU of one scenario (block). Panels before pb.chip are staged
+// and streamed through device memory as the panel layout does it, except
+// that the last one (the handover) updates the rows below it into the
+// on-chip matrix; from pb.chip on the panels are factored and updated in
+// place there, and the back substitution reads their U from it. The
+// arithmetic is the panel layout's, operation for operation.
+__device__ __forceinline__ void wide_lu(const Problem& pb, double* smem) {
+  const int n = pb.n;
+  const int chip = pb.chip;
+  const int ks = kW * chip;
+  const int m = chip_rows(n, chip);
+  const int64_t s = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid / kWarp;
+  const View v = wide_view(smem, n, chip);
+  double* const area = v.L;
+  const Chip cm{area, m | 1, ks};
+  const double* a = pb.a + s * n * n;
+  double* w = pb.w == nullptr ? nullptr : pb.w + s * n * n;
+  const bool vec = n % 2 == 0 && pb.aligned;
+  int event = 0;
+  stamp(event++);
+  for (int i = tid; i < n; i += kWideThreads) v.y[i] = pb.b[s * n + i];
+  if (tid == 0) *v.info = 0;
+  if (chip == 0) {
+    // the whole matrix on chip: A read once, a row at a time
+    for (int r = 0; r < n; ++r) {
+      for (int c = tid; c < n; c += kWideThreads) {
+        cm.at(r, c) = a[static_cast<int64_t>(r) * n + c];
+      }
+    }
+  }
+
+  const int panels = (n + kW - 1) / kW;
+  for (int p = 0; p < panels; ++p) {
+    const int k0 = p * kW;
+    const int nf = n - k0 < kW ? n - k0 : kW;
+    const bool on = p >= chip;
+    const double* from = p == 0 ? a : w;
+    // the panel's view: element (r, k0 + t) at area[loff + t * ld + r]
+    int ld = m | 1;
+    int loff = (k0 - ks) * ld - ks;
+    if (!on) {
+      ld = stage_ld(n, p);
+      loff = static_cast<int>(stage_at(n, chip, p)) - k0;
+      // stage the panel: rows k0 .. n - 1, a row's kW columns a warp
+      for (int e = tid; e < (n - k0) * kW; e += kWideThreads) {
+        const int r = k0 + e / kW;
+        const int t = e % kW;
+        if (t < nf) {
+          area[loff + t * ld + r] = from[static_cast<int64_t>(r) * n + k0 + t];
+        }
+      }
+    }
+    for (int r = k0 + tid; r < n; r += kWideThreads) v.src[r] = r;
+    __syncthreads();
+    stamp(event++);
+    wide_factor(n, chip, ld, loff, pb.piv == nullptr ? nullptr : pb.piv + s * n,
+                k0);
+    __syncthreads();
+    stamp(event++);
+    if (!on && w != nullptr) {
+      // the streamed panel into the working matrix: its U rows (L21 only
+      // for the factors)
+      const int rend = pb.factors ? n : k0 + nf;
+      for (int e = tid; e < (rend - k0) * kW; e += kWideThreads) {
+        const int r = k0 + e / kW;
+        const int t = e % kW;
+        if (t < nf) {
+          w[static_cast<int64_t>(r) * n + k0 + t] = area[loff + t * ld + r];
+        }
+      }
+    }
+    // the warps' groups of trailing columns
+    if (on) {
+      wide_chip_panel(n, chip, k0);
+    } else if (p == chip - 1) {
+      wide_handover_panel(n, chip, ld, loff, k0, from, w, vec);
+    } else {
+      wide_stream_panel(n, chip, ld, loff, k0, from, w, vec);
+    }
+    if (pb.factors && k0 > 0) {
+      // getrf's L: the panel's swaps on the columns left of it
+      for (int c = tid; c < k0; c += kWideThreads) {
+        for (int t = 0; t < nf; ++t) {
+          const int r = v.piv[t];
+          if (r == k0 + t) continue;
+          double& x0 = c < ks ? w[static_cast<int64_t>(k0 + t) * n + c]
+                              : cm.at(k0 + t, c);
+          double& x1 = c < ks ? w[static_cast<int64_t>(r) * n + c]
+                              : cm.at(r, c);
+          const double tmp = x0;
+          x0 = x1;
+          x1 = tmp;
+        }
+      }
+    }
+    stamp(event++);
+    __syncthreads();
+    stamp(event++);
+  }
+  if (pb.factors) {
+    // the on-chip part of the factors
+    for (int r = ks; r < n; ++r) {
+      for (int c = ks + tid; c < n; c += kWideThreads) {
+        w[static_cast<int64_t>(r) * n + c] = cm.at(r, c);
+      }
+    }
+  }
+
+  // back substitution U x = y, a panel at a time from the last: an on-chip
+  // panel's triangle read in place, a streamed one's staged from w. U(q, t)
+  // = U[k0 + q][k0 + t], q <= t, at tri[t * tld + q]
+  for (int p = panels - 1; p >= 0; --p) {
+    const int k0 = p * kW;
+    const int nf = n - k0 < kW ? n - k0 : kW;
+    const double* tri = area;
+    int tld = kW + 1;
+    if (p >= chip) {
+      tri = &cm.at(k0, k0);
+      tld = m | 1;
+    } else {
+      // the on-chip matrix is done with: stage over its start
+      for (int e = tid; e < kW * kW; e += kWideThreads) {
+        const int hi = e / kW;
+        const int lo = e % kW;
+        if (hi < nf && lo < nf) {
+          area[lo * tld + hi] = w[static_cast<int64_t>(k0 + hi) * n + k0 + lo];
+        }
+      }
+      __syncthreads();
+    }
+    if (warp == 0) {
+      const int lane = tid;
+      double yl = lane < nf ? v.y[k0 + lane] : 0.0;
+      double xl = 0.0;
+      for (int jj = nf - 1; jj >= 0; --jj) {
+        const double xj = __shfl_sync(kFull, yl, jj) * v.urcp[k0 + jj];
+        if (lane == jj) xl = xj;
+        if (lane < jj) yl = fma(-tri[jj * tld + lane], xj, yl);
+      }
+      if (lane < nf) {
+        v.xpan[lane] = xl;
+        pb.x[s * n + k0 + lane] = xl;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < k0; i += kWideThreads) {
+      double yi = v.y[i];
+      if (i < ks) {
+        for (int jj = nf - 1; jj >= 0; --jj) {
+          yi = fma(-w[static_cast<int64_t>(i) * n + k0 + jj], v.xpan[jj], yi);
+        }
+      } else {
+        for (int jj = nf - 1; jj >= 0; --jj) {
+          yi = fma(-cm.at(i, k0 + jj), v.xpan[jj], yi);
+        }
+      }
+      v.y[i] = yi;
+    }
+    __syncthreads();
+    stamp(event++);
+  }
+  if (tid == 0) pb.info[s] = *v.info;
+  stamp(event);
+}
+
 template <bool kChol, int kSlots>
-__global__ void __launch_bounds__(kThreads, kChol || kSlots == 1
-                                                ? kMinBlocks
-                                                : kWideLuMinBlocks)
+__global__ void __launch_bounds__(kChol || kSlots == 1 ? kThreads
+                                                      : kWideThreads,
+                                  kChol || kSlots == 1 ? kMinBlocks
+                                                      : kWideLuMinBlocks)
     fleet_solve_kernel(Problem pb) {
   extern __shared__ __align__(16) double smem[];
+  if constexpr (!kChol && kSlots > 1) {
+    // the LU above kThreads keeps its working matrix on chip
+    wide_lu(pb, smem);
+    return;
+  }
   const int n = pb.n;
   const int ld = pb.ld;
   const int64_t s = blockIdx.x;
@@ -817,6 +1493,25 @@ int kernel_index(int n, int cholesky) {
   return (cholesky != 0) + (n > kThreads ? 2 : 0);
 }
 
+// Threads of a block of kernel k.
+int threads_of(int k) { return k == 2 ? kWideThreads : kThreads; }
+
+// The layout of a mode's order-n block on a device whose blocks take
+// `room` bytes of dynamic shared memory: its shared bytes, and in *chip the
+// first panel factored in place in shared memory (the panel count where
+// none is: the panel layout of every kernel but the wide LU), or -1 where
+// no layout fits.
+int64_t layout(int n, int cholesky, int64_t room, int* chip) {
+  const int panels = (n + kW - 1) / kW;
+  if (cholesky != 0 || n <= kThreads) {
+    const int64_t bytes = shared_bytes(n);
+    *chip = bytes <= room ? panels : -1;
+    return bytes;
+  }
+  *chip = first_on_chip(n, room);
+  return wide_bytes(n, *chip < 0 ? panels : *chip);
+}
+
 // What a device was found to take: the dynamic shared memory a block can
 // take (0 until known), and whether each mode's kernel is set up for it.
 constexpr int kMaxDevices = 64;
@@ -846,13 +1541,14 @@ int64_t room(int device) {
 }
 
 // Sets the kernel of a mode at order n up on `device` and returns the
-// shared bytes of its launch, or a negative error code.
-int64_t prepare(int n, int cholesky, int device) {
+// shared bytes of its launch (and in *chip its first on-chip panel), or a
+// negative error code.
+int64_t prepare(int n, int cholesky, int device, int* chip) {
   if (n < 1 || n > kMaxN) return -static_cast<int64_t>(cudaErrorInvalidValue);
   const int64_t avail = room(device);
   if (avail < 0) return avail;
-  const int64_t bytes = shared_bytes(n);
-  if (bytes > avail) return -static_cast<int64_t>(cudaErrorInvalidValue);
+  const int64_t bytes = layout(n, cholesky, avail, chip);
+  if (*chip < 0) return -static_cast<int64_t>(cudaErrorInvalidValue);
   DeviceCache& dev = cache[device];
   const int k = kernel_index(n, cholesky);
   if (!dev.ready[k]) {
@@ -897,8 +1593,14 @@ extern "C" void fleet_solve_config(int* out) {
   out[2] = kMaxN;
 }
 
-// Dynamic shared memory of an order-n block, in bytes.
-extern "C" int64_t fleet_solve_shared_bytes(int n) { return shared_bytes(n); }
+// Dynamic shared memory of a mode's order-n block on a device whose blocks
+// take `room` bytes, in bytes; *first_on_chip receives the first panel
+// factored in place in shared memory (the panel count: none; -1: no layout
+// fits).
+extern "C" int64_t fleet_solve_shared_bytes(int n, int cholesky, int64_t room,
+                                            int* first_on_chip) {
+  return layout(n, cholesky, room, first_on_chip);
+}
 
 // Dynamic shared memory a block of K2 can take on `device`, in bytes, or 0
 // if the device cannot be queried.
@@ -916,11 +1618,13 @@ extern "C" int fleet_solve_blocks_per_sm(int n, int cholesky, int device) {
   const DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return -scope.error();
   const int mode = cholesky != 0;
-  const int64_t bytes = prepare(n, mode, device);
+  int chip = 0;
+  const int64_t bytes = prepare(n, mode, device, &chip);
   if (bytes < 0) return static_cast<int>(bytes);
   int blocks = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kernel_at(kernel_index(n, mode)), kThreads,
+      &blocks, kernel_at(kernel_index(n, mode)),
+      threads_of(kernel_index(n, mode)),
       static_cast<size_t>(bytes));
   if (err != cudaSuccess) return -err;
   return blocks;
@@ -943,7 +1647,8 @@ extern "C" int fleet_solve_attributes(int n, int cholesky, int* out) {
 // Solve A x = b for `batch` scenarios on `stream` of `device`, a block
 // each: a [batch, n, n] and b [batch, n] f64 row-major, x [batch, n] f64
 // and info [batch] int32 out. w [batch, n, n] f64 is the working matrix
-// (null only when n <= the panel width and factors == 0); with factors != 0
+// (null only when factors == 0 and one panel, or for the wide LU shared
+// memory from its first panel on, holds the whole); with factors != 0
 // it ends holding getrf's factors, and piv [batch, n] int32 (when not null)
 // the 1-based pivots. cholesky != 0 takes the Cholesky mode (factors must
 // be 0). Returns a cudaError_t code.
@@ -952,21 +1657,27 @@ extern "C" int fleet_solve_launch(const double* a, const double* b, double* x,
                                   int n, int factors, int cholesky, int device,
                                   void* stream) {
   if (batch < 1) return cudaErrorInvalidValue;
-  if (w == nullptr && (n > kW || factors != 0)) return cudaErrorInvalidValue;
   if (cholesky != 0 && factors != 0) return cudaErrorInvalidValue;
   const DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return scope.error();
   const int mode = cholesky != 0;
-  const int64_t bytes = prepare(n, mode, device);
+  int chip = 0;
+  const int64_t bytes = prepare(n, mode, device, &chip);
   if (bytes < 0) return static_cast<int>(-bytes);
+  // a working matrix in device memory unless one panel, or shared memory
+  // from the first panel on, holds the whole
+  const bool streams = kernel_index(n, mode) == 2 ? chip > 0 : n > kW;
+  if (w == nullptr && (streams || factors != 0)) return cudaErrorInvalidValue;
   const bool aligned =
       (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(w)) % 16 ==
       0;
-  Problem pb{a, b, x, info, w, piv, n, ld_of(n), factors != 0, aligned};
+  Problem pb{a, b,        x,           info,    w,
+             piv, n, ld_of(n), factors != 0, aligned, chip};
   void* args[] = {&pb};
   const cudaError_t err = cudaLaunchKernel(
       reinterpret_cast<const void*>(kernel_at(kernel_index(n, mode))),
-      dim3(static_cast<unsigned>(batch)), dim3(kThreads), args,
+      dim3(static_cast<unsigned>(batch)),
+      dim3(threads_of(kernel_index(n, mode))), args,
       static_cast<size_t>(bytes), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

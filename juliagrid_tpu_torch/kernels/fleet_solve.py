@@ -18,16 +18,20 @@ port solves in f64 directly. Two wrappers, one kernel:
   positive.
 
 A CUDA tensor goes to the kernel (``csrc/fleet_solve.cu``, which describes
-its mapping and what bounds it: a block a scenario, the working matrix in
-device memory, a panel of ``PANEL`` columns in shared memory; ``fleet_plan``
-gives the layout), and the call raises if the kernel does not
+its mapping and what bounds it: a block a scenario; the Cholesky and the LU
+up to ``THREADS`` keep the working matrix in device memory and stage a
+panel of ``PANEL`` columns in shared memory; the LU above ``THREADS``
+streams its first panels so and keeps the trailing matrix in shared memory
+once it fits there, one block an SM; ``fleet_plan`` gives the layout), and
+the call raises if the kernel does not
 build or launch or if ``N`` is above ``CAP``; a CPU tensor goes to the plain
 versions ``fleet_lu_solve_ref`` (``lu_factor_ex`` + ``lu_solve``) and
 ``fleet_cholesky_solve_ref`` (``cholesky_ex`` + ``cholesky_solve``). Above
 ``CAP`` the call sites keep ``torch.linalg`` (cuSOLVER on the card): the
 10k-bus Newton-Raphson's 17,999² getrf and the large estimators' gains.
 ``fleet_lu_solve.launches`` and ``fleet_cholesky_solve.launches`` count
-kernel launches.
+kernel launches, ``fleet_lu_solve.on_chip`` the LU launches that factored
+panels in place in shared memory.
 """
 
 from __future__ import annotations
@@ -53,6 +57,12 @@ COLUMNS = 8
 #: (``PanelSmall``, 355 doubles) and then the warps' U12 blocks, the larger
 #: (``kRegion``)
 REGION = THREADS // 32 * PANEL * COLUMNS
+#: threads of a block of the LU above ``THREADS`` (``kWideThreads``: a
+#: thread a row up to ``CAP``), the doubles of its region, and the trailing
+#: columns a round of its warps' groups covers
+WIDE_THREADS = CAP
+WIDE_REGION = WIDE_THREADS // 32 * PANEL * COLUMNS
+ROUND = WIDE_THREADS // 32 * COLUMNS
 #: dynamic shared memory a block can take on an H100 (227 KB); the card's
 #: own figure is queried before a launch
 H100_ROOM = 232448
@@ -61,34 +71,68 @@ H100_ROOM = 232448
 class FleetPlan(NamedTuple):
     """How K2 lays out a scenario of order ``n``: one block a scenario."""
 
-    ld: int             # leading dimension of the panel in shared memory
+    ld: int             # leading dimension of the first panel in shared
+                        # memory
     shared_bytes: int   # dynamic shared memory of a block
     scratch: bool       # whether a launch without factors needs a working
-                        # matrix in device memory (more than one panel)
+                        # matrix in device memory
+    first_on_chip: int  # the first panel factored in place in shared
+                        # memory; the panel count where none is
 
 
 def shared_bytes(n: int) -> int:
-    """Dynamic shared memory of an order-``n`` block: the panel (``PANEL``
-    columns of ``n | 1`` doubles), the shared region, the right-hand side
-    and 1 / U's diagonal, then the row permutation, the panel's pivots and
-    info (ints)."""
+    """Dynamic shared memory of an order-``n`` block of the panel layout
+    (the Cholesky, the LU up to ``THREADS``): the panel (``PANEL`` columns
+    of ``n | 1`` doubles), the shared region, the right-hand side and 1 /
+    U's diagonal, then the row permutation, the panel's pivots and info
+    (ints)."""
     doubles = PANEL * (n | 1) + REGION + 2 * n
     return 8 * doubles + 4 * (n + PANEL + 1)
 
 
-def fleet_plan(n: int, room: int = H100_ROOM) -> FleetPlan:
-    """K2's layout for order ``n`` on a device whose blocks take ``room``
-    bytes of dynamic shared memory. How many blocks an SM holds is the
-    card's answer (``blocks_per_sm``). Raises above ``CAP`` or where a block
-    does not fit."""
+def on_chip_bytes(n: int, first: int) -> int:
+    """Dynamic shared memory of an order-``n`` block of the LU above
+    ``THREADS`` whose panels from ``first`` on are factored in place (a
+    block of ``WIDE_THREADS``): the region, the right-hand side and 1 / U's
+    diagonal, the matrix area, then the ints. The area holds the on-chip
+    matrix (rows and columns ``k = PANEL * first`` to ``n - 1``,
+    column-major at leading dimension ``(n - k) | 1``) and the streamed
+    panels' staging (panel ``p`` at leading
+    dimension ``(n - PANEL p) | 1``; the last, whose trailing update writes
+    the on-chip matrix, over the columns that the update's last round
+    writes, which holds its stores until every warp is done with it)."""
+    m = max(n - PANEL * first, 0)
+    area = m * (m | 1)
+    rounds = -(-m // ROUND)
+    for p in range(first):
+        at = (m | 1) * ROUND * (rounds - 1) if p == first - 1 and m else 0
+        area = max(area, at + PANEL * ((n - PANEL * p) | 1))
+    return 8 * (WIDE_REGION + 2 * n + area) + 4 * (n + PANEL + 1)
+
+
+def fleet_plan(n: int, room: int = H100_ROOM,
+               cholesky: bool = False) -> FleetPlan:
+    """K2's layout for order ``n`` in a mode on a device whose blocks take
+    ``room`` bytes of dynamic shared memory. The LU above ``THREADS`` keeps
+    its working matrix in shared memory from the first panel at which the
+    trailing matrix fits there; the Cholesky and the LU up to ``THREADS``
+    stage a panel at a time. How many blocks an SM holds is the card's
+    answer (``blocks_per_sm``). Raises above ``CAP`` or where a block does
+    not fit."""
     if not 1 <= n <= CAP:
         raise ValueError(f"K2 solves orders 1 to {CAP}, not {n}; above "
                          f"{CAP} the call sites keep torch.linalg")
-    nbytes = shared_bytes(n)
+    panels = -(-n // PANEL)
+    if cholesky or n <= THREADS:
+        first, nbytes, scratch = panels, shared_bytes(n), n > PANEL
+    else:
+        first = next((p for p in range(panels + 1)
+                      if on_chip_bytes(n, p) <= room), panels)
+        nbytes, scratch = on_chip_bytes(n, first), first > 0
     if nbytes > room:
         raise ValueError(f"K2 cannot hold an order-{n} block ({nbytes} "
                          f"bytes of shared memory) in {room} bytes")
-    return FleetPlan(n | 1, nbytes, n > PANEL)
+    return FleetPlan(n | 1, nbytes, scratch, first)
 
 
 def _check(a, b, name):
@@ -141,11 +185,15 @@ def fleet_lu_solve(a: torch.Tensor, b: torch.Tensor, *, lu=None, piv=None):
     if a.device.type == "cpu":
         return fleet_lu_solve_ref(a, b, lu=lu, piv=piv)
     x, info = _launch(a, b, lu, piv, cholesky=False)
+    n = a.shape[1]
     fleet_lu_solve.launches += 1
+    fleet_lu_solve.on_chip += (
+        PANEL * _plan(a.device.index, n, False).first_on_chip < n)
     return x, info
 
 
 fleet_lu_solve.launches = 0
+fleet_lu_solve.on_chip = 0
 
 
 def fleet_cholesky_solve(g: torch.Tensor, b: torch.Tensor):
@@ -190,7 +238,8 @@ def _library() -> ctypes.CDLL:
     lib.fleet_solve_launch.restype = i32
     lib.fleet_solve_room.argtypes = [i32]
     lib.fleet_solve_room.restype = ctypes.c_int64
-    lib.fleet_solve_shared_bytes.argtypes = [i32]
+    lib.fleet_solve_shared_bytes.argtypes = [i32, i32, ctypes.c_int64,
+                                             ptr]
     lib.fleet_solve_shared_bytes.restype = ctypes.c_int64
     lib.fleet_solve_blocks_per_sm.argtypes = [i32, i32, i32]
     lib.fleet_solve_blocks_per_sm.restype = i32
@@ -213,19 +262,23 @@ def _error(lib, code: int) -> str:
     return lib.fleet_solve_error_string(code).decode()
 
 
-@functools.lru_cache(maxsize=64)
-def _plan(device: int, n: int) -> FleetPlan:
+@functools.lru_cache(maxsize=128)
+def _plan(device: int, n: int, cholesky: bool) -> FleetPlan:
     """``fleet_plan`` on ``device``, whose room is queried once; the
-    library's shared bytes must be the plan's."""
+    library's layout (shared bytes, first on-chip panel) must be the
+    plan's."""
     lib = _library()
     room = lib.fleet_solve_room(device)
     if room <= 0:
         raise RuntimeError(f"fleet_solve cannot query cuda:{device}")
-    plan = fleet_plan(n, room)
-    built = lib.fleet_solve_shared_bytes(n)
-    if built != plan.shared_bytes:
-        raise RuntimeError(f"fleet_solve takes {built} shared bytes at order "
-                           f"{n}, the plan {plan.shared_bytes}")
+    plan = fleet_plan(n, room, cholesky)
+    first = ctypes.c_int()
+    built = (lib.fleet_solve_shared_bytes(n, int(cholesky), room,
+                                          ctypes.byref(first)), first.value)
+    if built != (plan.shared_bytes, plan.first_on_chip):
+        raise RuntimeError(f"fleet_solve lays out order {n} as (shared "
+                           f"bytes, first on-chip panel) {built}, the plan "
+                           f"{(plan.shared_bytes, plan.first_on_chip)}")
     return plan
 
 
@@ -233,7 +286,7 @@ def blocks_per_sm(n: int, cholesky: bool = False, device: int = 0) -> int:
     """Blocks (scenarios) of K2's order-``n`` launch in a mode one SM of
     the card holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``:
     shared memory, threads and registers)."""
-    _plan(device, n)
+    _plan(device, n, cholesky)
     out = _library().fleet_solve_blocks_per_sm(n, int(cholesky), device)
     if out < 0:
         raise RuntimeError("fleet_solve occupancy query failed: "
@@ -257,10 +310,11 @@ def kernel_attributes(n: int, cholesky: bool = False) -> tuple:
 def _launch(a, b, lu, piv, cholesky: bool):
     """One K2 launch on the current stream of ``a``'s device: a block a
     scenario, the working matrix ``lu`` when the factors are asked for,
-    else a scratch tensor unless one panel holds the whole matrix."""
+    else a scratch tensor unless one panel, or shared memory from the first
+    panel on, holds the whole matrix."""
     bsz, n = a.shape[:2]
     device = a.device
-    plan = _plan(device.index, n)
+    plan = _plan(device.index, n, cholesky)
     x = torch.empty((bsz, n), dtype=torch.float64, device=device)
     info = torch.empty(bsz, dtype=torch.int32, device=device)
     work = lu

@@ -22,7 +22,11 @@ the panels: staging a panel (and the wait for the block barrier after
 it), factoring it (a block barrier a column), its trailing update as
 thread 0's warp saw it (the panel's write, that warp's column groups),
 the wait at the end-of-panel barrier for the block's other warps, and the
-back substitution; and, for warp 0 of block 0, each panel's trailing
+back substitution; for the LU above 128, each block's time split by the
+layout's phases (the panels streamed through device memory, the handover:
+the last streamed panel, whose update writes the on-chip matrix, the
+panels factored on chip, the back substitution; ``first on-chip panel``
+is ``fleet_plan``'s); and, for warp 0 of block 0, each panel's trailing
 column groups split into the U12 gather and solve, the tile's loads and
 update, and its stores. Then the span of the launch, the device ms of a
 ``--batch`` launch of the copy beside the package's kernel (CUDA events),
@@ -69,6 +73,11 @@ def build(defines, replace):
          "-v", "-o", str(lib), str(path)], capture_output=True, text=True)
     cs.check(res.returncode == 0, f"nvcc failed:\n{res.stderr}")
     dll = bind(ctypes.CDLL(str(lib)))
+    dll.fleet_solve_room.argtypes = [ctypes.c_int]
+    dll.fleet_solve_room.restype = ctypes.c_int64
+    dll.fleet_solve_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_int64, ctypes.c_void_p]
+    dll.fleet_solve_shared_bytes.restype = ctypes.c_int64
     dll.fleet_solve_timeline.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     dll.fleet_solve_timeline.restype = ctypes.c_int
     dll.fleet_solve_group_timeline.argtypes = [ctypes.c_void_p]
@@ -128,6 +137,22 @@ def phases(row, panels):
     return us, row[back + 1]
 
 
+def layout_phases(row, panels, first):
+    """The wide LU's µs by the layout's phases: the panels streamed
+    through device memory before the handover, the handover (panel first
+    - 1), the panels factored on chip, and the back substitution."""
+    us = dict.fromkeys(("streamed", "handover", "on-chip", "backsub"), 0.0)
+    prev = row[0]
+    for p in range(panels):
+        end = row[4 + 4 * p]
+        kind = ("on-chip" if p >= first else
+                "handover" if p == first - 1 else "streamed")
+        us[kind] += (end - prev) / 1e3
+        prev = end
+    us["backsub"] = (row[1 + 5 * panels] - prev) / 1e3
+    return us
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--n", type=int, default=236)
@@ -146,6 +171,11 @@ def main() -> None:
     panels = -(-args.n // config[1])
     for chol in (False, True):
         mode = "Cholesky" if chol else "LU"
+        first = ctypes.c_int()
+        dll.fleet_solve_shared_bytes(args.n, int(chol),
+                                     dll.fleet_solve_room(0),
+                                     ctypes.byref(first))
+        wide = first.value < panels
         a, b = inputs(args.n, args.batch, chol)
         launch(dll, a, b, chol)
         stamps(dll)
@@ -164,10 +194,21 @@ def main() -> None:
             print(f"  block {blk}: {(t[blk, 0] - origin) / 1e3!r} to "
                   f"{(end - origin) / 1e3!r} us; "
                   + ", ".join(f"{k} {v!r}" for k, v in us.items()))
+            if wide:
+                print("    by the layout: " + ", ".join(
+                    f"{k} {v!r}" for k, v in layout_phases(
+                        t[blk], panels, first.value).items()))
         groups(dll, panels)
         totals = [phases(t[blk], panels)[0] for blk in range(args.batch)]
         print(f"  every block, mean us: " + ", ".join(
             f"{k} {np.mean([u[k] for u in totals])!r}" for k in totals[0]))
+        if wide:
+            split = [layout_phases(t[blk], panels, first.value)
+                     for blk in range(args.batch)]
+            print(f"  every block by the layout (first on-chip panel "
+                  f"{first.value} of {panels}), mean us: " + ", ".join(
+                      f"{k} {np.mean([u[k] for u in split])!r}"
+                      for k in split[0]))
         theirs = (k2.fleet_cholesky_solve if chol else k2.fleet_lu_solve)(
             a, b)[0]
         ms = cs.cuda_ms(lambda: launch(dll, a, b, chol), args.reps)

@@ -10,24 +10,30 @@ and factors the gain in f32 and refines (test_torch_se.py: ~1e-12), so
 1e-9; an f64 LU against JAX's f64 ``lu_factor`` (LAPACK on both sides)
 1e-12 of the factors' scale, pivots equal. The walk repeats the kernel's
 operations in another grouping, so it is held to 1e-10 of the scale (the
-factors) and 1e-9 of max|x|, and its pivots must be getrf's."""
+factors) and 1e-9 of max|x|, and its pivots must be getrf's.
 
-import jax
-import jax.numpy as jnp
+The tests marked ``card`` run K2 itself; the JAX package is imported only
+inside the tests that compare with it, so that they also run where JAX is
+not installed::
+
+    python -m pytest tests/test_torch_fleet_solve.py --noconftest -m card"""
+
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
-import juliagrid_tpu as jg
 import juliagrid_tpu_torch as jgt
-from juliagrid_tpu.ops.linalg import lu_factor32, lu_solve_refined
 from juliagrid_tpu_torch.estimation import acse as torch_acse
 from juliagrid_tpu_torch.kernels import fleet_solve as k2
 from juliagrid_tpu_torch.kernels.nr_fill import nr_fill_ref
 from juliagrid_tpu_torch.kernels.se_fill import se_fill_ref
+from juliagrid_tpu_torch.parallel import batched_nr_solve
 from juliagrid_tpu_torch.powerflow.ac import (_masked_jacobian, _nr_rhs,
                                               _nr_update)
 
+DATA = pathlib.Path(__file__).parent / "data"
 CASES = ("case14test", "case30test", "case118")
 JAX_TOL = 1e-9
 FACTOR_TOL = 1e-12
@@ -55,6 +61,10 @@ def _nr_inputs(data_path, case, batch, seed=0):
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("case", CASES)
 def test_plain_lu_solve_matches_jax_refined_step(data_path, case, batch):
+    import jax
+    import jax.numpy as jnp
+    from juliagrid_tpu.ops.linalg import lu_factor32, lu_solve_refined
+
     arr, _, _, res = _nr_inputs(data_path, case, batch)
     a = res.jac.contiguous()
     b = _nr_rhs(arr, res)
@@ -68,6 +78,9 @@ def test_plain_lu_solve_matches_jax_refined_step(data_path, case, batch):
 
 @pytest.mark.parametrize("case", CASES)
 def test_plain_lu_factors_match_jax_lu_factor(data_path, case):
+    import jax
+    import jax.numpy as jnp
+
     _, _, _, res = _nr_inputs(data_path, case, 2, seed=1)
     a = res.jac.contiguous()
     lu = torch.empty_like(a)
@@ -86,6 +99,7 @@ def _se_pair(data_path, case, pmu_every):
     """The same SCADA + polar PMU set (every ``pmu_every``-th bus) compiled
     by the JAX package and carried to the port, and a state perturbed from
     the power flow's (numpy, seeded)."""
+    import juliagrid_tpu as jg
     from juliagrid_tpu.estimation.acse import compile_se_arrays
     from juliagrid_tpu_torch.convert import (ac_arrays_from_numpy,
                                              se_arrays_from_numpy)
@@ -118,6 +132,7 @@ def _se_pair(data_path, case, pmu_every):
                                             ("case118", 10)])
 def test_plain_cholesky_solve_matches_jax_gn_increment(data_path, case,
                                                        pmu_every):
+    import jax.numpy as jnp
     from juliagrid_tpu.estimation.acse import gn_increment
 
     jarr, jnet, tarr, tnet, vm, va = _se_pair(data_path, case, pmu_every)
@@ -141,28 +156,70 @@ H100_SM_SHARED, BLOCK_RESERVED = 233472, 1024
 
 
 @pytest.mark.parametrize("n,plan,blocks", [
-    (1, (1, 8600, False), 24),
-    (28, (29, 16308, False), 13),
-    (60, (61, 25140, True), 8),
-    (236, (237, 73716, True), 3),
-    (256, (257, 79236, True), 2),
+    (1, (1, 8600, False, 1), 24),
+    (28, (29, 16308, False, 1), 13),
+    (60, (61, 25140, True, 2), 8),
+    (181, (181, 219048, True, 1), 1),
+    (236, (237, 209908, True, 3), 1),
+    (256, (257, 153732, True, 4), 1),
 ])
 def test_fleet_plan(n, plan, blocks):
-    """A block a scenario: the panel's 32 columns of ``n | 1`` doubles, the
-    region of the pivot step and the warps' U12 blocks (1,024 doubles),
-    the right-hand side, 1 / U's diagonal, the permutation and the
-    pivots. Three case118 blocks fit an H100 SM's 228 KB (396 scenarios
-    in flight); case14 needs no working matrix in device memory."""
+    """A block a scenario. Up to order 128: the panel's 32 columns of ``n |
+    1`` doubles, the region of the pivot step and the warps' U12 blocks
+    (1,024 doubles), the right-hand side, 1 / U's diagonal, the permutation
+    and the pivots; case14 needs no working matrix in device memory. Above
+    128 the LU (256 threads, its region 2,048 doubles) keeps the trailing
+    matrix in shared memory from the first panel at which it fits: at
+    case118's 181 after one streamed panel (the 149 x 149 trailing
+    matrix), at 236 after three, at 256 after four, one block an SM."""
     got = k2.fleet_plan(n)
     assert tuple(got) == plan
-    assert got.shared_bytes == k2.shared_bytes(n)
+    assert got.shared_bytes == (
+        k2.shared_bytes(n) if n <= k2.THREADS
+        else k2.on_chip_bytes(n, got.first_on_chip))
     assert H100_SM_SHARED // (got.shared_bytes + BLOCK_RESERVED) == blocks
+
+
+@pytest.mark.parametrize("n,first", [(129, 0), (160, 0), (161, 0),
+                                     (165, 1), (181, 1), (200, 2), (236, 3),
+                                     (256, 4)])
+def test_first_on_chip_panel(n, first):
+    """The LU above 128: the first panel whose trailing matrix, at a padded
+    leading dimension, fits an H100 block beside the region, the right-hand
+    side, 1 / U's diagonal and the ints (the whole matrix up to 161); a
+    launch without factors needs device memory only to stream the panels
+    before it. A smaller room moves it later."""
+    plan = k2.fleet_plan(n)
+    assert plan.first_on_chip == first and plan.scratch == (first > 0)
+    m = n - k2.PANEL * first
+    least = (8 * (m * (m | 1) + k2.WIDE_REGION + 2 * n)
+             + 4 * (n + k2.PANEL + 1))
+    assert least <= plan.shared_bytes <= k2.H100_ROOM
+    if first:
+        assert k2.on_chip_bytes(n, first - 1) > k2.H100_ROOM
+    smaller = k2.fleet_plan(n, plan.shared_bytes - 1)
+    assert smaller.first_on_chip > first
+    assert smaller.shared_bytes < plan.shared_bytes
+
+
+def test_panel_layout_plans_are_unchanged():
+    """The Cholesky at every order and the LU up to 128 keep the panel
+    layout: no panel on chip, the bytes of one staged panel."""
+    for n in range(1, k2.CAP + 1):
+        panels = -(-n // k2.PANEL)
+        want = (n | 1, 8 * (k2.PANEL * (n | 1) + 1024 + 2 * n)
+                + 4 * (n + k2.PANEL + 1), n > k2.PANEL, panels)
+        assert tuple(k2.fleet_plan(n, cholesky=True)) == want
+        if n <= k2.THREADS:
+            assert tuple(k2.fleet_plan(n)) == want
+    assert k2.fleet_plan(236, cholesky=True).shared_bytes == 73716
 
 
 @pytest.mark.parametrize("args,match", [
     ((257,), "orders 1 to 256, not 257"),
     ((0,), "orders 1 to 256, not 0"),
-    ((236, 70_000), "cannot hold an order-236 block \\(73716 bytes"),
+    ((236, 70_000), "cannot hold an order-236 block \\(81908 bytes"),
+    ((181, 50_000), "cannot hold an order-181 block \\(66472 bytes"),
 ])
 def test_fleet_plan_refuses_above_the_cap_and_unfit_rooms(args, match):
     with pytest.raises(ValueError, match=match):
@@ -204,13 +261,16 @@ def test_lu_wrapper_refuses_bad_factor_buffers():
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     a, b = _good()
-    before = (k2.fleet_lu_solve.launches, k2.fleet_cholesky_solve.launches)
+    def counts():
+        return (k2.fleet_lu_solve.launches, k2.fleet_lu_solve.on_chip,
+                k2.fleet_cholesky_solve.launches)
+
+    before = counts()
     for fn, ref in ((k2.fleet_lu_solve, k2.fleet_lu_solve_ref),
                     (k2.fleet_cholesky_solve, k2.fleet_cholesky_solve_ref)):
         got, want = fn(a * 2, b), ref(a * 2, b)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert (k2.fleet_lu_solve.launches,
-            k2.fleet_cholesky_solve.launches) == before
+    assert counts() == before
 
 
 @pytest.mark.parametrize("case", ["case14test", "case118"])
@@ -366,21 +426,33 @@ def _factor_panel_cholesky(ls, y, k0, nf):
     return np.asarray(rcps), info
 
 
-def _walk(a, b, chol=False, factors=False):
+def _walk(a, b, chol=False, factors=False, first=None):
     """What one launch computes for one scenario: ``(x, info, w, piv)``,
     ``w`` the working matrix (the factors when asked for) and the pivots
-    1-based."""
+    1-based. ``first`` is the LU above 128's first panel factored in shared
+    memory (``fleet_plan(n).first_on_chip``; None: none, the panel
+    layout): the on-chip matrix ``chip`` holds rows and columns ``ks = 32
+    first`` on (NaN elsewhere), the last streamed panel's update writes the
+    rows below it there, the panels from ``first`` on are staged from it and
+    updated in place, the back substitution reads their U there, and the
+    factors take its part at the end."""
     n, panel = len(b), k2.PANEL
+    panels = -(-n // panel)
+    first = panels if first is None else first
+    ks = panel * first
     w = np.full((n, n), np.nan)
+    chip = np.full((n, n), np.nan)
+    if first == 0:
+        chip[:] = a
     y = b.astype(float).copy()
     urcp = np.zeros(n)
     pivots = np.zeros(n, dtype=np.int64)
     info = 0
-    panels = -(-n // panel)
     for p in range(panels):
         k0 = p * panel
         nf = min(panel, n - k0)
-        frm = a if p == 0 else w.copy()
+        on = p >= first
+        frm = (chip if on else a if p == 0 else w).copy()
         ls = np.full((n, nf), np.nan)
         ls[k0:] = frm[k0:, k0:k0 + nf]  # staged
         src = np.arange(n)
@@ -392,8 +464,13 @@ def _walk(a, b, chol=False, factors=False):
         info = info or bad
         urcp[k0:k0 + nf] = rcps
         pivots[k0:k0 + nf] = np.asarray(piv) + 1
-        rend = n if chol or factors else k0 + nf
-        w[k0:rend, k0:k0 + nf] = ls[k0:rend]
+        if on:
+            chip[k0:, k0:k0 + nf] = ls[k0:]
+        else:
+            rend = n if chol or factors else k0 + nf
+            w[k0:rend, k0:k0 + nf] = ls[k0:rend]
+        top = chip if on else w
+        low = chip if on or p == first - 1 else w
         # the warps' groups of 8 trailing columns
         for c0 in range(k0 + nf, n, k2.COLUMNS):
             cols = slice(c0, min(c0 + k2.COLUMNS, n))
@@ -404,19 +481,32 @@ def _walk(a, b, chol=False, factors=False):
             u = frm[src[k0:k0 + panel], cols].copy()
             for t in range(panel):
                 u[t + 1:] -= np.outer(ls[k0 + t + 1:k0 + panel, t], u[t])
-            w[k0 + panel:, cols] = frm[src[k0 + panel:], cols] - \
+            low[k0 + panel:, cols] = frm[src[k0 + panel:], cols] - \
                 ls[k0 + panel:] @ u
-            w[k0:k0 + panel, cols] = u
+            top[k0:k0 + panel, cols] = u
         if factors and not chol:
             for t in range(nf):
-                w[[k0 + t, piv[t]], :k0] = w[[piv[t], k0 + t], :k0]
+                rows = [k0 + t, piv[t]]
+                w[rows, :min(k0, ks)] = w[rows[::-1], :min(k0, ks)]
+                chip[rows, ks:k0] = chip[rows[::-1], ks:k0]
+    if factors:
+        w[ks:, ks:] = chip[ks:, ks:]
     x = np.zeros(n)
     for p in range(panels - 1, -1, -1):
         k0 = p * panel
         nf = min(panel, n - k0)
         cols = range(k0, k0 + nf)
-        # U[:, c] for the LU, Lᵀ[:, c] = L[c, :] for the Cholesky
-        col = (lambda c: w[c, :c]) if chol else (lambda c: w[:c, c])
+
+        def col(c):
+            """U[:c, c] for the LU (its rows from ks on, of a column from ks
+            on, in the on-chip matrix), Lᵀ[:c, c] = L[c, :c] for the
+            Cholesky."""
+            if chol:
+                return w[c, :c]
+            if c < ks:
+                return w[:c, c]
+            return np.concatenate([w[:ks, c], chip[ks:c, c]])
+
         with np.errstate(divide="ignore", invalid="ignore"):
             for c in reversed(cols):
                 x[c] = y[c] * urcp[c]
@@ -460,6 +550,37 @@ def test_walk_of_the_kernel_layout_lu(data_path, n, kind):
     np.testing.assert_array_equal(got_piv, piv)
     assert np.abs(got_lu - lu).max() <= WALK_TOL * np.abs(lu).max()
     assert np.abs(x - want).max() <= JAX_TOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n,kind,room", [
+    (n, kind, k2.H100_ROOM) for n in ORDERS
+    for kind in ("normal", "dominant")] + [
+    (n, kind, room) for n, kind in ((181, "case118"), (236, "case118"),
+                                    (181, "singular"), (200, "singular"),
+                                    (200, "normal"))
+    for room in (k2.H100_ROOM, 150_000)])
+def test_walk_on_chip_phase_gives_the_panel_walks_bits(data_path, n, kind,
+                                                       room):
+    """The LU above 128 with its working matrix in shared memory from
+    ``fleet_plan(n, room).first_on_chip`` on (an H100's room, and a smaller
+    one that streams more panels; up to 128 no panel is on chip): x, info,
+    the pivots and the factors are the panel layout's, bit for bit."""
+    rng = np.random.default_rng(n)
+    singular = kind == "singular"
+    a = _lu_input(data_path, n, "normal" if singular else kind, rng)
+    if singular:
+        a[:, n // 2] = 0.0
+    b = rng.standard_normal(n)
+    first = k2.fleet_plan(n, room).first_on_chip
+    assert (first < -(-n // k2.PANEL)) == (n > k2.THREADS)
+    for factors in (False, True):
+        want = _walk(a, b, factors=factors)
+        got = _walk(a, b, factors=factors, first=first)
+        assert got[1] == want[1] == (n // 2 + 1 if singular else 0)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[3], want[3])
+        if factors:
+            np.testing.assert_array_equal(got[2], want[2])
 
 
 @pytest.mark.parametrize("n", [1, 17, 31, 32, 33, 60, 128, 129, 236, 256])
@@ -518,3 +639,89 @@ def test_walk_pivot_step_takes_nan_as_largest_and_ties_low():
     col[170] = np.nan
     assert _pivot(col, 0) == 170
     assert _pivot(col, 171) == 171
+
+
+# --------------------------------------------------------------------------
+# On the card: the LU above 128 factors on chip
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def card():
+    """The CUDA device; skips the test where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _card_lu_input(kind, batch, card):
+    """case118's NR Jacobians at the unknowns' order (181) at ``batch``
+    perturbed states, or ``batch`` random order-236 matrices ``2 I + N(0,
+    1/n)`` with their rows shuffled, the second with a zero column (numpy,
+    seeded); and right-hand sides."""
+    if kind == "case118":
+        arr, _, _, res = _nr_inputs(DATA, "case118", batch, seed=5)
+        a, b = res.jac.contiguous(), _nr_rhs(arr, res)
+    else:
+        rng = np.random.default_rng(236)
+        n = 236
+        m = rng.standard_normal((batch, n, n)) / np.sqrt(n) + 2 * np.eye(n)
+        a = torch.tensor(np.stack([x[rng.permutation(n)] for x in m]))
+        a[1, :, 100] = 0.0
+        b = torch.tensor(rng.standard_normal((batch, n)))
+    return a.to(card), b.to(card)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", ["case118", "random236"])
+def test_card_wide_lu_takes_the_on_chip_path(card, kind):
+    """K2's LU above 128 at 64 scenarios counts each launch in
+    ``fleet_lu_solve.on_chip``; x is the plain version's to the parity
+    tolerance, info and the pivots are getrf's, the factors within the
+    walk's tolerance of its scale, and writing the factors leaves x's
+    bits."""
+    a, b = _card_lu_input(kind, 64, card)
+    n = a.shape[1]
+    assert k2.fleet_plan(n).first_on_chip < -(-n // k2.PANEL)
+    before = (k2.fleet_lu_solve.launches, k2.fleet_lu_solve.on_chip)
+    x, info = k2.fleet_lu_solve(a, b)
+    lu = torch.empty_like(a)
+    piv = torch.empty(a.shape[:2], dtype=torch.int32, device=card)
+    again, info2 = k2.fleet_lu_solve(a, b, lu=lu, piv=piv)
+    after = (k2.fleet_lu_solve.launches, k2.fleet_lu_solve.on_chip)
+    assert after[0] - before[0] == after[1] - before[1] == 2
+    rlu = torch.empty_like(a, device="cpu")
+    rpiv = torch.empty(a.shape[:2], dtype=torch.int32)
+    want, rinfo = k2.fleet_lu_solve_ref(a.cpu(), b.cpu(), lu=rlu, piv=rpiv)
+    assert torch.equal(info.cpu(), rinfo) and torch.equal(info2, info)
+    assert bool((rinfo != 0).any()) == (kind == "random236")
+    good = rinfo == 0
+    x = x.cpu()
+    scale = want[good].abs().amax(-1)
+    assert float(((x[good] - want[good]).abs().amax(-1) / scale).max()) \
+        <= JAX_TOL
+    assert torch.equal(x.view(torch.int64), again.cpu().view(torch.int64))
+    assert torch.equal(piv.cpu()[good], rpiv[good])
+    ferr = ((lu.cpu()[good] - rlu[good]).abs().amax((-2, -1))
+            / rlu[good].abs().amax((-2, -1)))
+    assert float(ferr.max()) <= WALK_TOL
+
+
+@pytest.mark.card
+def test_card_case118_fleet_launches_every_lu_on_chip(card):
+    """``batched_nr_solve`` on case118 (64 scenarios, each bus's P and Q
+    scaled by 1 + 0.05 N(0, 1)): every K2 launch of the call factors on
+    chip, and every scenario converges."""
+    analysis = jgt.newton_raphson(jgt.power_system(str(DATA / "case118.m")),
+                                  device=card)
+    arr = analysis.arrays
+    vm, va = (x.expand(64, -1).contiguous() for x in analysis._state())
+    rng = np.random.default_rng(118)
+    factor = torch.tensor(1.0 + 0.05 * rng.standard_normal(vm.shape),
+                          device=card)
+    before = (k2.fleet_lu_solve.launches, k2.fleet_lu_solve.on_chip)
+    out = batched_nr_solve(arr, vm, va, arr.p_sched * factor,
+                           arr.q_sched * factor)
+    launches = k2.fleet_lu_solve.launches - before[0]
+    assert launches > 0
+    assert k2.fleet_lu_solve.on_chip - before[1] == launches
+    assert bool(out[3].all())
