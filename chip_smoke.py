@@ -196,10 +196,9 @@ from juliagrid_tpu_torch.estimation import acse as acse_mod
 from juliagrid_tpu_torch.estimation import dcse as dcse_mod
 from juliagrid_tpu_torch.estimation import pmuse as pmuse_mod
 from juliagrid_tpu_torch.estimation.acse import (_gain_equations,
-                                                 _normal_equations,
                                                  _se_solve, _solve_normal,
-                                                 _weighted, build_h,
-                                                 compile_se_arrays,
+                                                 _w_apply_vec, _weighted,
+                                                 build_h, compile_se_arrays,
                                                  gain_table)
 from juliagrid_tpu_torch.estimation.baddata import (_deactivate, _host_csr,
                                                     _lnr_detect,
@@ -635,7 +634,7 @@ def phase0():
     # one nvcc per source, started together
     kernels = (k1, k2, k3, k4, k5, k6, k7, k8)
     with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
-        for build in [pool.submit(k._library) for k in kernels]:
+        for build in [pool.submit(k.LIBRARY.load) for k in kernels]:
             build.result()
     build_s = time.perf_counter() - t0
     print(f"phase 0 device: {torch.cuda.get_device_name(0)} ({card}), "
@@ -765,14 +764,16 @@ def k2_name(chol):
 
 @contextlib.contextmanager
 def k2_plain_barred():
-    """While active, a CUDA tensor that reaches K2's plain versions fails
-    the run: the main path must launch K2 for every solve it sends K2."""
+    """While active, a CUDA tensor of an order K2 takes (up to
+    ``k2.CAP``) that reaches K2's plain versions fails the run: the main
+    path must launch K2 for every solve of those orders."""
     saved = k2.fleet_lu_solve_ref, k2.fleet_cholesky_solve_ref
 
     def barred(fn):
         def guard(a, *args, **kw):
-            check(a.device.type != "cuda",
-                  f"{fn.__name__} got a CUDA tensor on the main path")
+            check(a.device.type != "cuda" or a.shape[-1] > k2.CAP,
+                  f"{fn.__name__} got a CUDA tensor of order "
+                  f"{a.shape[-1]} on the main path")
             return fn(a, *args, **kw)
         return guard
 
@@ -1296,10 +1297,30 @@ def se_launches():
                                K8=k8.gain_fill.launches)
 
 
+def dense_ac_gain(arr, res):
+    """The AC estimators' dense route, which K8 replaced: the gain ``G =
+    (W½H)ᵀ(W½H) + HᵀPH + e_s e_sᵀ`` and right-hand side ``HᵀW r`` from K3's
+    dense output ``res`` (P the correlated pair off-diagonals, e_s the
+    slack column), one batched f64 GEMM. Scales ``res.jac`` to W½H in
+    place."""
+    jac = res.jac
+    rhs = (jac.mT @ _w_apply_vec(arr, res.r)[..., None])[..., 0]
+    if arr.pair_r1.shape[0]:
+        # the pair rows, gathered before W½ scales H in place
+        h1 = jac[:, arr.pair_r1] * arr.pair_off[:, None]
+        h2 = jac[:, arr.pair_r2]
+    jac.mul_(arr.w.sqrt()[:, None])
+    gain = jac.mT @ jac
+    if arr.pair_r1.shape[0]:
+        gain += h1.mT @ h2 + h2.mT @ h1
+    gain[:, arr.slack, arr.slack] += 1.0  # slack-column identity
+    return gain, rhs
+
+
 def dense_gain(arr, net, vm, va, mean, fill=None, gain=None):
     """The dense route K8 replaced: K3's dense H, then the gain GEMM
-    (``acse._normal_equations``)."""
-    return _normal_equations(arr, k3.se_fill(arr, net, vm, va, mean))
+    (``dense_ac_gain``)."""
+    return dense_ac_gain(arr, k3.se_fill(arr, net, vm, va, mean))
 
 
 def dense_dc_gain(arr):
@@ -1339,10 +1360,9 @@ def dense_gain_route():
 @contextlib.contextmanager
 def gain_plain_barred():
     """While active, a CUDA tensor that reaches the plain versions of K8
-    or of K3's entry mode, or the dense route, fails the run: the main
-    path must launch K3's entry mode and K8 for every gain it forms."""
-    saved = (k8.gain_fill_ref, k3.se_fill_entries_ref,
-             acse_mod._normal_equations)
+    or of K3's entry mode fails the run: the main path must launch K3's
+    entry mode and K8 for every gain it forms."""
+    saved = (k8.gain_fill_ref, k3.se_fill_entries_ref)
 
     def barred(fn, tensor_of):
         def guard(*args, **kw):
@@ -1353,12 +1373,10 @@ def gain_plain_barred():
 
     k8.gain_fill_ref = barred(saved[0], lambda args: args[1])
     k3.se_fill_entries_ref = barred(saved[1], lambda args: args[2])
-    acse_mod._normal_equations = barred(saved[2], lambda args: args[1].r)
     try:
         yield
     finally:
-        (k8.gain_fill_ref, k3.se_fill_entries_ref,
-         acse_mod._normal_equations) = saved
+        k8.gain_fill_ref, k3.se_fill_entries_ref = saved
 
 
 def compare_k3_entries(label, arr, net, vm, va, mean):
@@ -1486,12 +1504,12 @@ def compare_k8(label, table, vals, w, off, r, dense=None):
 
 def dense_gain_ms(arr, net, vm, va, mean, reps):
     """CUDA-event ms of the dense route's gain stage alone
-    (``_normal_equations`` on a fresh dense H each run: it scales H in
+    (``dense_ac_gain`` on a fresh dense H each run: it scales H in
     place)."""
     times = []
     for _ in range(reps + 1):
         res = k3.se_fill(arr, net, vm, va, mean)
-        times.append(event_ms(lambda: _normal_equations(arr, res))[0])
+        times.append(event_ms(lambda: dense_ac_gain(arr, res))[0])
         del res
     return sum(times[1:]) / reps
 
@@ -1637,7 +1655,7 @@ def se_stages(dense):
     if dense:
         return (lambda arr, net, vm, va, mean: k3.se_fill(arr, net, vm, va,
                                                           mean),
-                lambda arr, net, res: _normal_equations(arr, res))
+                lambda arr, net, res: dense_ac_gain(arr, res))
     return (k3.se_fill_entries,
             lambda arr, net, res: k8.gain_fill(
                 gain_table(arr, net), res.vals, arr.w, arr.pair_off, res.r))

@@ -39,8 +39,7 @@ import torch
 
 from ..config import resolve_device
 from ..kernels import fleet_solve, gain_fill
-from ..kernels.se_fill import (SeFill, SeFillTable, se_fill,
-                               se_fill_entries)
+from ..kernels.se_fill import SeFillTable, se_fill, se_fill_entries
 from ..ops import equations as eq
 from ..ops import linalg
 from ..ops.equations import BRANCH_GROUPS
@@ -598,37 +597,12 @@ def _col_mask(arr: SeArrays, n: int, like) -> torch.Tensor:
     return mask
 
 
-def _normal_equations(arr: SeArrays, res):
-    """Gain ``G = (W½H)ᵀ(W½H) + HᵀPH + e_s e_sᵀ`` and right-hand side
-    ``HᵀW r`` from K3's dense output ``res`` (P the correlated pair
-    off-diagonals, e_s the slack column): one batched f64 matmul. Scales
-    ``res.jac`` to W½H in place. The dense route K8 replaced: no solve
-    calls it, it stays as the yardstick K8 is timed against."""
-    jac = res.jac
-    rhs = (jac.mT @ _w_apply_vec(arr, res.r)[..., None])[..., 0]
-    if arr.pair_r1.shape[0]:
-        # the pair rows, gathered before W½ scales H in place
-        h1 = jac[:, arr.pair_r1] * arr.pair_off[:, None]
-        h2 = jac[:, arr.pair_r2]
-    jac.mul_(arr.w.sqrt()[:, None])
-    gain = jac.mT @ jac
-    if arr.pair_r1.shape[0]:
-        gain += h1.mT @ h2 + h2.mT @ h1
-    gain[:, arr.slack, arr.slack] += 1.0  # slack-column identity
-    return gain, rhs
-
-
 def _solve_normal(arr: SeArrays, gain, rhs):
     """f64 Cholesky solve of the normal equations: ``dx [B, 2n]``,
     ``max|dx| [B]`` and ``rel [B]`` = ‖rhs − G dx‖ / ‖rhs‖ (inf where the
-    factorization fails). Up to ``fleet_solve.CAP`` unknowns one K2 launch
-    (``fleet_cholesky_solve``; its plain version on the CPU), above it
-    ``torch.linalg`` (cuSOLVER on the card)."""
-    if gain.shape[-1] <= fleet_solve.CAP:
-        dx, info = fleet_solve.fleet_cholesky_solve(gain, rhs)
-    else:
-        chol, info = torch.linalg.cholesky_ex(gain)
-        dx = torch.cholesky_solve(rhs[..., None], chol)[..., 0]
+    factorization fails): ``fleet_cholesky_solve``, which picks K2 or the
+    library route by device and order."""
+    dx, info = fleet_solve.fleet_cholesky_solve(gain, rhs)
     resid = rhs - (gain @ dx[..., None])[..., 0]
     rel = resid.norm(dim=-1) / (rhs.norm(dim=-1) + 1e-300)
     rel = torch.where(info != 0, torch.inf, rel)
@@ -657,16 +631,12 @@ def _gain_equations(arr: SeArrays, net: AcArrays, vm, va, mean,
                     fill=se_fill_entries, gain=gain_fill.gain_fill):
     """Gain ``G = HᵀWH + HᵀPH + e_s e_sᵀ`` and right-hand side ``HᵀW r``
     (W with the correlated pairs) for ``[B, n]`` states and ``[B, m]``
-    means: one launch of K3's entry mode, one of K8. A ``fill`` that gives
-    the dense H (``se_fill``, ``se_fill_ref``) takes the dense route,
-    ``_normal_equations``. Marks the stages ``fill`` and ``gain``
-    (``utils.profiling.mark``)."""
+    means: one launch of K3's entry mode, one of K8. Marks the stages
+    ``fill`` and ``gain`` (``utils.profiling.mark``)."""
     try:
         mark("fill")
         res = fill(arr, net, vm, va, mean)
         mark("gain")
-        if isinstance(res, SeFill):
-            return _normal_equations(arr, res)
         return gain(gain_table(arr, net), res.vals, arr.w, arr.pair_off,
                     res.r)
     finally:

@@ -1,9 +1,25 @@
-"""Build the port's CUDA sources into shared libraries loaded with ctypes.
+"""Build the port's CUDA sources into shared libraries loaded with ctypes,
+and bind the kernel wrappers to them.
 
-Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher that takes
+Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` launchers that take
 raw device pointers (``tensor.data_ptr()``, or a ctypes struct of them) and
-a stream (``launch_context``), so the build needs neither PyTorch's headers
-nor ninja: one ``nvcc`` call of a few seconds per source.
+a stream, so the build needs neither PyTorch's headers nor ninja: one
+``nvcc`` call of a few seconds per source.
+
+The binding is decided here once for every wrapper under ``kernels/``:
+
+- ``Library`` declares a library's entry points (name -> restype,
+  argtypes) where it is loaded, with ``<name>_error_string``, and
+  ``Library.launch`` is the one way a launcher is called: on the device of
+  its tensors (made current where it is not), with that device's current
+  stream as the last argument, and a ``RuntimeError`` naming the entry
+  point and the library's error string unless it returns 0.
+- ``Table`` caches the tensors a kernel reads through raw pointers:
+  keyed by one of them, holding the others (not the key, so that the entry
+  goes when the key does), built anew when any held tensor is another
+  object, each checked once at the build for its dtype and contiguity.
+  ``Struct`` is a ``Table`` mirrored by a C struct, whose address a
+  launcher takes.
 
 The library is built at first use into ``build/juliagrid_tpu_torch/`` at the
 root of the checkout. Its file name carries a hash of the source, the
@@ -14,16 +30,17 @@ processes share one build.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import fcntl
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
 from pathlib import Path
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..utils.profiling import default_timings
 
@@ -111,12 +128,120 @@ def load_library(name: str) -> ctypes.CDLL:
         return ctypes.CDLL(str(so))
 
 
-def launch_context(device: torch.device):
-    """``(context, stream)`` for a launch on ``device``: the context makes
-    ``device`` current (nothing to do when it already is) and ``stream`` is
-    the raw handle of its current stream."""
-    current = torch.cuda.current_device()
-    index = current if device.index is None else device.index
-    ctx = (contextlib.nullcontext() if index == current
-           else torch.cuda.device(index))
-    return ctx, torch._C._cuda_getCurrentRawStream(index)
+#: ctypes kinds of the entry points' parameters: a pointer (a tensor's
+#: ``data_ptr()``, a struct's address, a stream), an int, an int64, a double
+PTR, INT, I64, F64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_double)
+
+
+class Library:
+    """The library built from ``csrc/<name>.cu``, its entry points declared
+    once as ``entry=(restype, argtypes)``; ``<name>_error_string`` is
+    declared with them. Loaded (built first if need be) at the first
+    ``load``, never at import."""
+
+    def __init__(self, name: str, **entries):
+        self.name = name
+        self.entries = {**entries,
+                        f"{name}_error_string": (ctypes.c_char_p, [INT])}
+        self.dll = None
+
+    def bind(self, dll: ctypes.CDLL) -> ctypes.CDLL:
+        """``dll`` with the entry points' signatures declared on it: this
+        library's build, or a copy of its source built otherwise."""
+        for entry, (restype, argtypes) in self.entries.items():
+            fn = getattr(dll, entry)
+            fn.restype, fn.argtypes = restype, list(argtypes)
+        return dll
+
+    def load(self) -> ctypes.CDLL:
+        """The bound library (``load_library`` once)."""
+        if self.dll is None:
+            self.dll = self.bind(load_library(self.name))
+        return self.dll
+
+    def check(self, entry: str, code: int) -> None:
+        """Raise ``RuntimeError`` naming ``entry`` and the library's error
+        string unless ``code`` is 0."""
+        if code != 0:
+            error = getattr(self.load(), f"{self.name}_error_string")
+            raise RuntimeError(f"{entry} failed: {error(code).decode()}")
+
+    def launch(self, entry: str, device: torch.device, *args) -> None:
+        """Call the launcher ``entry`` with ``args`` and, last, the raw
+        handle of ``device``'s current stream, ``device`` current for the
+        call (nothing to do when it already is); ``check`` its code."""
+        fn = getattr(self.load(), entry)
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index == current:
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        self.check(entry, code)
+
+
+class Entry:
+    """One table in a ``Table``'s cache: the tensors it holds, its struct
+    and the struct's address (None without one), and ``extra``, what its
+    wrapper derives from it once (None until then)."""
+
+    __slots__ = ("held", "struct", "address", "extra")
+
+    def __init__(self, held: tuple, struct):
+        self.held, self.struct = held, struct
+        self.address = None if struct is None else ctypes.addressof(struct)
+        self.extra = None
+
+
+class Table:
+    """Tensors a kernel reads through raw pointers, each of the dtype
+    ``dtypes`` names for it (field name -> dtype), cached per table."""
+
+    def __init__(self, name: str, dtypes: dict):
+        self.name, self.dtypes = name, dtypes
+        self.cache = WeakIdKeyDictionary()
+
+    def get(self, key: str, tensors: dict, **ints) -> Entry:
+        """The entry of the table ``tensors`` (field name -> tensor),
+        keyed by its field ``key`` and holding the others; built anew when
+        one of them is another object than the entry holds. A build
+        checks every tensor's dtype and contiguity (``TypeError`` naming
+        the field); ``ints`` go into the struct."""
+        held = list(tensors.values())
+        del held[list(tensors).index(key)]
+        entry = self.cache.get(tensors[key])
+        if entry is None or len(entry.held) != len(held) or not all(
+                map(operator.is_, entry.held, held)):
+            for name, t in tensors.items():
+                want = self.dtypes[name]
+                if t.dtype != want or not t.is_contiguous():
+                    raise TypeError(f"{self.name}.{name} must be contiguous "
+                                    f"{want}, got {t.dtype} of strides "
+                                    f"{t.stride()}")
+            entry = Entry(tuple(held), self.build(tensors, ints))
+            self.cache[tensors[key]] = entry
+        return entry
+
+    def build(self, tensors: dict, ints: dict):
+        """The struct of a checked table: none for a plain ``Table``."""
+        return None
+
+
+class Struct(Table):
+    """A ``Table`` mirrored by the C struct ``name`` of ``csrc/``: the
+    dtypes' fields as pointers in their order, then ``ints``, each a name
+    (an ``int``) or ``(name, k)`` (an ``int[k]``). A field the table does
+    not give, or an empty tensor, is a null pointer."""
+
+    def __init__(self, name: str, dtypes: dict, ints: tuple):
+        super().__init__(name, dtypes)
+        fields = [(field, PTR) for field in dtypes] + [
+            (i, INT) if isinstance(i, str) else (i[0], INT * i[1])
+            for i in ints]
+        self.struct = type(name, (ctypes.Structure,), {"_fields_": fields})
+
+    def build(self, tensors: dict, ints: dict):
+        return self.struct(**{name: t.data_ptr() if t.numel() else None
+                              for name, t in tensors.items()}, **ints)

@@ -17,18 +17,19 @@ port solves in f64 directly. Two wrappers, one kernel:
   read (as ``cholesky_ex`` reads it), ``info`` the first pivot that is not
   positive.
 
-A CUDA tensor goes to the kernel (``csrc/fleet_solve.cu``, which describes
-its mapping and what bounds it: a block a scenario; the Cholesky and the LU
-up to ``THREADS`` keep the working matrix in device memory and stage a
-panel of ``PANEL`` columns in shared memory; the LU above ``THREADS``
-streams its first panels so and keeps the trailing matrix in shared memory
-once it fits there, one block an SM; ``fleet_plan`` gives the layout), and
-the call raises if the kernel does not
-build or launch or if ``N`` is above ``CAP``; a CPU tensor goes to the plain
-versions ``fleet_lu_solve_ref`` (``lu_factor_ex`` + ``lu_solve``) and
-``fleet_cholesky_solve_ref`` (``cholesky_ex`` + ``cholesky_solve``). Above
-``CAP`` the call sites keep ``torch.linalg`` (cuSOLVER on the card): the
-10k-bus Newton-Raphson's 17,999² getrf and the large estimators' gains.
+Which solver runs at which order is decided here, for every call site. A
+CUDA tensor of order 1 to ``CAP`` goes to the kernel (``csrc/fleet_solve.cu``,
+which describes its mapping and what bounds it: a block a scenario; the
+Cholesky and the LU up to ``THREADS`` keep the working matrix in device
+memory and stage a panel of ``PANEL`` columns in shared memory; the LU above
+``THREADS`` streams its first panels so and keeps the trailing matrix in
+shared memory once it fits there, one block an SM; ``fleet_plan`` gives the
+layout), and the call raises if the kernel does not build or launch. A CPU
+tensor, or any other order, goes to the plain versions
+``fleet_lu_solve_ref`` (``lu_factor_ex`` + ``lu_solve``) and
+``fleet_cholesky_solve_ref`` (``cholesky_ex`` + ``cholesky_solve``), the
+library route (cuSOLVER on the card): above ``CAP``, the 10k-bus
+Newton-Raphson's getrf and the large estimators' gains.
 ``fleet_lu_solve.launches`` and ``fleet_cholesky_solve.launches`` count
 kernel launches, ``fleet_lu_solve.on_chip`` the LU launches that factored
 panels in place in shared memory.
@@ -43,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._build import I64, INT, PTR
 
 #: the largest N K2 takes (``kMaxN``: a thread a row while a panel is
 #: factored, two rows a thread)
@@ -120,8 +122,8 @@ def fleet_plan(n: int, room: int = H100_ROOM,
     answer (``blocks_per_sm``). Raises above ``CAP`` or where a block does
     not fit."""
     if not 1 <= n <= CAP:
-        raise ValueError(f"K2 solves orders 1 to {CAP}, not {n}; above "
-                         f"{CAP} the call sites keep torch.linalg")
+        raise ValueError(f"K2 solves orders 1 to {CAP}, not {n}; the "
+                         f"wrappers take the plain versions at the others")
     panels = -(-n // PANEL)
     if cholesky or n <= THREADS:
         first, nbytes, scratch = panels, shared_bytes(n), n > PANEL
@@ -154,11 +156,14 @@ def _check(a, b, name):
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, not "
                          f"{a.device}")
-    if a.shape[0] < 1 or a.shape[1] < 1:
+    if a.shape[0] < 1:
         raise ValueError(f"{name}: empty batch {tuple(a.shape)}")
-    if a.shape[1] > CAP:
-        raise ValueError(f"{name}: order {a.shape[1]} is above K2's cap "
-                         f"of {CAP}; the call sites keep torch.linalg there")
+
+
+def _launches_k2(a) -> bool:
+    """Whether K2 solves the fleet ``a``: a CUDA tensor of order 1 to
+    ``CAP``; anything else takes the plain version."""
+    return a.device.type == "cuda" and 1 <= a.shape[1] <= CAP
 
 
 def _check_out(a, lu, piv):
@@ -182,7 +187,7 @@ def fleet_lu_solve(a: torch.Tensor, b: torch.Tensor, *, lu=None, piv=None):
     the 1-based pivots into ``piv [B, N]`` (int32) where given."""
     _check(a, b, "fleet_lu_solve")
     _check_out(a, lu, piv)
-    if a.device.type == "cpu":
+    if not _launches_k2(a):
         return fleet_lu_solve_ref(a, b, lu=lu, piv=piv)
     x, info = _launch(a, b, lu, piv, cholesky=False)
     n = a.shape[1]
@@ -200,7 +205,7 @@ def fleet_cholesky_solve(g: torch.Tensor, b: torch.Tensor):
     """``x [B, N]`` and ``info [B]`` (int32) of ``g [B, N, N] x = b [B, N]``
     for symmetric positive definite ``g``, by Cholesky."""
     _check(g, b, "fleet_cholesky_solve")
-    if g.device.type == "cpu":
+    if not _launches_k2(g):
         return fleet_cholesky_solve_ref(g, b)
     x, info = _launch(g, b, None, None, cholesky=True)
     fleet_cholesky_solve.launches += 1
@@ -230,44 +235,28 @@ def fleet_cholesky_solve_ref(g, b):
     return torch.cholesky_solve(b[..., None], chol)[..., 0], info
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("fleet_solve")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fleet_solve_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    lib.fleet_solve_launch.restype = i32
-    lib.fleet_solve_room.argtypes = [i32]
-    lib.fleet_solve_room.restype = ctypes.c_int64
-    lib.fleet_solve_shared_bytes.argtypes = [i32, i32, ctypes.c_int64,
-                                             ptr]
-    lib.fleet_solve_shared_bytes.restype = ctypes.c_int64
-    lib.fleet_solve_blocks_per_sm.argtypes = [i32, i32, i32]
-    lib.fleet_solve_blocks_per_sm.restype = i32
-    lib.fleet_solve_attributes.argtypes = [i32, i32, ptr]
-    lib.fleet_solve_attributes.restype = i32
-    lib.fleet_solve_config.argtypes = [ptr]
-    lib.fleet_solve_config.restype = None
-    lib.fleet_solve_error_string.argtypes = [i32]
-    lib.fleet_solve_error_string.restype = ctypes.c_char_p
+LIBRARY = _build.Library(
+    "fleet_solve",
+    fleet_solve_launch=(INT, [PTR] * 6 + [INT] * 5 + [PTR]),
+    fleet_solve_room=(I64, [INT]),
+    fleet_solve_shared_bytes=(I64, [INT, INT, I64, PTR]),
+    fleet_solve_blocks_per_sm=(INT, [INT, INT, INT]),
+    fleet_solve_attributes=(INT, [INT, INT, PTR]),
+    fleet_solve_config=(None, [PTR]))
+
+
+@functools.lru_cache(maxsize=128)
+def _plan(device: int, n: int, cholesky: bool) -> FleetPlan:
+    """``fleet_plan`` on ``device``, whose room is queried once; the
+    library's configuration (threads, panel, cap) and its layout (shared
+    bytes, first on-chip panel) must be the plan's."""
+    lib = LIBRARY.load()
     config = (ctypes.c_int * 3)()
     lib.fleet_solve_config(config)
     if tuple(config) != (THREADS, PANEL, CAP):
         raise RuntimeError(f"fleet_solve was built for (threads, panel, "
                            f"cap) {tuple(config)}, the wrapper plans "
                            f"{(THREADS, PANEL, CAP)}")
-    return lib
-
-
-def _error(lib, code: int) -> str:
-    return lib.fleet_solve_error_string(code).decode()
-
-
-@functools.lru_cache(maxsize=128)
-def _plan(device: int, n: int, cholesky: bool) -> FleetPlan:
-    """``fleet_plan`` on ``device``, whose room is queried once; the
-    library's layout (shared bytes, first on-chip panel) must be the
-    plan's."""
-    lib = _library()
     room = lib.fleet_solve_room(device)
     if room <= 0:
         raise RuntimeError(f"fleet_solve cannot query cuda:{device}")
@@ -287,10 +276,8 @@ def blocks_per_sm(n: int, cholesky: bool = False, device: int = 0) -> int:
     the card holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``:
     shared memory, threads and registers)."""
     _plan(device, n, cholesky)
-    out = _library().fleet_solve_blocks_per_sm(n, int(cholesky), device)
-    if out < 0:
-        raise RuntimeError("fleet_solve occupancy query failed: "
-                           + _error(_library(), -out))
+    out = LIBRARY.load().fleet_solve_blocks_per_sm(n, int(cholesky), device)
+    LIBRARY.check("fleet_solve_blocks_per_sm", -min(out, 0))
     return out
 
 
@@ -300,18 +287,16 @@ def kernel_attributes(n: int, cholesky: bool = False) -> tuple:
     ptxas spilled). Orders up to ``THREADS`` have their own kernel, one
     row a thread in the panel's column steps."""
     out = (ctypes.c_int * 3)()
-    err = _library().fleet_solve_attributes(n, int(cholesky), out)
-    if err != 0:
-        raise RuntimeError("fleet_solve attribute query failed: "
-                           + _error(_library(), err))
+    LIBRARY.check("fleet_solve_attributes", LIBRARY.load()
+                  .fleet_solve_attributes(n, int(cholesky), out))
     return out[0], out[1]
 
 
 def _launch(a, b, lu, piv, cholesky: bool):
-    """One K2 launch on the current stream of ``a``'s device: a block a
-    scenario, the working matrix ``lu`` when the factors are asked for,
-    else a scratch tensor unless one panel, or shared memory from the first
-    panel on, holds the whole matrix."""
+    """One K2 launch (``_build.Library.launch``): a block a scenario, the
+    working matrix ``lu`` when the factors are asked for, else a scratch
+    tensor unless one panel, or shared memory from the first panel on,
+    holds the whole matrix."""
     bsz, n = a.shape[:2]
     device = a.device
     plan = _plan(device.index, n, cholesky)
@@ -320,15 +305,10 @@ def _launch(a, b, lu, piv, cholesky: bool):
     work = lu
     if work is None and plan.scratch:
         work = torch.empty_like(a)
-    ctx, stream = _build.launch_context(device)
-    with ctx:
-        err = _library().fleet_solve_launch(
-            a.data_ptr(), b.data_ptr(), x.data_ptr(), info.data_ptr(),
-            None if work is None else work.data_ptr(),
-            None if piv is None else piv.data_ptr(), bsz, n,
-            int(lu is not None), int(cholesky), device.index, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fleet_solve launch ({'Cholesky' if cholesky else 'LU'}, "
-            f"order {n}, {bsz} scenarios) failed: " + _error(_library(), err))
+    LIBRARY.launch(
+        "fleet_solve_launch", device, a.data_ptr(), b.data_ptr(),
+        x.data_ptr(), info.data_ptr(),
+        None if work is None else work.data_ptr(),
+        None if piv is None else piv.data_ptr(), bsz, n, int(lu is not None),
+        int(cholesky), device.index)
     return x, info

@@ -45,8 +45,6 @@ scatter into a zeroed G — which gives the kernel's bits.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -56,6 +54,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from ..ops.segments import segment_sum
 from ..utils.profiling import default_timings
 from . import _build
+from ._build import I64, INT, PTR
 
 #: the batch from which K8 runs its fleet regime (a lane a scenario) and
 #: K3's entry mode writes the values scenario-minor: where the two ways (K3
@@ -384,12 +383,13 @@ def device_table(host: GainHost, device) -> GainTable:
     return _device(host, torch.device(device))
 
 
-#: the tables of each pattern, keyed by one tensor of it, with the other
-#: objects they were built from (compared on use: a tensor by identity)
+#: the tables of each pattern (and the band lists of each table), keyed by
+#: one tensor of it, with the other objects they were built from (compared
+#: on use: a tensor by identity)
 _CACHE = WeakIdKeyDictionary()
 
 
-def cached_table(key: torch.Tensor, held: tuple, build) -> GainTable:
+def cached_table(key: torch.Tensor, held: tuple, build):
     """The table ``build()`` gives for the pattern of ``key`` and
     ``held``, built once for as long as ``key`` lives and the same
     ``held`` come with it. The entry holds ``held`` but not ``key``, so
@@ -507,83 +507,56 @@ def gain_fill_ref(table: GainTable, vals, w, pair_off, r):
     return gain.view(batch, n, n), rhs
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("gain_fill")
-    ptr = ctypes.c_void_p
-    i64 = ctypes.c_longlong
-    lib.gain_fill_launch.argtypes = ([ptr] * 2 + [i64] * 2 + [ptr] * 5
-                                     + [ctypes.c_int] * 2 + [ptr])
-    lib.gain_fill_launch.restype = ctypes.c_int
-    lib.gain_fill_error_string.argtypes = [ctypes.c_int]
-    lib.gain_fill_error_string.restype = ctypes.c_char_p
-    return lib
-
+LIBRARY = _build.Library(
+    "gain_fill", gain_fill_launch=(INT, [PTR] * 2 + [I64] * 2 + [PTR] * 5
+                                   + [INT] * 2 + [PTR]))
 
 #: the tensors of ``GainTables`` in csrc/gain_fill.cu, in order: the
-#: table's, then its bands' (null until the table's first fleet launch)
+#: table's, then its bands' (null outside the fleet regime)
 _FIELDS = ("nz_ptr", "nz_col", "c_ptr", "c_a", "c_b", "c_w", "dup_ptr",
            "dup_raw", "col_ptr", "col_ref", "col_row", "pair_of", "partner")
 _BAND_FIELDS = ("f_a", "f_b", "bdup_ptr", "bdup")
 #: its ints, in order: the table's, then its bands'
 _INTS = ("n", "m", "entries", "slack", "slack_nz")
 _BAND_INTS = ("band", "band_dups", "band_nz")
-
-
-class _Tables(ctypes.Structure):
-    """``GainTables`` of csrc/gain_fill.cu."""
-
-    _fields_ = ([(name, ctypes.c_void_p) for name in _FIELDS + _BAND_FIELDS]
-                + [(name, ctypes.c_int) for name in _INTS + _BAND_INTS])
-
-
-#: the ``_Tables`` and the ``DeviceBands`` of each table (keyed by its
-#: ``nz_ptr``)
-_STRUCTS = WeakIdKeyDictionary()
-_BANDS = WeakIdKeyDictionary()
+_DTYPES = dict.fromkeys(_FIELDS + _BAND_FIELDS, torch.int32)
+#: ``GainTables`` of each table (keyed by its ``nz_ptr``): without the band
+#: lists, and for the fleet regime with them
+_Tables = _build.Struct("GainTables", _DTYPES, _INTS + _BAND_INTS)
+_FleetTables = _build.Struct("GainTables", _DTYPES, _INTS + _BAND_INTS)
 
 
 def fleet_bands(table: GainTable) -> DeviceBands:
     """The checked band lists of ``table`` on its device, built from its
-    host tables at the first call (the span ``tables.build``), for as long
-    as the table lives."""
-    bands = _BANDS.get(table.nz_ptr)
+    host tables at the first call (``cached_table``), for as long as the
+    table lives."""
+    def build():
+        host = table.host
+        lists = band_lists(host)
+        check_bands(host, lists)
+        band = lists.band
+        band_nz = np.diff(host.nz_ptr[np.minimum(
+            np.arange(0, host.n + band, band), host.n)])
+        return DeviceBands(
+            **{name: torch.as_tensor(getattr(lists, name).astype(np.int32),
+                                     device=table.nz_ptr.device)
+               for name in _BAND_FIELDS},
+            band=band, band_dups=int(np.diff(lists.bdup_ptr).max(initial=0)),
+            band_nz=int(band_nz.max(initial=0)))
+
+    return cached_table(table.nz_ptr, (), build)
+
+
+def _tables(table: GainTable, bands: DeviceBands | None) -> _build.Entry:
+    """The ``GainTables`` of ``table``, with its band lists ``bands`` in the
+    fleet regime."""
+    tensors = {name: getattr(table, name) for name in _FIELDS}
+    ints = {name: getattr(table, name) for name in _INTS}
     if bands is None:
-        with default_timings.span("tables.build"):
-            host = table.host
-            lists = band_lists(host)
-            check_bands(host, lists)
-            band = lists.band
-            band_nz = np.diff(host.nz_ptr[np.minimum(
-                np.arange(0, host.n + band, band), host.n)])
-            bands = DeviceBands(
-                **{name: torch.as_tensor(
-                    getattr(lists, name).astype(np.int32),
-                    device=table.nz_ptr.device) for name in _BAND_FIELDS},
-                band=band,
-                band_dups=int(np.diff(lists.bdup_ptr).max(initial=0)),
-                band_nz=int(band_nz.max(initial=0)))
-        _BANDS[table.nz_ptr] = bands
-    return bands
-
-
-def _struct(table: GainTable, bands: DeviceBands | None = None) -> int:
-    held = _STRUCTS.get(table.nz_ptr)
-    if held is None:
-        for name in _FIELDS:
-            t = getattr(table, name)
-            if t.dtype != torch.int32 or not t.is_contiguous():
-                raise TypeError(f"{name} must be contiguous int32")
-        held = _Tables(**{name: getattr(table, name).data_ptr()
-                          for name in _FIELDS},
-                       **{name: getattr(table, name) for name in _INTS})
-        _STRUCTS[table.nz_ptr] = held
-    if bands is not None and not held.bdup_ptr:
-        for name in _BAND_FIELDS:
-            setattr(held, name, getattr(bands, name).data_ptr())
-        for name in _BAND_INTS:
-            setattr(held, name, getattr(bands, name))
-    return ctypes.addressof(held)
+        return _Tables.get("nz_ptr", tensors, **ints)
+    tensors.update((name, getattr(bands, name)) for name in _BAND_FIELDS)
+    ints.update((name, getattr(bands, name)) for name in _BAND_INTS)
+    return _FleetTables.get("nz_ptr", tensors, **ints)
 
 
 def fleet_shared(table: GainTable) -> int:
@@ -596,22 +569,18 @@ def _launch(table: GainTable, vals, strides, w, pair_off, r):
     batch = vals.shape[0]
     n = table.n
     fleet = scenario_minor(batch)
-    bands = fleet_bands(table) if fleet else None
     if fleet and fleet_shared(table) > SHARED_LIMIT:
         raise ValueError(f"a band of this table needs {fleet_shared(table)} "
                          f"bytes of shared memory, above {SHARED_LIMIT}")
+    bands = fleet_bands(table) if fleet else None
     w, r = w.contiguous(), r.contiguous()
     pair_off = pair_off.contiguous()
     gain = torch.empty((batch, n, n), dtype=torch.float64, device=vals.device)
     rhs = torch.empty((batch, n), dtype=torch.float64, device=vals.device)
-    ctx, stream = _build.launch_context(vals.device)
-    with ctx:
-        err = _library().gain_fill_launch(
-            _struct(table, bands), vals.data_ptr(), *strides, w.data_ptr(),
-            pair_off.data_ptr() if pair_off.numel() else None, r.data_ptr(),
-            gain.data_ptr(), rhs.data_ptr(), batch, int(fleet), stream)
-    if err != 0:
-        raise RuntimeError("gain_fill launch failed: "
-                           + _library().gain_fill_error_string(err).decode())
+    LIBRARY.launch(
+        "gain_fill_launch", vals.device, _tables(table, bands).address,
+        vals.data_ptr(), *strides, w.data_ptr(),
+        pair_off.data_ptr() if pair_off.numel() else None, r.data_ptr(),
+        gain.data_ptr(), rhs.data_ptr(), batch, int(fleet))
     gain_fill.launches += 1
     return gain, rhs

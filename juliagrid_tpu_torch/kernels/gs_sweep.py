@@ -21,7 +21,6 @@ if the grid does not fit a cluster's shared memory), a CPU tensor to
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -29,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._build import F64, I64, INT, PTR
 
 #: warps of one block of K4 (``kWarps`` in csrc/gs_sweep.cu)
 WARPS = 16
@@ -118,25 +118,18 @@ def cluster_layout(n: int, widest: int, levels: int, room: int,
     return cluster, bool(distributed)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("gs_sweep")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gs_sweep_launch.argtypes = (
-        [ptr] * 13 + [i32] * 9 + [ctypes.c_double] + [ptr] * 5 + [i32, ptr])
-    lib.gs_sweep_launch.restype = i32
-    lib.gs_sweep_room.argtypes = [i32]
-    lib.gs_sweep_room.restype = ctypes.c_int64
-    lib.gs_sweep_error_string.argtypes = [i32]
-    lib.gs_sweep_error_string.restype = ctypes.c_char_p
-    return lib
+LIBRARY = _build.Library(
+    "gs_sweep",
+    gs_sweep_launch=(INT, [PTR] * 13 + [INT] * 9 + [F64] + [PTR] * 5
+                     + [INT, PTR]),
+    gs_sweep_room=(I64, [INT]))
 
 
 @functools.lru_cache(maxsize=256)
 def _layout(device: int, n: int, widest: int, levels: int,
             cluster: int | None, distributed: bool | None):
     """``cluster_layout`` on ``device``, whose room is queried once."""
-    room = _library().gs_sweep_room(device)
+    room = LIBRARY.load().gs_sweep_room(device)
     if room <= 0:
         raise RuntimeError(f"gs_sweep cannot query cuda:{device}")
     return cluster_layout(n, widest, levels, room, cluster, distributed)
@@ -144,10 +137,10 @@ def _layout(device: int, n: int, widest: int, levels: int,
 
 def _launch(arr, vre, vim, max_sweeps, tol, cluster=None,
             distributed=None) -> GsSweep:
-    """One K4 launch on the current stream of the state's device. ``arr``
-    holds contiguous int32 and float64 tensors, as ``gs_arrays_from_numpy``
-    builds them; the layout is ``cluster_layout``'s unless ``cluster`` or
-    ``distributed`` is given (any layout gives the same bits)."""
+    """One K4 launch (``_build.Library.launch``). ``arr`` holds contiguous
+    int32 and float64 tensors, as ``gs_arrays_from_numpy`` builds them; the
+    layout is ``cluster_layout``'s unless ``cluster`` or ``distributed`` is
+    given (any layout gives the same bits)."""
     n, width = arr.nb.shape
     lpq, lpv = arr.pq_ptr.numel() - 1, arr.pv_ptr.numel() - 1
     device = vre.device
@@ -156,22 +149,17 @@ def _launch(arr, vre, vim, max_sweeps, tol, cluster=None,
     vre, vim = vre.contiguous(), vim.contiguous()
     vre_out, vim_out, info = torch.empty(
         2 * n + 4, dtype=torch.float64, device=device).split([n, n, 4])
-    err = _library().gs_sweep_launch(
-        arr.nb.data_ptr(), arr.yre.data_ptr(), arr.yim.data_ptr(),
-        arr.dre.data_ptr(), arr.dim.data_ptr(), arr.bus_type.data_ptr(),
-        arr.p_sched.data_ptr(), arr.q_sched.data_ptr(), arr.vg.data_ptr(),
-        arr.pq_order.data_ptr(), arr.pq_ptr.data_ptr(),
-        arr.pv_order.data_ptr(), arr.pv_ptr.data_ptr(), n, width,
-        arr.pq_order.numel(), arr.pv_order.numel(), lpq, lpv, cluster,
-        int(distributed), int(max_sweeps), float(tol), vre.data_ptr(),
-        vim.data_ptr(), vre_out.data_ptr(), vim_out.data_ptr(),
-        info.data_ptr(), device.index,
-        torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"gs_sweep launch ({cluster}-block cluster, "
-            f"{'distributed' if distributed else 'replicated'} voltage) "
-            "failed: " + _library().gs_sweep_error_string(err).decode())
+    LIBRARY.launch(
+        "gs_sweep_launch", device, arr.nb.data_ptr(), arr.yre.data_ptr(),
+        arr.yim.data_ptr(), arr.dre.data_ptr(), arr.dim.data_ptr(),
+        arr.bus_type.data_ptr(), arr.p_sched.data_ptr(),
+        arr.q_sched.data_ptr(), arr.vg.data_ptr(), arr.pq_order.data_ptr(),
+        arr.pq_ptr.data_ptr(), arr.pv_order.data_ptr(),
+        arr.pv_ptr.data_ptr(), n, width, arr.pq_order.numel(),
+        arr.pv_order.numel(), lpq, lpv, cluster, int(distributed),
+        int(max_sweeps), float(tol), vre.data_ptr(), vim.data_ptr(),
+        vre_out.data_ptr(), vim_out.data_ptr(), info.data_ptr(),
+        device.index)
     gs_sweep.launches += 1
     return GsSweep(vre_out, vim_out, info)
 

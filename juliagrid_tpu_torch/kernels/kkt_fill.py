@@ -30,17 +30,15 @@ kernel (the call raises if it does not build or launch), a CPU tensor to
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch.func import grad, hessian, vmap
-from torch.utils.weak import WeakIdKeyDictionary
 
 from ..ops.segments import segment_sum
 from . import _build
+from ._build import F64, INT, PTR
 from .opf_fill import _flow_args, flow_row_value
 
 #: the COO group bases K7 reads, in the order of ``KktTables.base`` in
@@ -323,17 +321,8 @@ def _ones_if_none(t, size, like):
 
 # ---- the kernel ------------------------------------------------------------
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("kkt_fill")
-    ptr = ctypes.c_void_p
-    lib.kkt_fill_launch.argtypes = ([ptr] * 7 + [ctypes.c_double] * 2
-                                    + [ptr] * 4)
-    lib.kkt_fill_launch.restype = ctypes.c_int
-    lib.kkt_fill_error_string.argtypes = [ctypes.c_int]
-    lib.kkt_fill_error_string.restype = ctypes.c_char_p
-    return lib
-
+LIBRARY = _build.Library(
+    "kkt_fill", kkt_fill_launch=(INT, [PTR] * 7 + [F64] * 2 + [PTR] * 5))
 
 #: the tensors of ``KktTables`` in csrc/kkt_fill.cu, in order: from the
 #: spec's arrays (``arr.`` and ``arr.fill.``), then from ``KktTable``
@@ -342,42 +331,21 @@ _FILL = ("row_ptr", "ycol", "diag", "gen_on", "fl_idx", "fl_y", "term_ptr",
          "term", "term_co")
 _TAB = ("rows", "cols", "erow", "yrow", "gbus", "unit_pos", "dest_off",
         "dest_ptr", "dest_ent", "pad_off")
+#: ``KktTables``, one a table (keyed by its ``rows``) and spec
+_Tables = _build.Struct("KktTables", {
+    **dict.fromkeys(_ARR, torch.float64),
+    **{name: torch.float64 if name in ("gen_on", "fl_y", "term_co")
+       else torch.int32 for name in _FILL},
+    **{name: torch.int64 if name in ("dest_off", "pad_off") else torch.int32
+       for name in _TAB}}, (("base", len(BASES)), ("size", len(SIZES))))
 
 
-class _Tables(ctypes.Structure):
-    """``KktTables`` of csrc/kkt_fill.cu."""
-
-    _fields_ = ([(name, ctypes.c_void_p) for name in _ARR + _FILL + _TAB]
-                + [("base", ctypes.c_int * len(BASES)),
-                   ("size", ctypes.c_int * len(SIZES))])
-
-
-#: each table's ``_Tables`` (keyed by the table's ``rows``) with the other
-#: tensors it points into (not the key, so that an entry goes when its key
-#: does); rebuilt when the spec's tensors change
-_TABLES = WeakIdKeyDictionary()
-
-
-def _tables(tab: KktTable, arr) -> int:
-    tensors = [getattr(arr, name) for name in _ARR]
-    tensors += [getattr(arr.fill, name) for name in _FILL]
-    tensors += [getattr(tab, name) for name in _TAB]
-    held = tuple(t for t in tensors if t is not tab.rows)
-    entry = _TABLES.get(tab.rows)
-    if entry is None or any(a is not b for a, b in zip(entry[1], held)):
-        for name, t in zip(_ARR + _FILL + _TAB, tensors):
-            want = (torch.float64 if t.is_floating_point() else
-                    torch.int64 if name in ("dest_off", "pad_off")
-                    else torch.int32)
-            if t.dtype != want or not t.is_contiguous():
-                raise TypeError(f"{name} must be contiguous {want}")
-        struct = _Tables(
-            *[t.data_ptr() if t.numel() else None for t in tensors],
-            (ctypes.c_int * len(BASES))(*tab.base),
-            (ctypes.c_int * len(SIZES))(*[tab.size[s] for s in SIZES]))
-        entry = (struct, held)
-        _TABLES[tab.rows] = entry
-    return ctypes.addressof(entry[0])
+def _tables(tab: KktTable, arr) -> _build.Entry:
+    tensors = {name: getattr(arr, name) for name in _ARR}
+    tensors.update((name, getattr(arr.fill, name)) for name in _FILL)
+    tensors.update((name, getattr(tab, name)) for name in _TAB)
+    return _Tables.get("rows", tensors, base=tab.base,
+                      size=tuple(tab.size[s] for s in SIZES))
 
 
 def _launch(tab: KktTable, arr, x, y, z, sigma, delta, sf, ge, gi,
@@ -390,26 +358,20 @@ def _launch(tab: KktTable, arr, x, y, z, sigma, delta, sf, ge, gi,
     gi = _ones_if_none(gi, s["m_i"], x)
     x, y, z, sigma, ge, gi = (t.contiguous() for t in (x, y, z, sigma, ge,
                                                         gi))
-    tables = _tables(tab, arr)
+    tables = _tables(tab, arr).address
     vals = torch.empty(s["n_entries"], dtype=torch.float64, device=dev)
     rmax = torch.zeros(s["n_aug"], dtype=torch.float64, device=dev)
     d = torch.empty(s["n_aug"], dtype=torch.float64, device=dev)
     flat = torch.zeros(sum(_block_sizes(s["k"], s["ni"], s["mb"], s["mbl"])),
                        dtype=torch.float64, device=dev)
-    lib = _library()
-    ctx, stream = _build.launch_context(dev)
 
     def ptr(t):
         return t.data_ptr() if t.numel() else None
 
-    with ctx:
-        err = lib.kkt_fill_launch(
-            tables, x.data_ptr(), ptr(y), ptr(z), ptr(sigma), ptr(ge),
-            ptr(gi), float(sf), float(delta), vals.data_ptr(),
-            rmax.data_ptr(), d.data_ptr(), flat.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("kkt_fill launch failed: "
-                           + lib.kkt_fill_error_string(err).decode())
+    LIBRARY.launch(
+        "kkt_fill_launch", dev, tables, x.data_ptr(), ptr(y), ptr(z),
+        ptr(sigma), ptr(ge), ptr(gi), float(sf), float(delta),
+        vals.data_ptr(), rmax.data_ptr(), d.data_ptr(), flat.data_ptr())
     kkt_fill.launches += 2
     return KktFill(vals, d, *_blocks(tab, flat))
 

@@ -24,14 +24,13 @@ and counts its own launches in ``nr_fill_routed.launches``.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import _build
+from ._build import I64, INT, PTR
 
 
 class NrFill(NamedTuple):
@@ -108,61 +107,48 @@ def nr_fill(arr, vm, va, p_sched, q_sched, jacobian: bool = False) -> NrFill:
 nr_fill.launches = 0
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("nr_fill")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.nr_fill_launch.argtypes = (
-        [ptr] * 6 + [i32] + [ptr] * 4 + [ptr] * 6 + [i32, i32, i32, ptr])
-    lib.nr_fill_launch.restype = i32
-    i64 = ctypes.c_int64
-    lib.nr_fill_routed_launch.argtypes = (
-        [ptr] * 6 + [i32] + [ptr] * 4 + [ptr] * 4
-        + [ptr, i64, ptr, i64, ptr, i64, i32, ptr])
-    lib.nr_fill_routed_launch.restype = i32
-    lib.nr_fill_error_string.argtypes = [i32]
-    lib.nr_fill_error_string.restype = ctypes.c_char_p
-    return lib
+LIBRARY = _build.Library(
+    "nr_fill",
+    nr_fill_launch=(INT, [PTR] * 6 + [INT] + [PTR] * 10 + [INT] * 3 + [PTR]),
+    nr_fill_routed_launch=(INT, [PTR] * 6 + [INT] + [PTR] * 9
+                           + [I64, PTR, I64, PTR, I64, INT, PTR]))
+
+_NET = dict(row_ptr=torch.int32, cols=torch.int32, yg=torch.float64,
+            yb=torch.float64, diag=torch.int32, bus_type=torch.int32)
+#: the network's tensors each mode reads, checked once a network (keyed by
+#: its ``cols``): the mismatch alone (also fast decoupled's ``FnrArrays``),
+#: with the Jacobian (and ``pos``), the routed mode (and the schedules)
+_NETWORK = _build.Table("AcArrays", _NET)
+_JACOBIAN_NETWORK = _build.Table("AcArrays", dict(_NET, pos=torch.int32))
+_ROUTED_NETWORK = _build.Table("AcArrays", dict(
+    _NET, p_sched=torch.float64, q_sched=torch.float64))
 
 
-def _check_network(arr, f64=("yg", "yb"), pos: bool = False) -> None:
-    for name in ("row_ptr", "cols", "diag", "bus_type") + ("pos",) * pos:
-        t = getattr(arr, name)
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise TypeError(f"AcArrays.{name} must be contiguous int32")
-    for name in f64:
-        t = getattr(arr, name)
-        if t.dtype != torch.float64 or not t.is_contiguous():
-            raise TypeError(f"AcArrays.{name} must be contiguous float64")
+def _network(table: _build.Table, arr) -> _build.Entry:
+    return table.get("cols", {name: getattr(arr, name)
+                              for name in table.dtypes})
 
 
 def _launch(arr, vm, va, p_sched, q_sched, jacobian: bool) -> NrFill:
-    _check_network(arr, pos=jacobian)
+    _network(_JACOBIAN_NETWORK if jacobian else _NETWORK, arr)
     if jacobian and arr.pos.numel() != 2 * vm.shape[1]:
         raise TypeError("AcArrays.pos must have 2n entries")
     order = arr.order if jacobian else 0
     vm, va, p_sched, q_sched = (t.contiguous()
                                 for t in (vm, va, p_sched, q_sched))
     batch, n = vm.shape
-    lib = _library()
     out = torch.empty((4, batch, n), dtype=torch.float64, device=vm.device)
     p, q, mp, mq = out.unbind(0)
     jac = (torch.empty((batch, order, order), dtype=torch.float64,
                        device=vm.device) if jacobian else None)
-    with torch.cuda.device(vm.device):
-        stream = torch.cuda.current_stream(vm.device).cuda_stream
-        err = lib.nr_fill_launch(
-            arr.row_ptr.data_ptr(), arr.cols.data_ptr(), arr.yg.data_ptr(),
-            arr.yb.data_ptr(), arr.diag.data_ptr(), arr.bus_type.data_ptr(),
-            int(arr.slack), vm.data_ptr(), va.data_ptr(),
-            p_sched.data_ptr(), q_sched.data_ptr(), p.data_ptr(),
-            q.data_ptr(), mp.data_ptr(), mq.data_ptr(),
-            None if jac is None else jac.data_ptr(),
-            arr.pos.data_ptr() if jacobian else None, order, n, batch,
-            stream)
-    if err != 0:
-        raise RuntimeError("nr_fill launch failed: "
-                           + lib.nr_fill_error_string(err).decode())
+    LIBRARY.launch(
+        "nr_fill_launch", vm.device, arr.row_ptr.data_ptr(),
+        arr.cols.data_ptr(), arr.yg.data_ptr(), arr.yb.data_ptr(),
+        arr.diag.data_ptr(), arr.bus_type.data_ptr(), int(arr.slack),
+        vm.data_ptr(), va.data_ptr(), p_sched.data_ptr(), q_sched.data_ptr(),
+        p.data_ptr(), q.data_ptr(), mp.data_ptr(), mq.data_ptr(),
+        None if jac is None else jac.data_ptr(),
+        arr.pos.data_ptr() if jacobian else None, order, n, batch)
     nr_fill.launches += 1
     return NrFill(p, q, mp, mq, jac)
 
@@ -188,7 +174,7 @@ nr_fill_routed.launches = 0
 
 
 def _launch_routed(arr, route: NrRoute, vm, va) -> NrFillRouted:
-    _check_network(arr, ("yg", "yb", "p_sched", "q_sched"))
+    _network(_ROUTED_NETWORK, arr)
     for name, t in (("off", route.off), ("ones", route.ones)):
         if t.dtype != torch.int64 or not t.is_contiguous() \
                 or t.device != vm.device:
@@ -196,23 +182,18 @@ def _launch_routed(arr, route: NrRoute, vm, va) -> NrFillRouted:
                             f"{vm.device}")
     vm, va = vm.contiguous(), va.contiguous()
     n = vm.shape[0]
-    lib = _library()
     out = torch.empty((4, n), dtype=torch.float64, device=vm.device)
     p, q, mp, mq = out.unbind(0)
     buf = torch.empty(route.size, dtype=torch.float64, device=vm.device)
-    with torch.cuda.device(vm.device):
-        stream = torch.cuda.current_stream(vm.device).cuda_stream
-        err = lib.nr_fill_routed_launch(
-            arr.row_ptr.data_ptr(), arr.cols.data_ptr(), arr.yg.data_ptr(),
-            arr.yb.data_ptr(), arr.diag.data_ptr(), arr.bus_type.data_ptr(),
-            int(arr.slack), vm.data_ptr(), va.data_ptr(),
-            arr.p_sched.data_ptr(), arr.q_sched.data_ptr(), p.data_ptr(),
-            q.data_ptr(), mp.data_ptr(), mq.data_ptr(), route.off.data_ptr(),
-            route.off.shape[1], route.ones.data_ptr(), route.ones.numel(),
-            buf.data_ptr(), route.size, n, stream)
-    if err != 0:
-        raise RuntimeError("nr_fill routed launch failed: "
-                           + lib.nr_fill_error_string(err).decode())
+    LIBRARY.launch(
+        "nr_fill_routed_launch", vm.device, arr.row_ptr.data_ptr(),
+        arr.cols.data_ptr(), arr.yg.data_ptr(), arr.yb.data_ptr(),
+        arr.diag.data_ptr(), arr.bus_type.data_ptr(), int(arr.slack),
+        vm.data_ptr(), va.data_ptr(), arr.p_sched.data_ptr(),
+        arr.q_sched.data_ptr(), p.data_ptr(), q.data_ptr(), mp.data_ptr(),
+        mq.data_ptr(), route.off.data_ptr(), route.off.shape[1],
+        route.ones.data_ptr(), route.ones.numel(), buf.data_ptr(),
+        route.size, n)
     nr_fill_routed.launches += 1
     return NrFillRouted(p, q, mp, mq, buf)
 

@@ -30,15 +30,14 @@ functions, whose flow rows take ``torch.func`` ``grad``/``hessian`` of
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch.func import grad, hessian, vmap
-from torch.utils.weak import WeakIdKeyDictionary
 
 from . import _build
+from ._build import INT, PTR
 
 #: descriptor kinds of the rows after the balance rows (Jacobian mode)
 LINEAR, FLOW = 0, 1
@@ -563,79 +562,39 @@ def opf_fill(arr, x, y=None, z=None) -> OpfFill:
 opf_fill.launches = 0
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("opf_fill")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.opf_fill_launch.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-    lib.opf_fill_launch.restype = i32
-    lib.opf_fill_attributes.argtypes = [i32, ptr]
-    lib.opf_fill_attributes.restype = i32
-    lib.opf_fill_error_string.argtypes = [i32]
-    lib.opf_fill_error_string.restype = ctypes.c_char_p
-    return lib
+LIBRARY = _build.Library(
+    "opf_fill", opf_fill_launch=(INT, [PTR] * 6 + [INT] * 6 + [PTR]),
+    opf_fill_attributes=(INT, [INT, PTR]))
+
+_I32, _F64 = torch.int32, torch.float64
+#: ``OpfTables`` of csrc/opf_fill.cu, one a spec (keyed by its
+#: ``fill.row_ptr``); ``yg``/``yb`` are the spec's, the others its
+#: ``fill``'s
+_Tables = _build.Struct("OpfTables", dict(
+    row_ptr=_I32, ycol=_I32, yg=_F64, yb=_F64, diag=_I32, gen_ptr=_I32,
+    gen_idx=_I32, gen_on=_F64, row_kind=_I32, row_col=_I32, row_val=_F64,
+    fl_idx=_I32, fl_y=_F64, pair_ptr=_I32, pair=_I32, pair_fptr=_I32,
+    pair_flow=_I32, pf_idx=_I32, pf_y=_F64, hess_group=_I32,
+    unit_group=_I32, item_at=torch.int64, term_ptr=_I32, term=_I32,
+    term_co=_F64), ("n", "g", "n_x", "m_e", "m_i", "nnz", "n_rows", "n_fl",
+                    "n_pair", "n_term", "n_pf"))
 
 
-class _Tables(ctypes.Structure):
-    """``OpfTables`` of csrc/opf_fill.cu."""
-
-    _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "row_ptr", "ycol", "yg", "yb", "diag", "gen_ptr", "gen_idx",
-        "gen_on", "row_kind", "row_col", "row_val", "fl_idx", "fl_y",
-        "pair_ptr", "pair", "pair_fptr", "pair_flow", "pf_idx", "pf_y",
-        "hess_group", "unit_group", "item_at", "term_ptr", "term",
-        "term_co")]
-        + [(name, ctypes.c_int) for name in (
-            "n", "g", "n_x", "m_e", "m_i", "nnz", "n_rows", "n_fl", "n_pair",
-            "n_term", "n_pf")])
-
-
-class _Entry:
-    """The ``_Tables`` of one spec, the tensors it points into (all but the
-    key, so that the entry goes when its key does), and whether a value
-    group of the Hessian mode outgrows shared memory (then each launch
-    takes a scratch buffer)."""
-
-    __slots__ = ("struct", "address", "held", "spill")
-
-    def __init__(self, arr, tensors, held):
-        t = arr.fill
-        for name, tt in tensors.items():
-            want = torch.float64 if tt.is_floating_point() else \
-                torch.int64 if name == "item_at" else torch.int32
-            if tt.dtype != want or not tt.is_contiguous():
-                raise TypeError(f"{name} must be contiguous {want}")
-        self.struct = _Tables(
-            **{name: tt.data_ptr() for name, tt in tensors.items()},
-            n=t.n, g=t.g, n_x=t.n_x, m_e=t.m_e, m_i=t.m_i,
-            nnz=t.ycol.numel(), n_rows=t.row_kind.numel(),
-            n_fl=t.fl_y.shape[1], n_pair=t.pair.shape[1],
-            n_term=t.term.shape[1], n_pf=t.pair_flow.numel())
-        self.address = ctypes.addressof(self.struct)
-        self.held = held
-        grp = t.hess_group.cpu().numpy().astype(np.int64)
-        self.spill = bool(np.any(grp[5] - grp[4] > HESS_FLOW_ROOM)
-                          or np.any(grp[3] - grp[2] > HESS_SLOT_ROOM))
-
-
-#: the ``_Entry`` of each spec, keyed by its ``fill.row_ptr``; rebuilt when
-#: the spec's tables or admittances are other tensors
-_TABLES = WeakIdKeyDictionary()
-
-
-def _tables(arr) -> _Entry:
+def _tables(arr) -> _build.Entry:
+    """The ``OpfTables`` of the spec ``arr``; its ``extra`` is whether a
+    value group of the Hessian mode outgrows shared memory (then each
+    launch takes a scratch buffer)."""
     t = arr.fill
-    tensors = {name: getattr(t, name) for name in (
-        "row_ptr", "ycol", "diag", "gen_ptr", "gen_idx", "gen_on",
-        "row_kind", "row_col", "row_val", "fl_idx", "fl_y", "pair_ptr",
-        "pair", "pair_fptr", "pair_flow", "pf_idx", "pf_y", "hess_group",
-        "unit_group", "item_at", "term_ptr", "term", "term_co")}
-    tensors["yg"], tensors["yb"] = arr.yg, arr.yb
-    held = tuple(tt for name, tt in tensors.items() if name != "row_ptr")
-    entry = _TABLES.get(t.row_ptr)
-    if entry is None or any(a is not b for a, b in zip(entry.held, held)):
-        entry = _Entry(arr, tensors, held)
-        _TABLES[t.row_ptr] = entry
+    entry = _Tables.get("row_ptr", {
+        name: getattr(arr if name in ("yg", "yb") else t, name)
+        for name in _Tables.dtypes}, n=t.n, g=t.g, n_x=t.n_x, m_e=t.m_e,
+        m_i=t.m_i, nnz=t.ycol.numel(), n_rows=t.row_kind.numel(),
+        n_fl=t.fl_y.shape[1], n_pair=t.pair.shape[1],
+        n_term=t.term.shape[1], n_pf=t.pair_flow.numel())
+    if entry.extra is None:
+        grp = t.hess_group.cpu().numpy().astype(np.int64)
+        entry.extra = bool(np.any(grp[5] - grp[4] > HESS_FLOW_ROOM)
+                           or np.any(grp[3] - grp[2] > HESS_SLOT_ROOM))
     return entry
 
 
@@ -659,20 +618,16 @@ def _launch(arr, x, y=None, z=None, zeroed=False) -> OpfFill:
     scratch = None
     if hess:
         y, z = y.contiguous(), z.contiguous()
-        if entry.spill:
+        if entry.extra:
             scratch = torch.empty(scratch_doubles(arr.fill),
                                   dtype=torch.float64, device=x.device)
-    ctx, stream = _build.launch_context(x.device)
-    with ctx:
-        err = _library().opf_fill_launch(
-            entry.address, x.data_ptr(), y.data_ptr() if hess else None,
-            z.data_ptr() if hess and m_i else None,
-            out.data_ptr() if out.numel() else None,
-            scratch.data_ptr() if scratch is not None else None, int(hess),
-            int(not zeroed), *arr.fill.hess_plan, stream)
-    if err != 0:
-        raise RuntimeError("opf_fill launch failed: "
-                           + _library().opf_fill_error_string(err).decode())
+    LIBRARY.launch(
+        "opf_fill_launch", x.device, entry.address, x.data_ptr(),
+        y.data_ptr() if hess else None,
+        z.data_ptr() if hess and m_i else None,
+        out.data_ptr() if out.numel() else None,
+        scratch.data_ptr() if scratch is not None else None, int(hess),
+        int(not zeroed), *arr.fill.hess_plan)
     opf_fill.launches += 1
     if hess:
         return OpfFill(None, None, out)
@@ -686,10 +641,8 @@ def kernel_attributes(hessian: bool) -> dict:
     resident blocks an SM (of 256 threads in the Jacobian mode, 128 in the
     Hessian mode)."""
     vals = (ctypes.c_int * 4)()
-    err = _library().opf_fill_attributes(int(hessian), vals)
-    if err != 0:
-        raise RuntimeError("opf_fill_attributes failed: "
-                           + _library().opf_fill_error_string(err).decode())
+    LIBRARY.check("opf_fill_attributes",
+                  LIBRARY.load().opf_fill_attributes(int(hessian), vals))
     return dict(zip(("registers", "local_bytes", "shared_bytes",
                      "blocks_per_sm"), vals))
 

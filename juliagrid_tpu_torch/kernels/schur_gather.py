@@ -24,15 +24,13 @@ the kernel's bits.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from . import _build
+from ._build import F64, INT, PTR
 
 
 class SchurRoute(NamedTuple):
@@ -122,51 +120,21 @@ def schur_gather(route: SchurRoute, contrib, parts, a_bb=None, r_bb=None,
 schur_gather.launches = 0
 
 
-class _Tables(ctypes.Structure):
-    """``SchurTables`` of csrc/schur_gather.cu."""
-
-    _fields_ = [("slot_ptr", ctypes.c_void_p), ("slot_blk", ctypes.c_void_p),
-                ("slot_loc", ctypes.c_void_p), ("bsel", ctypes.c_void_p),
-                ("nb", ctypes.c_int), ("k", ctypes.c_int),
-                ("width", ctypes.c_int), ("by_rows", ctypes.c_int)]
-
-
-#: each route's ``_Tables``, built at its first launch (keyed by its
-#: ``slot_ptr``, so that an entry goes with its route)
-_TABLES = WeakIdKeyDictionary()
+LIBRARY = _build.Library(
+    "schur_gather", schur_gather_launch=(INT, [PTR] * 5 + [F64] + [PTR] * 3))
+#: ``SchurTables`` of csrc/schur_gather.cu, one a route (keyed by its
+#: ``slot_ptr``)
+_Tables = _build.Struct(
+    "SchurTables", dict(slot_ptr=torch.int32, slot_blk=torch.int32,
+                        slot_loc=torch.int32, bsel=torch.int64),
+    ("nb", "k", "width", "by_rows"))
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("schur_gather")
-    ptr = ctypes.c_void_p
-    lib.schur_gather_launch.argtypes = (
-        [ptr] * 5 + [ctypes.c_double] + [ptr] * 3)
-    lib.schur_gather_launch.restype = ctypes.c_int
-    lib.schur_gather_error_string.argtypes = [ctypes.c_int]
-    lib.schur_gather_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _tables(route: SchurRoute) -> int:
-    """The address of ``route``'s ``_Tables``, checked and built once."""
-    tables = _TABLES.get(route.slot_ptr)
-    if tables is None:
-        for name, dtype in (("slot_ptr", torch.int32),
-                            ("slot_blk", torch.int32),
-                            ("slot_loc", torch.int32),
-                            ("bsel", torch.int64)):
-            t = getattr(route, name)
-            if t.dtype != dtype or not t.is_contiguous():
-                raise TypeError(f"SchurRoute.{name} must be contiguous "
-                                f"{dtype}")
-        k, width = route.bsel.shape
-        tables = _Tables(route.slot_ptr.data_ptr(),
-                         route.slot_blk.data_ptr(),
-                         route.slot_loc.data_ptr(), route.bsel.data_ptr(),
-                         route.nb, k, width, route.by_rows)
-        _TABLES[route.slot_ptr] = tables
-    return ctypes.addressof(tables)
+def _tables(route: SchurRoute) -> _build.Entry:
+    k, width = route.bsel.shape
+    return _Tables.get("slot_ptr", {name: getattr(route, name)
+                                   for name in _Tables.dtypes},
+                      nb=route.nb, k=k, width=width, by_rows=route.by_rows)
 
 
 def _launch(route: SchurRoute, contrib, parts, a_bb, r_bb, scale: float):
@@ -177,17 +145,12 @@ def _launch(route: SchurRoute, contrib, parts, a_bb, r_bb, scale: float):
     out = torch.empty(nb * nb + nb, dtype=torch.float64,
                       device=contrib.device)
     schur, rhs = out[:nb * nb].view(nb, nb), out[nb * nb:]
-    lib = _library()
-    ctx, stream = _build.launch_context(contrib.device)
-    with ctx:
-        err = lib.schur_gather_launch(
-            _tables(route), contrib.data_ptr(), parts.data_ptr(),
-            None if a_bb is None else a_bb.data_ptr(),
-            None if r_bb is None else r_bb.data_ptr(), scale,
-            schur.data_ptr(), rhs.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("schur_gather launch failed: "
-                           + lib.schur_gather_error_string(err).decode())
+    LIBRARY.launch(
+        "schur_gather_launch", contrib.device, _tables(route).address,
+        contrib.data_ptr(), parts.data_ptr(),
+        None if a_bb is None else a_bb.data_ptr(),
+        None if r_bb is None else r_bb.data_ptr(), scale, schur.data_ptr(),
+        rhs.data_ptr())
     schur_gather.launches += 1
     return schur, rhs
 

@@ -13,9 +13,9 @@ The kernel reads a per-row descriptor table (``SeFillTable``) that
 ``SeArrays``, with the rows' class order (``row_classes``: closed-form rows,
 then injection rows) that the launch without the Jacobian maps by. A call
 is one launch: H is zeroed inside the kernel, and the table pointers are
-gathered into one ``_Tables`` struct at the first launch on a measurement
-set (or partition), not per call. ``se_fill`` dispatches on the device of
-its tensors: a CUDA
+gathered into one ``SeTables`` struct (``_Tables``, a ``_build.Struct``) at
+the first launch on a measurement set (or partition), not per call.
+``se_fill`` dispatches on the device of its tensors: a CUDA
 tensor goes to the kernel (and the call raises if the kernel does not build
 or launch), a CPU tensor to ``se_fill_ref``, the plain PyTorch
 transcription of the jnp code. ``se_fill.launches`` counts kernel launches.
@@ -46,16 +46,14 @@ way, to
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from ..ops.equations import BRANCH_GROUPS
 from . import _build
+from ._build import INT, PTR
 from .gain_fill import scenario_minor
 
 #: descriptor type codes: the measurement type codes of ``compile_se_arrays``
@@ -278,99 +276,57 @@ def se_fill(arr, net, vm, va, mean, jacobian: bool = True,
 se_fill.launches = 0
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("se_fill")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.se_fill_launch.argtypes = (
-        [ptr] * 2 + [i32] + [ptr] * 6 + [i32, ptr])
-    lib.se_fill_launch.restype = i32
-    lib.se_fill_routed_launch.argtypes = (
-        [ptr] * 2 + [i32] + [ptr] * 7 + [i32] * 2 + [ptr])
-    lib.se_fill_routed_launch.restype = i32
-    lib.se_fill_entries_launch.argtypes = (
-        [ptr] * 2 + [i32] + [ptr] * 6 + [i32, i32, ptr])
-    lib.se_fill_entries_launch.restype = i32
-    lib.se_fill_error_string.argtypes = [i32]
-    lib.se_fill_error_string.restype = ctypes.c_char_p
-    return lib
+LIBRARY = _build.Library(
+    "se_fill",
+    se_fill_launch=(INT, [PTR] * 2 + [INT] + [PTR] * 6 + [INT, PTR]),
+    se_fill_routed_launch=(INT, [PTR] * 2 + [INT] + [PTR] * 7 + [INT] * 2
+                           + [PTR]),
+    se_fill_entries_launch=(INT, [PTR] * 2 + [INT] + [PTR] * 6
+                            + [INT, INT, PTR]))
+#: ``SeTables`` of csrc/se_fill.cu, one a measurement set (keyed by its
+#: ``desc.idx``; the entry mode's by its ``desc.epos``) or partition (keyed
+#: by its ``SeRoute.slot_row``), on its network
+_Tables = _build.Struct(
+    "SeTables", dict(
+        idx=torch.int32, coef=torch.float64, order=torch.int32,
+        row_ptr=torch.int32, cols=torch.int32, yg=torch.float64,
+        yb=torch.float64, diag=torch.int32, slot_row=torch.int32,
+        colmap=torch.int32, epos=torch.int32),
+    ("n", "m", "closed", "ni", "lb", "mr", "k", "entries"))
 
 
-class _Tables(ctypes.Structure):
-    """``SeTables`` of csrc/se_fill.cu."""
-
-    _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "idx", "coef", "order", "row_ptr", "cols", "yg", "yb", "diag",
-        "slot_row", "colmap", "epos")]
-        + [(name, ctypes.c_int) for name in (
-            "n", "m", "closed", "ni", "lb", "mr", "k", "entries")])
-
-
-#: the ``_Tables`` of each measurement set (keyed by its ``desc.idx``; the
-#: entry mode's by its ``desc.epos``) or partition (keyed by its
-#: ``SeRoute.slot_row``), with the tensors they point into; built at the
-#: first launch, and again if the network changes
-_DENSE = WeakIdKeyDictionary()
-_ENTRY = WeakIdKeyDictionary()
-_ROUTED = WeakIdKeyDictionary()
+def _tables(arr, net, key: str, mode: dict, **ints) -> _build.Entry:
+    """The ``SeTables`` of the measurement set ``arr`` on ``net``, keyed
+    by its field ``key``, with a mode's own tensors ``mode`` and ints."""
+    table = arr.desc
+    return _Tables.get(key, dict(
+        idx=table.idx, coef=table.coef, order=table.order,
+        row_ptr=net.row_ptr, cols=net.cols, yg=net.yg, yb=net.yb,
+        diag=net.diag, **mode), n=net.row_ptr.numel() - 1,
+        m=arr.mean.shape[0], closed=table.closed, **ints)
 
 
-def _tables(cache, key_name: str, key, tensors: dict, on_build=None,
-            **ints) -> int:
-    """The address of the ``_Tables`` of ``key`` (its field ``key_name``)
-    and ``tensors``, checked (and ``on_build()`` called) and built once for
-    as long as the same tensors come with ``key``. The entry holds
-    ``tensors`` but not ``key``, so that it goes when ``key`` does."""
-    held = tuple(tensors.values())
-    entry = cache.get(key)
-    if entry is None or any(a is not b for a, b in zip(entry[1], held)):
-        for name, t in ((key_name, key), *tensors.items()):
-            want = torch.float64 if t.is_floating_point() else torch.int32
-            if t.dtype != want or not t.is_contiguous():
-                raise TypeError(f"{name} must be contiguous {want}")
-        if on_build is not None:
-            on_build()
-        ptrs = {name: t.data_ptr() for name, t in tensors.items()}
-        entry = (_Tables(**{key_name: key.data_ptr()}, **ptrs, **ints), held)
-        cache[key] = entry
-    return ctypes.addressof(entry[0])
-
-
-def _net_tensors(net) -> dict:
-    return dict(row_ptr=net.row_ptr, cols=net.cols, yg=net.yg, yb=net.yb,
-                diag=net.diag)
-
-
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           + _library().se_fill_error_string(err).decode())
+def _check_status(*tensors) -> None:
+    for name, t in tensors:
+        if t.dtype != torch.float64 or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous float64")
 
 
 def _launch(arr, net, vm, va, mean, jacobian: bool,
             mask_slack: bool) -> SeFill:
-    table = arr.desc
     batch, n = vm.shape
     m = mean.shape[1]
-    tables = _tables(_DENSE, "idx", table.idx,
-                     dict(coef=table.coef, order=table.order,
-                          **_net_tensors(net)),
-                     n=n, m=m, closed=table.closed)
-    if arr.status.dtype != torch.float64 or not arr.status.is_contiguous():
-        raise TypeError("status must be contiguous float64")
+    entry = _tables(arr, net, "idx", {})
+    _check_status(("status", arr.status))
     vm, va, mean = vm.contiguous(), va.contiguous(), mean.contiguous()
     out = torch.empty((2, batch, m), dtype=torch.float64, device=vm.device)
     jac = (torch.empty((batch, m, 2 * n), dtype=torch.float64,
                        device=vm.device) if jacobian else None)
-    ctx, stream = _build.launch_context(vm.device)
-    with ctx:
-        err = _library().se_fill_launch(
-            tables, arr.status.data_ptr(),
-            int(arr.slack) if mask_slack else -1, vm.data_ptr(),
-            va.data_ptr(), mean.data_ptr(), out.data_ptr(),
-            out.data_ptr() + 8 * batch * m,
-            None if jac is None else jac.data_ptr(), batch, stream)
-    _check(err, "se_fill")
+    LIBRARY.launch(
+        "se_fill_launch", vm.device, entry.address, arr.status.data_ptr(),
+        int(arr.slack) if mask_slack else -1, vm.data_ptr(), va.data_ptr(),
+        mean.data_ptr(), out.data_ptr(), out.data_ptr() + 8 * batch * m,
+        None if jac is None else jac.data_ptr(), batch)
     se_fill.launches += 1
     return SeFill(out[0], out[1], jac)
 
@@ -413,26 +369,22 @@ def _launch_entries(arr, net, vm, va, mean) -> SeEntries:
     table = arr.desc
     batch, n = vm.shape
     m = mean.shape[1]
-    tables = _tables(_ENTRY, "epos", table.epos,
-                     dict(idx=table.idx, coef=table.coef, order=table.order,
-                          **_net_tensors(net)),
-                     on_build=lambda: _check_entry_route(arr, net),
-                     n=n, m=m, closed=table.closed, entries=table.entries)
-    if arr.status.dtype != torch.float64 or not arr.status.is_contiguous():
-        raise TypeError("status must be contiguous float64")
+    entry = _tables(arr, net, "epos", dict(epos=table.epos),
+                    entries=table.entries)
+    if entry.extra is None:
+        _check_entry_route(arr, net)
+        entry.extra = True
+    _check_status(("status", arr.status))
     vm, va, mean = vm.contiguous(), va.contiguous(), mean.contiguous()
     out = torch.empty((2, batch, m), dtype=torch.float64, device=vm.device)
     minor = scenario_minor(batch)
     shape = (table.entries, batch) if minor else (batch, table.entries)
     vals = torch.empty(shape, dtype=torch.float64, device=vm.device)
-    ctx, stream = _build.launch_context(vm.device)
-    with ctx:
-        err = _library().se_fill_entries_launch(
-            tables, arr.status.data_ptr(), int(arr.slack), vm.data_ptr(),
-            va.data_ptr(), mean.data_ptr(), out.data_ptr(),
-            out.data_ptr() + 8 * batch * m, vals.data_ptr(), batch,
-            int(minor), stream)
-    _check(err, "se_fill entries")
+    LIBRARY.launch(
+        "se_fill_entries_launch", vm.device, entry.address,
+        arr.status.data_ptr(), int(arr.slack), vm.data_ptr(), va.data_ptr(),
+        mean.data_ptr(), out.data_ptr(), out.data_ptr() + 8 * batch * m,
+        vals.data_ptr(), batch, int(minor))
     se_fill_entries.launches += 1
     return SeEntries(out[0], out[1], vals.mT if minor else vals)
 
@@ -482,33 +434,25 @@ se_fill_routed.launches = 0
 
 def _launch_routed(arr, net, route: SeRoute, vm, va, scale, block_lo: int,
                    block_hi: int) -> SeFill:
-    table = arr.desc
-    n, m = vm.shape[0], arr.mean.shape[0]
+    m = arr.mean.shape[0]
     k = route.colmap.shape[0]
     if route.slot_row.numel() != k * route.mr:
         raise ValueError("SeRoute.slot_row must have k mr entries")
-    tables = _tables(_ROUTED, "slot_row", route.slot_row,
-                     dict(idx=table.idx, coef=table.coef, order=table.order,
-                          **_net_tensors(net), colmap=route.colmap),
-                     n=n, m=m, closed=table.closed, ni=route.ni, lb=route.lb,
-                     mr=route.mr, k=k)
-    for name, t in (("status", arr.status), ("mean", arr.mean)):
-        if t.dtype != torch.float64 or not t.is_contiguous():
-            raise TypeError(f"{name} must be contiguous float64")
+    entry = _tables(arr, net, "slot_row", dict(
+        slot_row=route.slot_row, colmap=route.colmap), ni=route.ni,
+        lb=route.lb, mr=route.mr, k=k)
+    _check_status(("status", arr.status), ("mean", arr.mean))
     vm, va, scale = vm.contiguous(), va.contiguous(), scale.contiguous()
     width = 2 * route.ni + 2 * route.lb
     out = torch.empty((2, m), dtype=torch.float64, device=vm.device)
     jac = torch.empty((block_hi - block_lo, route.mr, width),
                       dtype=torch.float64, device=vm.device)
-    ctx, stream = _build.launch_context(vm.device)
-    with ctx:
-        err = _library().se_fill_routed_launch(
-            tables, arr.status.data_ptr(), int(arr.slack), vm.data_ptr(),
-            va.data_ptr(), arr.mean.data_ptr(), out.data_ptr(),
-            out.data_ptr() + 8 * m, scale.data_ptr(),
-            jac.data_ptr() if jac.numel() else None, block_lo, block_hi,
-            stream)
-    _check(err, "se_fill routed")
+    LIBRARY.launch(
+        "se_fill_routed_launch", vm.device, entry.address,
+        arr.status.data_ptr(), int(arr.slack), vm.data_ptr(), va.data_ptr(),
+        arr.mean.data_ptr(), out.data_ptr(), out.data_ptr() + 8 * m,
+        scale.data_ptr(), jac.data_ptr() if jac.numel() else None, block_lo,
+        block_hi)
     se_fill_routed.launches += 1
     return SeFill(out[0], out[1], jac)
 

@@ -8,9 +8,10 @@ row), every scenario's NR Jacobian, at the unknowns' order npv + 2·npq, is
 factored and solved in one launch of K2 (``kernels/fleet_solve.py``: f64 LU
 with partial pivoting, a thread block a scenario), the SE gains form in one
 K8 launch from H's entry pattern (``kernels/gain_fill.py``) and are solved
-in one K2 launch in its Cholesky mode (both solves up to K2's order cap of
-256, the batched ``torch.linalg`` calls above it), and the DC fleet shares
-one factorization of B and solves every scenario in one call.
+in one K2 launch in its Cholesky mode, and the DC fleet shares one
+factorization of B and solves every scenario in one call. ``fleet_solve``
+decides both solves' route: K2 up to its order cap of 256, the batched
+library calls above it.
 
 Across ranks (``sharded_nr_solve``, ``sharded_se_solve`` over a
 ``parallel/mesh.py`` mesh) each rank takes its contiguous share of the

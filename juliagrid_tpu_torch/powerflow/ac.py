@@ -203,23 +203,21 @@ def _nr_update(arr: AcArrays, vm, va, res: NrFill, kind: str,
     The system is the reduced one at the unknowns' order N (``res.jac``,
     ``[B, N, N]``), its right-hand side the mismatch gathered at the
     unknowns (``_nr_rhs``), and the step moves the unknowns only
-    (``_nr_move``). An LU of order up to ``fleet_solve.CAP`` is one K2
-    launch (``fleet_lu_solve``, no factors written; its plain version on
-    the CPU), larger ones and the other kinds go to
-    ``linalg.factorize``/``solve`` (cuSOLVER on the card). A singular
-    Jacobian raises ``LinAlgError`` unless ``check`` is off: then a
-    singular scenario's step comes out inf or NaN."""
+    (``_nr_move``). An LU is ``fleet_lu_solve`` (no factors written),
+    which picks K2 or the library route by device and order; the other
+    kinds go to ``linalg.factorize``/``solve``. A singular Jacobian raises
+    ``LinAlgError`` unless ``check`` is off: then a singular scenario's
+    step comes out inf or NaN."""
     rhs = _nr_rhs(arr, res)
-    if kind in (linalg.LU, linalg.KLU) and 0 < arr.order <= fleet_solve.CAP:
-        dx, bad = fleet_solve.fleet_lu_solve(res.jac, rhs)
-        if check and bool(bad.any()):
-            b = int(bad.ne(0).nonzero()[0, 0])
-            j = int(bad[b]) - 1
-            raise torch.linalg.LinAlgError(
-                f"the Jacobian of scenario {b} is singular: U[{j},{j}] is "
-                "zero")
-    else:
-        dx = linalg.solve(linalg.factorize(res.jac, kind, check), rhs)
+    if kind not in (linalg.LU, linalg.KLU):
+        return _nr_move(arr, vm, va, linalg.solve(
+            linalg.factorize(res.jac, kind, check), rhs))
+    dx, bad = fleet_solve.fleet_lu_solve(res.jac, rhs)
+    if check and bool(bad.any()):
+        b = int(bad.ne(0).nonzero()[0, 0])
+        j = int(bad[b]) - 1
+        raise torch.linalg.LinAlgError(
+            f"the Jacobian of scenario {b} is singular: U[{j},{j}] is zero")
     return _nr_move(arr, vm, va, dx)
 
 

@@ -40,7 +40,7 @@ def main() -> None:
     args = parser.parse_args()
     card = cs.phase0()
     rng = np.random.default_rng(cs.SEED)
-    room = k4._library().gs_sweep_room(0)
+    room = k4.LIBRARY.load().gs_sweep_room(0)
     for case in ("case118", "10k grid", "25k grid"):
         arr = compile_gs_arrays(cs.case_system(case), "cuda")
         n = arr.bus_type.numel()

@@ -40,12 +40,13 @@ def main() -> None:
     import torch
 
     import chip_smoke as cs
+    from juliagrid_tpu_torch.kernels import _build
     from juliagrid_tpu_torch.kernels import fleet_solve as k2
 
     cs.check(Path(k2.__file__).resolve().is_relative_to(root),
              f"imported {k2.__file__}, not the tree under {root}")
     cs.check(torch.cuda.is_available(), "no card")
-    k2._library()
+    _build.load_library("fleet_solve")
     for chol in (False, True):
         make = cs.k2_se_inputs if chol else cs.k2_nr_inputs
         solve, plain = cs.k2_pair(chol)

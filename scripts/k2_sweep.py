@@ -77,17 +77,7 @@ def build(variant):
          "-o", str(lib), str(_build.CSRC / "fleet_solve.cu")],
         capture_output=True, text=True)
     cs.check(res.returncode == 0, f"nvcc {variant} failed:\n{res.stderr}")
-    return bind(ctypes.CDLL(str(lib))), ptxas_lines(res.stderr)
-
-
-def bind(dll):
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    dll.fleet_solve_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    dll.fleet_solve_launch.restype = i32
-    dll.fleet_solve_blocks_per_sm.argtypes = [i32, i32, i32]
-    dll.fleet_solve_blocks_per_sm.restype = i32
-    dll.fleet_solve_config.argtypes = [ptr]
-    return dll
+    return k2.LIBRARY.bind(ctypes.CDLL(str(lib))), ptxas_lines(res.stderr)
 
 
 def launch(dll, a, b, chol):

@@ -50,7 +50,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 from juliagrid_tpu_torch.kernels import _build  # noqa: E402
 from juliagrid_tpu_torch.kernels import fleet_solve as k2  # noqa: E402
-from scripts.k2_sweep import bind, inputs, launch, ptxas_lines  # noqa: E402
+from scripts.k2_sweep import inputs, launch, ptxas_lines  # noqa: E402
 
 STAMPS = 96
 STAMP_BLOCKS = 4096
@@ -72,12 +72,7 @@ def build(defines, replace):
          "-DFLEET_SOLVE_TIMELINE", *(f"-D{d}" for d in defines), "-Xptxas",
          "-v", "-o", str(lib), str(path)], capture_output=True, text=True)
     cs.check(res.returncode == 0, f"nvcc failed:\n{res.stderr}")
-    dll = bind(ctypes.CDLL(str(lib)))
-    dll.fleet_solve_room.argtypes = [ctypes.c_int]
-    dll.fleet_solve_room.restype = ctypes.c_int64
-    dll.fleet_solve_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int,
-                                             ctypes.c_int64, ctypes.c_void_p]
-    dll.fleet_solve_shared_bytes.restype = ctypes.c_int64
+    dll = k2.LIBRARY.bind(ctypes.CDLL(str(lib)))
     dll.fleet_solve_timeline.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     dll.fleet_solve_timeline.restype = ctypes.c_int
     dll.fleet_solve_group_timeline.argtypes = [ctypes.c_void_p]

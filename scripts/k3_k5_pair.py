@@ -197,13 +197,14 @@ def main() -> None:
                                      add_wattmeter, measurement,
                                      newton_raphson_bbd, power_flow_bbd)
     from juliagrid_tpu_torch.estimation.acse_bbd import gauss_newton_bbd
+    from juliagrid_tpu_torch.kernels import _build
     from juliagrid_tpu_torch.kernels import schur_gather as k5
     from juliagrid_tpu_torch.kernels import se_fill as k3
     from juliagrid_tpu_torch.postprocessing import ac as ac_post
     from juliagrid_tpu_torch.powerflow.newton_bbd import compile_nr_bbd
     from juliagrid_tpu_torch.utils.synthetic import synthetic_grid
     print(f"tree {root}", flush=True)
-    k3._library(), k5._library()
+    _build.load_library("se_fill"), _build.load_library("schur_gather")
     timers = Timers(cs)
     rng = np.random.default_rng(cs.SEED)
 

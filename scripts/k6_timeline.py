@@ -102,10 +102,7 @@ def build():
                          capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(res.stderr)
-    lib = ctypes.CDLL(str(so))
-    lib.opf_fill_launch.argtypes = ([ctypes.c_void_p] * 6
-                                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    return lib, count
+    return k6.LIBRARY.bind(ctypes.CDLL(str(so))), count
 
 
 def pct(a):

@@ -57,8 +57,8 @@ def main() -> None:
                         default=[4, 8, 16, 24, 32, 48, 64])
     args = parser.parse_args()
     cs.check(torch.cuda.is_available(), "no card")
-    k3._library()
-    k8._library()
+    k3.LIBRARY.load()
+    k8.LIBRARY.load()
     systems = (("case118", cs.power_system(str(cs.DATA / "case118.m"))),
                (f"{cs.SE_GRID[0]}x{cs.SE_GRID[1]}",
                 cs.synthetic_grid(*cs.SE_GRID)))

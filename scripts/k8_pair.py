@@ -16,7 +16,7 @@ makes from seeded generators: bench.py's SCADA + PMU set
 (a fleet chunk) and 1, and the 10k-bus DC set (one scenario, K8 alone).
 Each line gives K3's entry mode and K8, each as the card's ms a call and
 as device ms with the calls queued, beside the dense route they replaced
-(K3's dense H; the rhs, W½ scaling and GEMM of ``_normal_equations``),
+(K3's dense H; the rhs, W½ scaling and GEMM of ``chip_smoke.dense_ac_gain``),
 the bound (K8: G and rhs written once, the values, weights, residuals and
 the gain table's pattern arrays read once; K3: its inputs read and outputs
 written once), and SHA-256 digests of the values, of G and of rhs, so that
@@ -61,6 +61,7 @@ def main() -> None:
     import torch
 
     import chip_smoke as cs
+    from juliagrid_tpu_torch.kernels import _build
     from juliagrid_tpu_torch.kernels import gain_fill as k8
     from juliagrid_tpu_torch.kernels import se_fill as k3
 
@@ -68,8 +69,8 @@ def main() -> None:
         cs.check(Path(mod.__file__).resolve().is_relative_to(root),
                  f"imported {mod.__file__}, not the tree under {root}")
     cs.check(torch.cuda.is_available(), "no card")
-    k3._library()
-    k8._library()
+    _build.load_library("se_fill")
+    _build.load_library("gain_fill")
     reps = args.reps
 
     def k8_line(label, table, vals, w, off, r, dense_ms):

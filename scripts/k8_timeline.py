@@ -80,12 +80,7 @@ def build(name, defines, replace):
          "-o", str(lib), str(path)], capture_output=True, text=True)
     cs.check(res.returncode == 0, f"nvcc failed:\n{res.stderr}")
     module = k8 if name == "gain_fill" else k3
-    real = _build.load_library
-    _build.load_library = lambda _: ctypes.CDLL(str(lib))
-    try:
-        dll = module._library.__wrapped__()
-    finally:
-        _build.load_library = real
+    dll = module.LIBRARY.bind(ctypes.CDLL(str(lib)))
     ptxas = [line.strip() for line in res.stderr.splitlines()
              if "registers" in line or "spill" in line]
     return dll, ptxas
@@ -94,13 +89,13 @@ def build(name, defines, replace):
 @contextlib.contextmanager
 def using(module, dll):
     """Launch ``module``'s kernel from ``dll`` inside the block."""
-    saved = module._library
-    module._library = lambda: dll
+    saved = module.LIBRARY.load()
+    module.LIBRARY.dll = dll
     # the tables' structs do not depend on the library
     try:
         yield
     finally:
-        module._library = saved
+        module.LIBRARY.dll = saved
 
 
 def timeline(module, dll, name, launch, blocks, width=5):
@@ -154,8 +149,8 @@ def main() -> None:
     args = parser.parse_args()
     k8.BAND_ELEMENTS = args.band_elements
     cs.check(torch.cuda.is_available(), "no card")
-    k8._library()
-    k3._library()
+    k8.LIBRARY.load()
+    k3.LIBRARY.load()
     copy8, ptx8 = build("gain_fill", ["GAIN_FILL_TIMELINE", *args.define],
                         args.replace)
     copy3, ptx3 = build("se_fill", ["SE_FILL_TIMELINE", *args.k3_define],

@@ -19,6 +19,7 @@ not installed::
     python -m pytest tests/test_torch_fleet_solve.py --noconftest -m card"""
 
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -27,8 +28,9 @@ import torch
 import juliagrid_tpu_torch as jgt
 from juliagrid_tpu_torch.estimation import acse as torch_acse
 from juliagrid_tpu_torch.kernels import fleet_solve as k2
+from juliagrid_tpu_torch.kernels.gain_fill import gain_fill_ref
 from juliagrid_tpu_torch.kernels.nr_fill import nr_fill_ref
-from juliagrid_tpu_torch.kernels.se_fill import se_fill_ref
+from juliagrid_tpu_torch.kernels.se_fill import se_fill_entries_ref
 from juliagrid_tpu_torch.parallel import batched_nr_solve
 from juliagrid_tpu_torch.powerflow.ac import (_masked_jacobian, _nr_rhs,
                                               _nr_update)
@@ -138,11 +140,10 @@ def test_plain_cholesky_solve_matches_jax_gn_increment(data_path, case,
     jarr, jnet, tarr, tnet, vm, va = _se_pair(data_path, case, pmu_every)
     want = np.asarray(gn_increment(jarr, jnet, jnp.asarray(vm),
                                    jnp.asarray(va), "LU")[0])
-    res = se_fill_ref(tarr, tnet, torch.tensor(vm)[None],
-                      torch.tensor(va)[None], tarr.mean[None],
-                      jacobian=True)
-    gain, rhs = torch_acse._normal_equations(tarr, res)
-    x, info = k2.fleet_cholesky_solve(gain.contiguous(), rhs)
+    gain, rhs = torch_acse._gain_equations(
+        tarr, tnet, torch.tensor(vm)[None], torch.tensor(va)[None],
+        tarr.mean[None], se_fill_entries_ref, gain_fill_ref)
+    x, info = k2.fleet_cholesky_solve(gain, rhs)
     assert not info.any()
     dx = (x * torch_acse._col_mask(tarr, len(vm), x))[0].numpy()
     assert np.abs(want).max() > 1e-4
@@ -240,15 +241,35 @@ def _good():
     (lambda a, b: (a[0], b[0]), ValueError, "must be \\[B, N, N\\]"),
     (lambda a, b: (a.to("meta"), b.to("meta")), ValueError,
      "runs on cuda or cpu tensors, not meta"),
-    (lambda a, b: (torch.eye(257, dtype=torch.float64)[None].contiguous(),
-                   torch.ones(1, 257, dtype=torch.float64)), ValueError,
-     "above K2's cap of 256"),
 ])
 @pytest.mark.parametrize("wrapper", [k2.fleet_lu_solve,
                                      k2.fleet_cholesky_solve])
 def test_wrappers_refuse(wrapper, bad, error, match):
     with pytest.raises(error, match=match):
         wrapper(*bad(*_good()))
+
+
+@pytest.mark.parametrize("n", [0, k2.CAP + 1])
+@pytest.mark.parametrize("wrapper,ref", [
+    (k2.fleet_lu_solve, k2.fleet_lu_solve_ref),
+    (k2.fleet_cholesky_solve, k2.fleet_cholesky_solve_ref)])
+def test_orders_outside_the_cap_take_the_plain_versions(wrapper, ref, n):
+    """An order K2 does not take (no unknowns, or above ``CAP``) gives the
+    plain version's bits and launches nothing, on any device: a CUDA fleet
+    goes to K2 at orders 1 to ``CAP`` only."""
+    rng = np.random.default_rng(n)
+    m = torch.tensor(rng.standard_normal((2, n, n)))
+    a = (m @ m.mT + n * torch.eye(n, dtype=torch.float64)).contiguous()
+    b = torch.tensor(rng.standard_normal((2, n)))
+    before = (k2.fleet_lu_solve.launches, k2.fleet_cholesky_solve.launches)
+    got, want = wrapper(a, b), ref(a, b)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (k2.fleet_lu_solve.launches,
+            k2.fleet_cholesky_solve.launches) == before
+    on_card = [k2._launches_k2(types.SimpleNamespace(
+        device=torch.device("cuda"), shape=(2, order, order)))
+        for order in (n, 1, k2.CAP)]
+    assert on_card == [False, True, True]
 
 
 def test_lu_wrapper_refuses_bad_factor_buffers():
@@ -273,7 +294,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert counts() == before
 
 
-@pytest.mark.parametrize("case", ["case14test", "case118"])
+@pytest.mark.parametrize("case", ["case14test", "case118", "case300"])
 def test_nr_update_keeps_its_cpu_bits(data_path, case):
     """``_nr_update`` on the CPU: the bits of the route before K2
     (``lu_factor`` + ``lu_solve``) on the Newton system at the unknowns'
@@ -303,13 +324,50 @@ def test_nr_update_raises_on_a_singular_jacobian_when_checked(data_path):
     assert not torch.isfinite(state[1]).all()
 
 
+def test_nr_update_raises_on_a_singular_jacobian_above_the_cap(data_path):
+    """Above ``CAP`` (case300's order) the library route's ``info`` is read
+    as K2's is: checked, a singular scenario raises; unchecked, it alone
+    comes out non-finite."""
+    arr, vm, va, res = _nr_inputs(data_path, "case300", 3)
+    assert arr.order > k2.CAP
+    res.jac[1, :, 5] = 0.0
+    with pytest.raises(torch.linalg.LinAlgError,
+                       match="scenario 1 is singular: U\\[5,5\\] is zero"):
+        _nr_update(arr, vm, va, res, "LU")
+    state = torch.cat(_nr_update(arr, vm, va, res, "LU", check=False), -1)
+    assert torch.isfinite(state[[0, 2]]).all()
+    assert not torch.isfinite(state[1]).all()
+
+
+def test_solve_normal_above_the_cap_keeps_the_library_bits(data_path):
+    """Gains above ``CAP`` (order 262 here) get ``cholesky_ex`` +
+    ``cholesky_solve``'s bits, the slack column masked, and ``rel`` inf
+    where the factorization fails."""
+    _, _, tarr, _, _, _ = _se_pair(data_path, "case14test", 3)
+    n = k2.CAP + 6
+    rng = np.random.default_rng(5)
+    m = torch.tensor(rng.standard_normal((2, n, n)))
+    gain = (m @ m.mT + n * torch.eye(n, dtype=torch.float64)).contiguous()
+    rhs = torch.tensor(rng.standard_normal((2, n)))
+    chol, _ = torch.linalg.cholesky_ex(gain)
+    want = torch.cholesky_solve(rhs[..., None], chol)[..., 0]
+    want = want * torch_acse._col_mask(tarr, n // 2, want)
+    dx, maxinc, rel = torch_acse._solve_normal(tarr, gain, rhs)
+    assert torch.equal(dx, want) and torch.equal(maxinc,
+                                                 want.abs().amax(-1))
+    assert (rel < 1e-10).all()
+    bad = gain.clone()
+    bad[1] = -bad[1]
+    assert torch.isinf(torch_acse._solve_normal(tarr, bad, rhs)[2][1])
+
+
 def test_solve_normal_keeps_its_cpu_bits(data_path):
     _, _, tarr, tnet, vm, va = _se_pair(data_path, "case118", 10)
     vm2 = torch.tensor(np.stack([vm, vm * 1.001]))
     va2 = torch.tensor(np.stack([va, va + 0.001]))
-    res = se_fill_ref(tarr, tnet, vm2, va2, tarr.mean.expand(2, -1),
-                      jacobian=True)
-    gain, rhs = torch_acse._normal_equations(tarr, res)
+    gain, rhs = torch_acse._gain_equations(
+        tarr, tnet, vm2, va2, tarr.mean.expand(2, -1), se_fill_entries_ref,
+        gain_fill_ref)
     chol, info = torch.linalg.cholesky_ex(gain)
     want = torch.cholesky_solve(rhs[..., None], chol)[..., 0]
     want = want * torch_acse._col_mask(tarr, len(vm), want)

@@ -452,7 +452,7 @@ def test_fleet_bands_built_once_at_first_use(carried):
     ``check_bands`` refuses a list that misses a reference."""
     host = carried["gain_host"]
     table = k8.device_table(host, "cpu")
-    assert k8._BANDS.get(table.nz_ptr) is None
+    assert k8._CACHE.get(table.nz_ptr) is None
     bands = k8.fleet_bands(table)
     assert k8.fleet_bands(table) is bands
     want = k8.band_lists(host)

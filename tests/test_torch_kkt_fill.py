@@ -368,26 +368,6 @@ def test_kkt_fill_checks_its_inputs(data_path):
     assert k7.kkt_fill.launches == before
 
 
-def test_table_caches_go_with_their_keys(data_path):
-    """K7's and K6's launch structs are cached on a tensor of their tables
-    and hold the other tensors they point into, but not the key: when the
-    layout and the spec go, so do their entries."""
-    import gc
-    from juliagrid_tpu_torch.kernels import opf_fill as k6
-    spec = acopf._AcSpec(jgt.power_system(str(data_path / "case14test.m")),
-                         device="cpu")
-    lay = AcKktBbd(spec, 3)
-    before = (len(k7._TABLES), len(k6._TABLES))
-    first = k7._tables(lay.table, spec.arrays)
-    k6._tables(spec.arrays)
-    assert (len(k7._TABLES), len(k6._TABLES)) == (before[0] + 1,
-                                                  before[1] + 1)
-    assert k7._tables(lay.table, spec.arrays) == first
-    del lay, spec
-    gc.collect()
-    assert (len(k7._TABLES), len(k6._TABLES)) == before
-
-
 def test_library_path_keys_on_headers(tmp_path, monkeypatch):
     """A header a source includes is part of its build's key: editing it
     moves ``library_path``, editing an unrelated file does not."""

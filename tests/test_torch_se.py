@@ -16,7 +16,7 @@ import juliagrid_tpu_torch as jgt
 from juliagrid_tpu.estimation.pmuse import pmu_state_estimation
 from juliagrid_tpu.parallel.batch import batched_se_solve_jit
 from juliagrid_tpu_torch.estimation import acse as torch_acse
-from juliagrid_tpu_torch.kernels.se_fill import se_fill_ref
+from juliagrid_tpu_torch.kernels.se_fill import se_fill_entries_ref
 from juliagrid_tpu_torch.parallel import batched_se_solve
 from juliagrid_tpu_torch.utils.errors import MethodError_
 
@@ -306,7 +306,7 @@ def test_batched_se_solve_scenario_equals_single_solve(fleet118):
     _, _, tarr, tnet, vm0, va0, means = fleet118
     vm, va, iters, conv = batched_se_solve(
         tarr, tnet, torch.tensor(vm0[:2]), torch.tensor(va0[:2]),
-        torch.tensor(means[:2]), fill=se_fill_ref)
+        torch.tensor(means[:2]), fill=se_fill_entries_ref)
     one = tarr._replace(mean=torch.tensor(means[1]))
     svm, sva, it, _, converged, _ = torch_acse._se_solve(
         one, tnet, torch.tensor(vm0[1]), torch.tensor(va0[1]), 1e-8, 40,
